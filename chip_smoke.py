@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`ringsnark_tpu_torch`) on one GPU.
 
-    python3 chip_smoke.py            # full size: Rq N=8192, L=1, M=2^14, N'=16384
+    python3 chip_smoke.py            # full size: Rq N=8192, L=1, N'=16384; M=2^14 resident, 2^16 seeded
     python3 chip_smoke.py --small    # the same phases at a small size (debugging)
 
 Phases, each timed on its own line; any failure raises, prints its
@@ -9,22 +9,37 @@ traceback and exits nonzero without the final line:
 
 0. environment: torch/CUDA versions, nvcc, the card's name and power limit;
    fails without CUDA.
-1. build the NTT kernel from `ringsnark_tpu_torch/csrc/ntt.cu`.
-2. kernel against its plain PyTorch twin, on the card: every mode at every
-   shape the main path uses must be equal; then both are timed at the main
-   path's batch (CUDA events).
-3. the main path through the package API: ringGroth16 `generator` ->
-   `prover` (cold, then warm: the two proofs must be identical) ->
-   `verifier` (True), and `verifier` with one public input changed (False).
-   Every kernel launch count is reset just before and read just after; each
-   mode must have launched.
+1. build the NTT kernels from `ringsnark_tpu_torch/csrc/ntt.cu`.
+2. the shared-memory kernel against its plain PyTorch twin, on the card:
+   every mode at every shape the resident path uses must be equal; then
+   both are timed at the main path's batch (CUDA events).
+2b. the split kernel against its plain versions (`ntt_split_plain` and the
+   full-size twin): all four modes at M = 2^16 and 2^17 on the witness
+   map's batch (1024 slot rows) and at 2^18 and 2^19 on a few rows, plus
+   inverse(forward(x)) == x; kernel and plain split timed at the main-path
+   shapes.  Then the two CTA orders of the shared-memory kernel, timed at
+   the seeded MAC's encoding shape.
+3. the resident main path (M=2^14) through the package API: ringGroth16
+   `generator` -> `prover` (cold, then warm: the two proofs must be
+   identical) -> `verifier` (True), and `verifier` with one public input
+   changed (False).  Every kernel launch count is reset just before and
+   read just after; each shared-memory mode must have launched.
 4. small-input cross-check: a keypair made on the card, carried to the CPU,
    gives the same proof from the plain twins as from the kernels, and the
    CPU verifier accepts the card's proof.
+5. the seeded main path (M=2^16): the resident phase's memory is freed, then
+   `generator_seeded` -> `prover_seeded` cold and warm (identical proofs) ->
+   `verifier` (True; False with a changed public input), with the launch
+   counts reset before and read after: the negacyclic shared-memory modes
+   and both cyclic split modes must have launched.  Prints the stage times,
+   the resident CRS (c0) and the peak allocation.
+6. small seeded cross-check: the card's seeded proof equals, bit for bit,
+   the proof that the same keypair gives on the CPU, and the CPU verifier
+   accepts it.
 
-The line before the last is a JSON object with the kernels' launch counts,
-errors and times; the last line is `{"ok": true, "device": {...}}`.
-This script imports nothing of JAX.
+The line before the last is a JSON object with the kernels' launch counts
+(both main paths), errors and times; the last line is
+`{"ok": true, "device": {...}}`.  This script imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -38,10 +53,15 @@ import time
 import numpy as np
 import torch
 
-# main-path configuration: the README's Rq row (BASELINE north-star ring)
+# main-path configurations: the README's Rq row (BASELINE north-star ring);
+# the resident CRS at M=2^14, the seeded CRS at M=2^16 (the largest M whose
+# seeded CRS fits one 80 GB card)
 FULL = dict(L=1, N=8192, n_inner=16384, log_m=14)
+FULL_SEEDED = dict(FULL, log_m=16)
 SMALL = dict(L=1, N=256, n_inner=512, log_m=8)
+SMALL_SEEDED = dict(SMALL, log_m=9)
 REPLACES = "ringsnark_tpu/ops/pallas_ntt.py:170"  # _ntt_kernel_gridfree
+REPLACES_SPLIT = "ringsnark_tpu/ops/pallas_ntt.py:557"  # ntt_split_pallas -> _outer_kernel :458
 SOURCE = "ringsnark_tpu_torch/csrc/ntt.cu"
 
 
@@ -50,7 +70,7 @@ def check(cond, msg):
         raise RuntimeError(f"check failed: {msg}")
 
 
-def phase(n, name, t0):
+def phase(n, name, t0):  # n: phase number or label
     torch.cuda.synchronize()
     print(f"[phase {n}] {name}: {time.perf_counter() - t0:.3f} s", flush=True)
 
@@ -154,11 +174,88 @@ def kernel_vs_plain(params, cfg):
     return report
 
 
+def split_vs_plain(params, cfg, small: bool):
+    """Phase 2b: the split kernel == its plain versions at every shape; times
+    at the witness map's shapes; the two CTA orders of the shared-memory
+    kernel at the seeded MAC's encoding shape."""
+    from ringsnark_tpu_torch.ops import cuda_ntt
+    from ringsnark_tpu_torch.ops import ntt as nttm
+    from ringsnark_tpu_torch.ops.primes import find_ntt_primes
+    from ringsnark_tpu_torch.snark import seeded
+
+    ring, ectx = params.ring, params.enc
+    mi = (1 << cfg["log_m"]) // 4 if small else nttm.SPLIT_MI  # full size: M = 4 mi
+    slot_rows = min(1024, ring.N)
+    big = tuple(find_ntt_primes(1, 2 * 32 * mi))  # roots of order 2M for negacyclic M = 32 mi
+    # (M, primes, rows, timed): the witness map's iNTT at M and product at 2M
+    shapes = [(4 * mi, ring.primes, slot_rows, True), (8 * mi, ring.primes, slot_rows, True),
+              (16 * mi, big, 4, False), (32 * mi, big, 2, False)]
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    report = {m: {"max_abs_err": 0, "ms": None, "plain_ms": None, "full_twin_ms": None,
+                  "shape": None} for m in cuda_ntt.SPLIT_MODES}
+    for M, primes, rows, timed in shapes:
+        x = torch.cat([torch.randint(0, p, (rows, 1, M), generator=gen, dtype=torch.int32,
+                                     device="cuda") for p in primes], dim=1)
+        for nega in (False, True):
+            plan = nttm.get_plan(tuple(primes), M, negacyclic=nega)
+            for inverse in (False, True):
+                mode = "split_" + cuda_ntt.mode_name(inverse, nega)
+                got = cuda_ntt.ntt_split(x, plan, inverse, nega, mi=mi)
+                plain = nttm.ntt_split_plain(x, plan, inverse, nega, mi=mi)
+                full = nttm.PLAIN_TWINS[(inverse, nega)](x, plan)
+                err = max(int((got.to(torch.int64) - w.to(torch.int64)).abs().max())
+                          for w in (plain, full))
+                report[mode]["max_abs_err"] = max(report[mode]["max_abs_err"], err)
+                check(torch.equal(got, plain) and torch.equal(got, full),
+                      f"{mode} kernel != plain at M={M}, rows={rows}")
+                if not inverse:
+                    fwd = got
+                print(f"  equal  {mode:21s} M={M:<7d} rows={rows}", flush=True)
+                if timed:
+                    ms = cuda_ms(lambda: cuda_ntt.ntt_split(x, plan, inverse, nega, mi=mi))
+                    pms = cuda_ms(lambda: nttm.ntt_split_plain(x, plan, inverse, nega, mi=mi),
+                                  iters=3)
+                    fms = cuda_ms(lambda: nttm.PLAIN_TWINS[(inverse, nega)](x, plan), iters=3)
+                    print(f"  time   {mode:21s} M={M:<7d} rows={rows}: kernel {ms:.4f} ms, "
+                          f"plain split {pms:.4f} ms, full twin {fms:.4f} ms", flush=True)
+                    # the witness map's shapes: the cyclic inverse at M
+                    # (interpolation), the forward at 2M (the H product)
+                    if M == (4 * mi if inverse and not nega else 8 * mi):
+                        report[mode].update(ms=ms, plain_ms=pms, full_twin_ms=fms,
+                                            shape=f"M={M}, L={len(primes)}, rows={rows}")
+            back = cuda_ntt.ntt_split(fwd, plan, True, nega, mi=mi)
+            check(torch.equal(back, x), f"split inverse(forward(x)) != x at M={M}, nega={nega}")
+        del x
+
+    # CTA orders of the shared-memory kernel at the seeded MAC's encoding
+    # shape: one row sub-chunk of plaintexts, [rows, L * L', N']
+    rows = seeded._sub_rows(ectx) * ring.L
+    plan = ectx.inner_plan(0)
+    x = torch.cat([torch.randint(0, p, (rows, 1, ectx.n_inner), generator=gen,
+                                 dtype=torch.int32, device="cuda") for p in plan.primes], dim=1)
+    orders = {}
+    for inverse in (False, True):
+        want = nttm.PLAIN_TWINS[(inverse, True)](x, plan)
+        for order in cuda_ntt.CTA_ORDERS:
+            got = cuda_ntt.ntt(x, plan, inverse, True, order=order)
+            check(torch.equal(got, want), f"CTA order {order} != twin (inverse={inverse})")
+        # alternate the two orders so drift hits both alike
+        for order in cuda_ntt.CTA_ORDERS + cuda_ntt.CTA_ORDERS[::-1]:
+            ms = cuda_ms(lambda: cuda_ntt.ntt(x, plan, inverse, True, order=order), iters=20)
+            key = f"negacyclic_{'inv' if inverse else 'fwd'}_{order}_ms"
+            orders[key] = min(orders.get(key, ms), ms)
+    print(f"  CTA order at N'={ectx.n_inner}, L'={plan.L}, rows={rows}: {orders}; the path "
+          f"uses {cuda_ntt.CTA_ORDER!r}", flush=True)
+    orders.update(shape=f"N'={ectx.n_inner}, L'={plan.L}, rows={rows}", used=cuda_ntt.CTA_ORDER)
+    return report, orders
+
+
 def main_path(params, cfg):
     """Phase 3: generator -> prover x2 -> verifier (+ tampered)."""
     from ringsnark_tpu_torch.models.synthetic import build_synthetic_square_chain
     from ringsnark_tpu_torch.ops import cuda_ntt
     from ringsnark_tpu_torch.snark import groth16
+    from ringsnark_tpu_torch.utils import prng
 
     ring = params.ring
     M = 1 << cfg["log_m"]
@@ -180,8 +277,8 @@ def main_path(params, cfg):
         "circuit", lambda: build_synthetic_square_chain(ring, M, np.random.default_rng(0)))
     torch.cuda.reset_peak_memory_stats()
     cuda_ntt.reset_launch_counts()
-    gen = torch.Generator(device=ring.device).manual_seed(0)
-    kp = stage("setup", lambda: groth16.generator(comp, params, np.random.default_rng(1), gen))
+    kp = stage("setup", lambda: groth16.generator(comp, params, np.random.default_rng(1),
+                                                  prng.key(0)))
     proof = stage("prove_cold", lambda: groth16.prover(kp.pk, primary, aux))
     proof2 = stage("prove_warm", lambda: groth16.prover(kp.pk, primary, aux))
     ok = stage("verify", lambda: groth16.verifier(kp.vk, primary, proof))
@@ -204,8 +301,8 @@ def main_path(params, cfg):
     for e in (proof.A, proof.B, proof.C):
         check(tuple(e.c0.shape) == (ring.L, params.enc.floor_limbs, params.enc.n_inner),
               f"proof element shape {tuple(e.c0.shape)}")
-    for mode, n in counts.items():
-        check(n > 0, f"kernel mode {mode} never launched on the main path")
+    for mode in cuda_ntt.MODES:
+        check(counts[mode] > 0, f"kernel mode {mode} never launched on the main path")
     return counts, times, crs_bytes, peak
 
 
@@ -213,14 +310,13 @@ def small_cross_check():
     """Phase 4: the card's prover == the CPU plain-twin prover, bit for bit."""
     from ringsnark_tpu_torch.models.synthetic import build_synthetic_square_chain
     from ringsnark_tpu_torch.snark import groth16
-    from ringsnark_tpu_torch.utils import interop
+    from ringsnark_tpu_torch.utils import interop, prng
 
     cfg = dict(SMALL, log_m=6)
     p_gpu, p_cpu = make_params(cfg, "cuda"), make_params(cfg, "cpu")
     M = 1 << cfg["log_m"]
     comp, primary, aux = build_synthetic_square_chain(p_gpu.ring, M, np.random.default_rng(5))
-    kp = groth16.generator(comp, p_gpu, np.random.default_rng(6),
-                           torch.Generator(device="cuda").manual_seed(7))
+    kp = groth16.generator(comp, p_gpu, np.random.default_rng(6), prng.key(7))
     proof = groth16.prover(kp.pk, primary, aux)
     kp_cpu = interop.keypair_from_numpy(p_cpu, interop.keypair_to_numpy(kp))
     _, primary_c, aux_c = build_synthetic_square_chain(p_cpu.ring, M, np.random.default_rng(5))
@@ -234,6 +330,88 @@ def small_cross_check():
           "CPU verifier rejected the card's proof")
     print(f"  small input (N={cfg['N']}, N'={cfg['n_inner']}, M=2^{cfg['log_m']}): "
           "card proof == CPU proof, CPU verifier accepts", flush=True)
+
+
+def seeded_path(params, cfg):
+    """Phase 5: generator_seeded -> prover_seeded x2 -> verifier (+ tampered)."""
+    from ringsnark_tpu_torch.models.synthetic import build_synthetic_square_chain
+    from ringsnark_tpu_torch.ops import cuda_ntt
+    from ringsnark_tpu_torch.ops import ntt as nttm
+    from ringsnark_tpu_torch.snark import groth16, seeded
+    from ringsnark_tpu_torch.utils import prng
+
+    ring, ectx = params.ring, params.enc
+    M = 1 << cfg["log_m"]
+    print(f"  config: ring N={ring.N} L={ring.L} primes={ring.primes}, M=2^{cfg['log_m']}, "
+          f"N'={ectx.n_inner} L'={ectx.L_inner} floor={ectx.floor_limbs} "
+          f"inner={ectx.inner_primes}, slab {seeded.DEFAULT_SLAB}", flush=True)
+    times = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        print(f"  {name}: {times[name]:.3f} s", flush=True)
+        return out
+
+    comp, primary, aux = stage(
+        "circuit", lambda: build_synthetic_square_chain(ring, M, np.random.default_rng(0)))
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ntt.reset_launch_counts()
+    kp = stage("setup", lambda: seeded.generator_seeded(comp, params, np.random.default_rng(1),
+                                                        prng.key(0)))
+    proof = stage("prove_cold", lambda: seeded.prover_seeded(kp.pk, primary, aux))
+    proof2 = stage("prove_warm", lambda: seeded.prover_seeded(kp.pk, primary, aux))
+    ok = stage("verify", lambda: groth16.verifier(kp.vk, primary, proof))
+    rejected = not stage("verify_tampered", lambda: groth16.verifier(kp.vk, primary + 1, proof))
+    counts = dict(cuda_ntt.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    crs_bytes = kp.pk.c0_bytes()
+    print(f"  seeded CRS {crs_bytes / 2**30:.3f} GiB resident (c0 of the seeded batches; "
+          f"alpha, beta, gamma_io whole); peak allocated {peak / 2**30:.3f} GiB; "
+          f"launches {counts}", flush=True)
+    check(ok is True, "verifier rejected an honest seeded proof")
+    check(rejected, "verifier accepted a seeded proof against a changed public input")
+    check(all(a == b for a, b in zip((proof.A, proof.B, proof.C),
+                                     (proof2.A, proof2.B, proof2.C))),
+          "cold and warm seeded proofs differ")
+    for e in (proof.A, proof.B, proof.C):
+        check(tuple(e.c0.shape) == (ring.L, ectx.floor_limbs, ectx.n_inner),
+              f"proof element shape {tuple(e.c0.shape)}")
+    # the witness map's transforms of M and 2M take the split kernel past
+    # MAX_KERNEL_M (at M = 2^16 both do; --small stays below it)
+    cyc = "split_cyclic" if 2 * M > nttm.MAX_KERNEL_M else "cyclic"
+    for mode in ("negacyclic_fwd", "negacyclic_inv", f"{cyc}_fwd", f"{cyc}_inv"):
+        check(counts[mode] > 0, f"kernel mode {mode} never launched on the seeded path")
+    return counts, times, crs_bytes, peak
+
+
+def small_seeded_cross_check():
+    """Phase 6: the card's seeded proof == the CPU's from the same keypair."""
+    from ringsnark_tpu_torch.models.synthetic import build_synthetic_square_chain
+    from ringsnark_tpu_torch.snark import groth16, seeded
+    from ringsnark_tpu_torch.utils import interop, prng
+
+    cfg = dict(SMALL, log_m=6)
+    p_gpu, p_cpu = make_params(cfg, "cuda"), make_params(cfg, "cpu")
+    M = 1 << cfg["log_m"]
+    comp, primary, aux = build_synthetic_square_chain(p_gpu.ring, M, np.random.default_rng(8))
+    kp = seeded.generator_seeded(comp, p_gpu, np.random.default_rng(9), prng.key(10), slab=16)
+    proof = seeded.prover_seeded(kp.pk, primary, aux)
+    kp_cpu = interop.keypair_from_numpy(p_cpu, interop.keypair_to_numpy(kp))
+    _, primary_c, aux_c = build_synthetic_square_chain(p_cpu.ring, M, np.random.default_rng(8))
+    proof_cpu = seeded.prover_seeded(kp_cpu.pk, primary_c, aux_c)
+    for (g0, g1, gl), (c0, c1, cl) in zip(interop.proof_to_numpy(proof),
+                                          interop.proof_to_numpy(proof_cpu)):
+        check(gl == cl and np.array_equal(g0, c0) and np.array_equal(g1, c1),
+              "card seeded proof != CPU seeded proof on the small input")
+    check(groth16.verifier(kp_cpu.vk, primary_c,
+                           interop.proof_from_numpy(p_cpu, interop.proof_to_numpy(proof))),
+          "CPU verifier rejected the card's seeded proof")
+    print(f"  small seeded input (N={cfg['N']}, N'={cfg['n_inner']}, M=2^{cfg['log_m']}, "
+          "slab 16): card proof == CPU proof, CPU verifier accepts", flush=True)
 
 
 def main() -> int:
@@ -273,6 +451,12 @@ def main() -> int:
     phase(2, "kernel vs plain twin", t0)
 
     t0 = time.perf_counter()
+    cfg5 = SMALL_SEEDED if args.small else FULL_SEEDED
+    params5 = make_params(cfg5, "cuda")
+    split_report, orders = split_vs_plain(params5, cfg5, args.small)
+    phase("2b", "split kernel vs plain, CTA orders", t0)
+
+    t0 = time.perf_counter()
     counts, times, crs_bytes, peak = main_path(params, cfg)
     phase(3, "main path", t0)
 
@@ -280,15 +464,37 @@ def main() -> int:
     small_cross_check()
     phase(4, "small-input cross-check", t0)
 
+    torch.cuda.empty_cache()  # the resident CRS of phase 3 is gone with its keypair
+    t0 = time.perf_counter()
+    counts5, times5, crs5, peak5 = seeded_path(params5, cfg5)
+    phase(5, "seeded main path", t0)
+
+    t0 = time.perf_counter()
+    small_seeded_cross_check()
+    phase(6, "small seeded cross-check", t0)
+
     kernels = [
         {"name": f"ntt_{m}", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-         "launches": counts[m], "max_abs_err": report[m]["max_abs_err"],
+         "launches": counts[m] + counts5[m],
+         "launches_by_path": {"resident": counts[m], "seeded": counts5[m]},
+         "max_abs_err": report[m]["max_abs_err"],
          "ms": report[m]["ms"], "plain_ms": report[m]["plain_ms"],
          "shape": report[m]["shape"]}
         for m in cuda_ntt.MODES
+    ] + [
+        {"name": f"ntt_{m}", "route": "cuda", "source": SOURCE, "replaces": REPLACES_SPLIT,
+         "launches": counts[m] + counts5[m],
+         "launches_by_path": {"resident": counts[m], "seeded": counts5[m]},
+         "max_abs_err": split_report[m]["max_abs_err"],
+         "ms": split_report[m]["ms"], "plain_ms": split_report[m]["plain_ms"],
+         "full_twin_ms": split_report[m]["full_twin_ms"], "shape": split_report[m]["shape"]}
+        for m in cuda_ntt.SPLIT_MODES
     ]
-    summary = {"config": cfg, "stage_s": times, "crs_gib": crs_bytes / 2**30,
-               "peak_allocated_gib": peak / 2**30}
+    summary = {"resident": {"config": cfg, "stage_s": times, "crs_gib": crs_bytes / 2**30,
+                            "peak_allocated_gib": peak / 2**30},
+               "seeded": {"config": cfg5, "stage_s": times5, "crs_c0_gib": crs5 / 2**30,
+                          "peak_allocated_gib": peak5 / 2**30},
+               "cta_order": orders}
     print(json.dumps(summary), flush=True)
     print(card, flush=True)  # as nvidia-smi prints it: name, power limit
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,9 +11,9 @@ Conventions:
   ``int64`` and reduced with ``torch.remainder`` before any sum;
 * every context carries an explicit ``device``; a CUDA tensor goes to the
   kernel, a CPU tensor to its plain PyTorch twin (``ops/ntt.py``);
-* host-side secrets come from numpy ``Generator``s drawn exactly as the JAX
-  package draws them, and encryption noise from an explicit
-  ``torch.Generator``.
+* host-side secrets come from numpy ``Generator``s and encryption
+  randomness from threefry keys (``utils/prng.py``), both drawn exactly as
+  the JAX package draws them, so one seed and key give the same keypair.
 
 This package never imports jax.
 """

@@ -1,11 +1,17 @@
 // Batched cyclic / negacyclic NTT over 31-bit RNS limbs, for Hopper (sm_90a).
 //
-// Replaces: ringsnark_tpu/ops/pallas_ntt.py, `_ntt_kernel_gridfree` (all four
-// modes: forward/inverse x cyclic/negacyclic, reached through
-// negacyclic_ntt_rev_pallas, negacyclic_intt_nat_pallas, cyclic_ntt_rev_pallas
-// and cyclic_intt_nat_pallas).
+// Replaces: ringsnark_tpu/ops/pallas_ntt.py,
+//   * `_ntt_kernel_gridfree` (all four modes: forward/inverse x
+//     cyclic/negacyclic, reached through negacyclic_ntt_rev_pallas,
+//     negacyclic_intt_nat_pallas, cyclic_ntt_rev_pallas and
+//     cyclic_intt_nat_pallas), in both of its layouts (`_apply_lbm`,
+//     `_apply_blm`): here one kernel, `ntt_kernel`, whose CTA order is a
+//     launch argument;
+//   * the split large-M path `ntt_split_pallas` / `_outer_pass` /
+//     `_outer_kernel`: `outer_kernel` below plus `ntt_kernel` on the
+//     [B, L, R, Mi] view as the inner pass.
 //
-// Contract (identical to the TPU kernel and to the plain twins in
+// Contract (identical to the TPU kernels and to the plain twins in
 // ops/ntt.py, bit for bit):
 //   forward: natural order in, bit-reversed order out (DIF butterflies
 //            a' = a + b, b' = (a - b) * w); negacyclic first twists by psi^i;
@@ -21,24 +27,40 @@
 // a handful of 32-bit integer ops per butterfly (one __umulhi Shoup
 // multiply, no 64-bit products).
 //
-// What the design does about it: one CTA per (row, limb) transform holds the
-// whole polynomial in dynamic shared memory (32 KiB at M = 8192, 128 KiB at
-// M = 32768) and runs all log2(M) stages there with __syncthreads between
-// stages, so device memory sees one read and one write per element.  The
-// psi twist and M^-1 fold into the load / store passes.  Not done yet (later
-// work): a register-resident radix, several rows per CTA, the four-step
-// split for M > 32768.
+// What the design does about it:
+// * ntt_kernel: one CTA per (row, limb) transform holds the whole
+//   polynomial in dynamic shared memory (32 KiB at M = 8192, 128 KiB at
+//   M = 32768) and runs all log2(M) stages there with __syncthreads between
+//   stages, so device memory sees one read and one write per element.  The
+//   psi twist and M^-1 fold into the load / store passes.  Data are
+//   [B, L, S, M] (S = 1 for a plain batch, S = R for the split inner pass);
+//   CTA g takes transform g in row order, or in limb-major order (all rows
+//   of limb 0 first), which only changes which transforms run together.
+// * outer_kernel (split M = R * Mi, Mi = 16384 on the main path): one
+//   thread per (row, limb, column c) loads the R residues of column c of
+//   the [R, Mi] view (stride Mi; coalesced across threads along c), keeps
+//   them in registers, runs all log2(R) outer stages and writes them back:
+//   one more read and write per element than a single-pass transform.
+//   The psi twist (forward) and psi^-k M^-1 or M^-1 (inverse) fold into it,
+//   so the inner pass runs unscaled.
+// Not done yet (later work): a register-resident radix, several rows per
+// CTA, fusing the outer pass into the inner kernel's load or store.
 //
-// Tables (built once per (primes, M) on the host from ops/ntt.get_plan):
+// Tables (built once per (primes, M) on the host from ops/ntt.get_plan and
+// ops/ntt.get_split_tables):
 //   tw, tw_sh   [L, M] uint32: entry d + k (1 <= d < M, k < d) is w_{2d}^k
 //               (forward: w; inverse: w^-1) and its Shoup constant
 //               floor(w * 2^32 / p); entry 0 is unused.
 //   sc, sc_sh   [L, M] uint32: psi^i (forward) or psi^-i * M^-1 (inverse)
 //               and Shoup constants; unused for cyclic transforms.
 //   consts      [L, 3] uint32: p, M^-1 mod p, Shoup constant of M^-1.
+//   outer:      tw [L, s, R, Mi] positioned stage twiddles (read at the
+//               b-row of each pair), sc [L, R, Mi] twists, consts with the
+//               full-size M^-1.
 //
-// C interface: ringsnark_ntt_launch returns cudaGetLastError() after the
-// launch (0 on success); the Python wrapper raises on anything else.
+// C interface: ringsnark_ntt_launch and ringsnark_ntt_outer_launch return
+// cudaGetLastError() after the launch (0 on success); the Python wrapper
+// raises on anything else.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,12 +91,26 @@ __global__ void ntt_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict_
                            const uint32_t* __restrict__ tw_sh,
                            const uint32_t* __restrict__ sc,
                            const uint32_t* __restrict__ sc_sh,
-                           const uint32_t* __restrict__ consts, int L, int log_m) {
+                           const uint32_t* __restrict__ consts, int rows, int L,
+                           int S, int log_m, int limb_major, int scale) {
   extern __shared__ uint32_t buf[];
   const int M = 1 << log_m;
   const int half = M >> 1;
-  const int limb = blockIdx.x % L;
-  const size_t base = (size_t)blockIdx.x * (size_t)M;
+  // transform t of the [rows, L, S] batch; limb-major order walks limb 0's
+  // rows * S transforms first
+  const size_t g = blockIdx.x;
+  int limb;
+  size_t t;
+  if (limb_major) {
+    const size_t per_limb = (size_t)rows * (size_t)S;
+    limb = (int)(g / per_limb);
+    const size_t j = g % per_limb;
+    t = ((j / S) * L + limb) * S + j % S;
+  } else {
+    limb = (int)((g / S) % L);
+    t = g;
+  }
+  const size_t base = t * (size_t)M;
   const size_t tbase = (size_t)limb * (size_t)M;
   const uint32_t p = consts[3 * limb];
   const uint32_t* w = tw + tbase;
@@ -122,8 +158,11 @@ __global__ void ntt_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict_
   for (int i = threadIdx.x; i < M; i += blockDim.x) {
     uint32_t v = buf[i];
     if (kInverse) {
-      v = kNegacyclic ? shoup_mul(v, sc[tbase + i], sc_sh[tbase + i], p)
-                      : shoup_mul(v, minv, minv_sh, p);
+      if (kNegacyclic) {
+        v = shoup_mul(v, sc[tbase + i], sc_sh[tbase + i], p);
+      } else if (scale) {
+        v = shoup_mul(v, minv, minv_sh, p);
+      }
     }
     y[base + i] = v;
   }
@@ -132,8 +171,8 @@ __global__ void ntt_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict_
 template <bool kInverse, bool kNegacyclic>
 cudaError_t launch(const uint32_t* x, uint32_t* y, const uint32_t* tw,
                    const uint32_t* tw_sh, const uint32_t* sc, const uint32_t* sc_sh,
-                   const uint32_t* consts, int rows, int L, int log_m,
-                   cudaStream_t stream) {
+                   const uint32_t* consts, int rows, int L, int S, int log_m,
+                   int limb_major, int scale, cudaStream_t stream) {
   const int M = 1 << log_m;
   const size_t smem = (size_t)M * sizeof(uint32_t);
   int threads = M / 2;
@@ -145,9 +184,113 @@ cudaError_t launch(const uint32_t* x, uint32_t* y, const uint32_t* tw,
                                            (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const unsigned int blocks = (unsigned int)rows * (unsigned int)L;
+  const unsigned int blocks = (unsigned int)rows * (unsigned int)L * (unsigned int)S;
   ntt_kernel<kInverse, kNegacyclic><<<blocks, threads, smem, stream>>>(
-      x, y, tw, tw_sh, sc, sc_sh, consts, L, log_m);
+      x, y, tw, tw_sh, sc, sc_sh, consts, rows, L, S, log_m, limb_major, scale);
+  return cudaGetLastError();
+}
+
+// All log2(R) outer stages of the split transform on the [B, L, R, Mi] view:
+// thread t = (row b, limb l, column c) owns x[b, l, 0..R-1, c].
+template <int kLogR, bool kInverse, bool kNegacyclic>
+__global__ void outer_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
+                             const uint32_t* __restrict__ tw,
+                             const uint32_t* __restrict__ tw_sh,
+                             const uint32_t* __restrict__ sc,
+                             const uint32_t* __restrict__ sc_sh,
+                             const uint32_t* __restrict__ consts, size_t columns, int L,
+                             int log_mi) {
+  constexpr int R = 1 << kLogR;
+  const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= columns) return;
+  const size_t Mi = (size_t)1 << log_mi;
+  const size_t c = t & (Mi - 1);
+  const size_t bl = t >> log_mi;  // row * L + limb
+  const int limb = (int)(bl % L);
+  const size_t base = bl * R * Mi + c;
+  const size_t sbase = (size_t)limb * R * Mi + c;          // sc: [L, R, Mi]
+  const size_t tbase = (size_t)limb * kLogR * R * Mi + c;  // tw: [L, s, R, Mi]
+  const uint32_t p = consts[3 * limb];
+
+  uint32_t v[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    v[r] = x[base + r * Mi];
+    if (!kInverse && kNegacyclic) {
+      v[r] = shoup_mul(v[r], sc[sbase + r * Mi], sc_sh[sbase + r * Mi], p);
+    }
+  }
+
+  if (!kInverse) {
+    // DIF: stage i pairs rows r, r + d with d = R >> (i + 1)
+#pragma unroll
+    for (int i = 0; i < kLogR; ++i) {
+      const int d = R >> (i + 1);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if ((r & (2 * d - 1)) < d) {
+          const size_t ti = tbase + ((size_t)i * R + r + d) * Mi;
+          const uint32_t a = v[r];
+          const uint32_t b = v[r + d];
+          v[r] = add_mod(a, b, p);
+          v[r + d] = shoup_mul(sub_mod(a, b, p), tw[ti], tw_sh[ti], p);
+        }
+      }
+    }
+  } else {
+    // DIT: stages in reverse order, the twiddle read at the b-row
+#pragma unroll
+    for (int i = kLogR - 1; i >= 0; --i) {
+      const int d = R >> (i + 1);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if ((r & (2 * d - 1)) < d) {
+          const size_t ti = tbase + ((size_t)i * R + r + d) * Mi;
+          const uint32_t a = v[r];
+          const uint32_t m = shoup_mul(v[r + d], tw[ti], tw_sh[ti], p);
+          v[r] = add_mod(a, m, p);
+          v[r + d] = sub_mod(a, m, p);
+        }
+      }
+    }
+    const uint32_t minv = consts[3 * limb + 1];
+    const uint32_t minv_sh = consts[3 * limb + 2];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      v[r] = kNegacyclic ? shoup_mul(v[r], sc[sbase + r * Mi], sc_sh[sbase + r * Mi], p)
+                         : shoup_mul(v[r], minv, minv_sh, p);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) y[base + r * Mi] = v[r];
+}
+
+template <int kLogR>
+cudaError_t launch_outer(const uint32_t* x, uint32_t* y, const uint32_t* tw,
+                         const uint32_t* tw_sh, const uint32_t* sc, const uint32_t* sc_sh,
+                         const uint32_t* consts, int rows, int L, int log_mi, bool inverse,
+                         bool negacyclic, cudaStream_t stream) {
+  const size_t columns = (size_t)rows * (size_t)L << log_mi;
+  const int threads = 256;
+  const unsigned int blocks = (unsigned int)((columns + threads - 1) / threads);
+  if (inverse) {
+    if (negacyclic) {
+      outer_kernel<kLogR, true, true><<<blocks, threads, 0, stream>>>(
+          x, y, tw, tw_sh, sc, sc_sh, consts, columns, L, log_mi);
+    } else {
+      outer_kernel<kLogR, true, false><<<blocks, threads, 0, stream>>>(
+          x, y, tw, tw_sh, sc, sc_sh, consts, columns, L, log_mi);
+    }
+  } else {
+    if (negacyclic) {
+      outer_kernel<kLogR, false, true><<<blocks, threads, 0, stream>>>(
+          x, y, tw, tw_sh, sc, sc_sh, consts, columns, L, log_mi);
+    } else {
+      outer_kernel<kLogR, false, false><<<blocks, threads, 0, stream>>>(
+          x, y, tw, tw_sh, sc, sc_sh, consts, columns, L, log_mi);
+    }
+  }
   return cudaGetLastError();
 }
 
@@ -156,10 +299,10 @@ cudaError_t launch(const uint32_t* x, uint32_t* y, const uint32_t* tw,
 extern "C" int ringsnark_ntt_launch(const void* x, void* y, const void* tw,
                                     const void* tw_sh, const void* sc,
                                     const void* sc_sh, const void* consts, int rows,
-                                    int L, int log_m, int inverse, int negacyclic,
-                                    void* stream) {
-  if (log_m < 1 || log_m > 15 || rows < 1 || L < 1 ||
-      (long long)rows * (long long)L > 0x7fffffffLL) {
+                                    int L, int S, int log_m, int inverse, int negacyclic,
+                                    int limb_major, int scale, void* stream) {
+  if (log_m < 1 || log_m > 15 || rows < 1 || L < 1 || S < 1 ||
+      (long long)rows * (long long)L * (long long)S > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
   const uint32_t* xi = static_cast<const uint32_t*>(x);
@@ -172,11 +315,46 @@ extern "C" int ringsnark_ntt_launch(const void* x, void* y, const void* tw,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (inverse) {
-    err = negacyclic ? launch<true, true>(xi, yo, t, ts, s, ss, c, rows, L, log_m, st)
-                     : launch<true, false>(xi, yo, t, ts, s, ss, c, rows, L, log_m, st);
+    err = negacyclic
+              ? launch<true, true>(xi, yo, t, ts, s, ss, c, rows, L, S, log_m, limb_major,
+                                   scale, st)
+              : launch<true, false>(xi, yo, t, ts, s, ss, c, rows, L, S, log_m, limb_major,
+                                    scale, st);
   } else {
-    err = negacyclic ? launch<false, true>(xi, yo, t, ts, s, ss, c, rows, L, log_m, st)
-                     : launch<false, false>(xi, yo, t, ts, s, ss, c, rows, L, log_m, st);
+    err = negacyclic
+              ? launch<false, true>(xi, yo, t, ts, s, ss, c, rows, L, S, log_m, limb_major,
+                                    scale, st)
+              : launch<false, false>(xi, yo, t, ts, s, ss, c, rows, L, S, log_m,
+                                     limb_major, scale, st);
+  }
+  return (int)err;
+}
+
+extern "C" int ringsnark_ntt_outer_launch(const void* x, void* y, const void* tw,
+                                          const void* tw_sh, const void* sc,
+                                          const void* sc_sh, const void* consts, int rows,
+                                          int L, int log_r, int log_mi, int inverse,
+                                          int negacyclic, void* stream) {
+  if (log_r < 1 || log_r > 5 || log_mi < 1 || log_mi > 20 || rows < 1 || L < 1 ||
+      (((long long)rows * (long long)L) << log_mi) / 256 > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const uint32_t* xi = static_cast<const uint32_t*>(x);
+  uint32_t* yo = static_cast<uint32_t*>(y);
+  const uint32_t* t = static_cast<const uint32_t*>(tw);
+  const uint32_t* ts = static_cast<const uint32_t*>(tw_sh);
+  const uint32_t* s = static_cast<const uint32_t*>(sc);
+  const uint32_t* ss = static_cast<const uint32_t*>(sc_sh);
+  const uint32_t* c = static_cast<const uint32_t*>(consts);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool inv = inverse != 0, nega = negacyclic != 0;
+  cudaError_t err;
+  switch (log_r) {
+    case 1: err = launch_outer<1>(xi, yo, t, ts, s, ss, c, rows, L, log_mi, inv, nega, st); break;
+    case 2: err = launch_outer<2>(xi, yo, t, ts, s, ss, c, rows, L, log_mi, inv, nega, st); break;
+    case 3: err = launch_outer<3>(xi, yo, t, ts, s, ss, c, rows, L, log_mi, inv, nega, st); break;
+    case 4: err = launch_outer<4>(xi, yo, t, ts, s, ss, c, rows, L, log_mi, inv, nega, st); break;
+    default: err = launch_outer<5>(xi, yo, t, ts, s, ss, c, rows, L, log_mi, inv, nega, st); break;
   }
   return (int)err;
 }

@@ -6,11 +6,10 @@ L'_lvl inner RNS limbs at the current level, N' inner degree) in inner-NTT
 form; plaintext slot arrays are ``[*batch, L, n]``.
 
 Randomness: encryption draws its uniform mask and its centered-binomial
-error from an explicit ``torch.Generator`` on the context's device (the JAX
-package uses ``jax.random`` keys, so the two packages' ciphertexts differ
-while decrypting to the same values).  ``sample_a_e`` and
-``_encrypt_from_m`` are split so tests can feed both packages the same
-``a`` and ``e``.
+error from a threefry key (``utils/prng.py``) exactly as the JAX package
+draws them from a ``jax.random`` key, so one key gives one ciphertext in
+both packages.  A draw may be made for a row range ``rows=(lo, hi)`` of its
+leading batch axis: those rows get the bits they get in the whole draw.
 """
 
 from __future__ import annotations
@@ -22,6 +21,7 @@ import torch
 
 from ..ops import ntt as _ntt
 from ..ops.modops import add_mod, mul_mod
+from ..utils import prng
 from .context import EncodingContext, SecretKey
 
 __all__ = [
@@ -86,39 +86,44 @@ def _popcount32(v):
     return ((v * 0x01010101) & 0xFFFFFFFF) >> 24
 
 
-def _sample_error_coeffs(ctx: EncodingContext, gen: torch.Generator, batch_shape):
-    """Centered-binomial error, k = ceil(2 sigma^2) (21 at sigma = 3.2):
-    popcount of k random bits minus popcount of k more, per coefficient.
+def _sample_error_coeffs(ctx: EncodingContext, key, batch_shape, rows=None):
+    """Centered-binomial error, k = ceil(2 sigma^2) (21 at sigma = 3.2), as
+    the JAX package's `_sample_error_ntt` draws it: words
+    ``bits(key, (2, n_words, *batch, L, N'))``, the last word masked to the
+    remaining bits, popcounts summed per side, side 0 minus side 1.
     Returns its residues per inner limb, int32 [*, L, L', N'] (coefficient
     form)."""
     k = _cbd_k(ctx.error_stddev)
-    shape = (*batch_shape, ctx.L, ctx.n_inner)
-    e = torch.zeros(shape, dtype=_I64, device=ctx.device)
-    for sign in (1, -1):
-        for w in range(-(-k // 32)):
-            bits = min(32, k - 32 * w)
-            u = torch.randint(0, 1 << bits, shape, generator=gen, dtype=_I64,
-                              device=ctx.device)
-            e += sign * _popcount32(u)
+    n_words = -(-k // 32)
+    shape = (2, n_words, *batch_shape, ctx.L, ctx.n_inner)
+    u = prng.bits(key, shape, ctx.device, rows=rows, axis=2)
+    last_mask = (1 << (k - 32 * (n_words - 1))) - 1
+    pops = sum(_popcount32(u[:, w] & (0xFFFFFFFF if w < n_words - 1 else last_mask))
+               for w in range(n_words))
+    e = pops[0] - pops[1]  # [*, L, N']
     Q = ctx.inner_consts(0)  # [L', 1]
     e_ = e[..., :, None, :]  # [*, L, 1, N']
     return torch.where(e_ < 0, e_ + Q, e_).to(_I32)
 
 
-def _sample_uniform(ctx: EncodingContext, gen: torch.Generator, batch_shape):
-    """Uniform element of R_Q in NTT form: independent uniform residues."""
+def _sample_uniform(ctx: EncodingContext, key, batch_shape, rows=None):
+    """Uniform element of R_Q in NTT form: per inner prime Q_j, uint32
+    ``randint(split(key, L')[j], (*batch, L, N'), 0, Q_j)``."""
     shape = (*batch_shape, ctx.L, ctx.n_inner)
     cols = [
-        torch.randint(0, int(Q), shape, generator=gen, dtype=_I32, device=ctx.device)
-        for Q in ctx.inner_primes
+        prng.randint(k, shape, Q, ctx.device, rows=rows).to(_I32)
+        for k, Q in zip(prng.split(key, ctx.L_inner), ctx.inner_primes)
     ]
     return torch.stack(cols, dim=-2)  # [*, L, L', N']
 
 
-def sample_a_e(ctx: EncodingContext, gen: torch.Generator, batch_shape):
-    """(a, e) for encryption: uniform a and the NTT form of the CBD error."""
-    a = _sample_uniform(ctx, gen, batch_shape)
-    e = _ntt.negacyclic_ntt_rev(_sample_error_coeffs(ctx, gen, batch_shape),
+def sample_a_e(ctx: EncodingContext, key, batch_shape, rows=None):
+    """(a, e) for encryption with `key`: ``k_a, k_e = split(key)``, uniform
+    a from k_a and the NTT form of the CBD error from k_e.  `rows` limits
+    both to a row range of the leading batch axis."""
+    k_a, k_e = prng.split(key)
+    a = _sample_uniform(ctx, k_a, batch_shape, rows)
+    e = _ntt.negacyclic_ntt_rev(_sample_error_coeffs(ctx, k_e, batch_shape, rows),
                                 ctx.inner_plan(0))
     return a, e
 
@@ -132,14 +137,19 @@ def _encrypt_from_m(ctx: EncodingContext, s_ntt, m, a, e):
     return c0.to(_I32), a
 
 
-def encrypt(ctx: EncodingContext, sk: SecretKey, slots, gen: torch.Generator):
+def encrypt(ctx: EncodingContext, sk: SecretKey, slots, key, draw_rows=None, lo: int = 0):
     """Symmetric BGV encryption of a batch of outer-slot vectors.
 
     slots: int32[*batch, L, n] -> (c0, c1): int32[*batch, L, L', N'] with
-    c0 + c1*s = m + t*e (mod Q).
+    c0 + c1*s = m + t*e (mod Q).  With `draw_rows`, `slots` are rows
+    ``[lo, lo + len(slots))`` of a batch of `draw_rows` rows encrypted with
+    `key`: they get the randomness those rows get in the whole batch.
     """
     m = plain_to_inner_ntt(ctx, slots, level=0)
-    a, e = sample_a_e(ctx, gen, m.shape[:-3])
+    if draw_rows is None:
+        a, e = sample_a_e(ctx, key, m.shape[:-3])
+    else:
+        a, e = sample_a_e(ctx, key, (draw_rows,), rows=(lo, lo + m.shape[0]))
     return _encrypt_from_m(ctx, sk.s_ntt, m, a, e)
 
 

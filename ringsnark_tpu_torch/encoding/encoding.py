@@ -9,15 +9,20 @@ from __future__ import annotations
 import torch
 
 from ..rings.elem import RingElem
+from ..utils import prng
 from . import bgv
 from .context import EncodingContext, SecretKey
 
 __all__ = ["Encoding", "DecodingError", "encode", "decode", "inner_product"]
 
-# Batch rows per chunk of encode and of the inner-product MAC: chunks hold
-# this many residues, so each int64 temporary is 128 MiB (256 rows at
-# L = 1, L' = 4, N' = 16384).
+# Batch rows per chunk of the inner-product MAC: chunks hold this many
+# residues, so each int64 temporary is 128 MiB (256 rows at L = 1, L' = 4,
+# N' = 16384).
 _CHUNK_ELEMS = 1 << 24
+# Rows per randomness chunk of `encode`: the JAX package's default
+# (``RINGSNARK_ENCODE_CHUNK_ELEMS`` = 2^22 residues, at least 8 rows).
+# Chunk i draws from ``fold_in(key, i)``, so this sets the ciphertexts.
+_ENCODE_CHUNK_ELEMS = 1 << 22
 
 
 def _chunk_rows(ctx: EncodingContext, limbs: int) -> int:
@@ -91,23 +96,29 @@ class Encoding:
         )
 
 
-def encode(ctx: EncodingContext, sk: SecretKey, rs: RingElem,
-           gen: torch.Generator) -> Encoding:
-    """Encrypt a RingElem batch ([B, L, n] slots) under the per-limb keys,
-    in row chunks written into preallocated outputs.  Randomness comes from
-    `gen` (a torch.Generator on the context's device), drawn chunk by chunk."""
+def encode(ctx: EncodingContext, sk: SecretKey, rs: RingElem, key) -> Encoding:
+    """Encrypt a RingElem batch ([B, L, n] slots) under the per-limb keys.
+
+    The JAX package's chunking, which fixes the randomness: a batch of at
+    most `chunk` rows is encrypted with `key` itself; a larger one in
+    chunks of `chunk` rows (the last one short), chunk i with
+    ``fold_in(key, i)`` as a draw of `chunk` rows.  `key` is a threefry key
+    (``utils/prng.py``)."""
     slots = rs.broadcast_to_poly().res
     if slots.ndim < 3:  # single element [L, n]
-        c0, c1 = bgv.encrypt(ctx, sk, slots, gen)
+        c0, c1 = bgv.encrypt(ctx, sk, slots, key)
         return Encoding(ctx, c0, c1, 0)
     B = slots.shape[0]
+    chunk = max(8, _ENCODE_CHUNK_ELEMS // (ctx.L * ctx.L_inner * ctx.n_inner))
+    if B <= chunk:
+        c0, c1 = bgv.encrypt(ctx, sk, slots, key)
+        return Encoding(ctx, c0, c1, 0)
     shape = (B, ctx.L, ctx.L_inner, ctx.n_inner)
     c0 = torch.empty(shape, dtype=torch.int32, device=ctx.device)
     c1 = torch.empty(shape, dtype=torch.int32, device=ctx.device)
-    chunk = _chunk_rows(ctx, ctx.L_inner)
-    for lo in range(0, B, chunk):
+    for i, lo in enumerate(range(0, B, chunk)):
         c0[lo:lo + chunk], c1[lo:lo + chunk] = bgv.encrypt(
-            ctx, sk, slots[lo:lo + chunk], gen
+            ctx, sk, slots[lo:lo + chunk], prng.fold_in(key, i), draw_rows=chunk
         )
     return Encoding(ctx, c0, c1, 0)
 

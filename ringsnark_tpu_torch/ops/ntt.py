@@ -13,10 +13,19 @@ two), int32 residues.  Ordering (Harvey/SEAL style, as in the JAX package):
   out, scaled by M^-1;
 * the negacyclic pair twists by psi^i before / psi^-i * M^-1 after.
 
-Dispatch: a CUDA tensor goes to the hand-written kernel (``ops/cuda_ntt.py``),
-a CPU tensor to the plain PyTorch twin (``*_plain`` below).  A CUDA tensor
-never reaches a twin: sizes beyond the kernel's shared-memory transform
-raise ``NotImplementedError``.
+Large sizes split as M = R * Mi (``get_split_tables``, ``ntt_split_plain``,
+the port of ``ntt_split_pallas``): the forward transform runs log2(R) outer
+DIF stages across the R rows of each column of the [R, Mi] view, then R
+inner cyclic transforms of size Mi; the inverse runs the inner transforms
+unscaled, then the outer DIT stages and the folded scale.  Roots are
+canonical (w_M^R = w_Mi), so the result equals the full-size transform bit
+for bit.
+
+Dispatch: a CUDA tensor goes to the hand-written kernels
+(``ops/cuda_ntt.py``): the shared-memory kernel up to ``MAX_KERNEL_M``, the
+split kernel above it (M a multiple of ``SPLIT_MI`` up to ``MAX_SPLIT_M``).
+A CPU tensor goes to the plain PyTorch twin (``*_plain`` below).  A CUDA
+tensor never reaches a twin: other sizes raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,7 +50,12 @@ __all__ = [
     "negacyclic_ntt_rev_plain",
     "negacyclic_intt_nat_plain",
     "bitrev_indices",
+    "SplitTables",
+    "get_split_tables",
+    "ntt_split_plain",
     "MAX_KERNEL_M",
+    "MAX_SPLIT_M",
+    "SPLIT_MI",
     "PLAIN_TWINS",
 ]
 
@@ -264,13 +278,192 @@ def negacyclic_intt_nat_plain(y, plan: NTTPlan):
 
 
 # ---------------------------------------------------------------------------
+# the split transform for large M (port of pallas_ntt.get_split_tables and
+# ntt_split_pallas's math)
+# ---------------------------------------------------------------------------
+
+
+def shoup_np(vals, p) -> np.ndarray:
+    """Shoup constants floor(v * 2^32 / p) as uint64 (v < p < 2^31; p
+    broadcasts against vals)."""
+    return (np.asarray(vals).astype(np.uint64) << np.uint64(32)) // np.asarray(p, np.uint64)
+
+
+@dataclass(frozen=True)
+class SplitTables:
+    """Tables of the split transform M = R * Mi (layout of the JAX package's
+    ``SplitNTTTables``, without its TPU inner tables).
+
+    fwd_tw[l, i, r, c]: outer DIF stage i (pair distance d = R >> (i+1))
+    twiddle w^(2^i (lo Mi + c)) at the b-row r of a pair, lo = r mod d,
+    and 1 at a-rows; inv_tw: w^-(...) at both rows of a pair.  psi and
+    psiinv_s ([L, R, Mi]) are the negacyclic twists (psi^-k M^-1 after the
+    inverse), None for a cyclic table set; minv holds the full-size M^-1.
+    """
+
+    primes: tuple[int, ...]
+    M: int
+    Mi: int
+    fwd_tw: object = field(hash=False, compare=False)  # uint32 [L, s, R, Mi]
+    fwd_tw_sh: object = field(hash=False, compare=False)
+    inv_tw: object = field(hash=False, compare=False)
+    inv_tw_sh: object = field(hash=False, compare=False)
+    psi: object = field(hash=False, compare=False)  # uint32 [L, R, Mi] or None
+    psi_sh: object = field(hash=False, compare=False)
+    psiinv_s: object = field(hash=False, compare=False)
+    psiinv_s_sh: object = field(hash=False, compare=False)
+    minv: tuple = field(hash=False, compare=False)
+    minv_sh: tuple = field(hash=False, compare=False)
+
+    @property
+    def L(self) -> int:
+        return len(self.primes)
+
+    @property
+    def R(self) -> int:
+        return self.M // self.Mi
+
+    @property
+    def s(self) -> int:
+        return self.R.bit_length() - 1
+
+
+@lru_cache(maxsize=None)
+def get_split_tables(primes: tuple[int, ...], M: int, Mi: int,
+                     negacyclic: bool = True) -> SplitTables:
+    """The JAX package's ``get_split_tables`` (numpy), with its assertion that
+    the roots are canonical.  ``negacyclic=False`` leaves out the psi
+    tables, so a cyclic split needs only order-M roots."""
+    assert M % Mi == 0 and Mi >= 2 and Mi & (Mi - 1) == 0
+    R = M // Mi
+    assert R & (R - 1) == 0 and R >= 2
+    s = R.bit_length() - 1
+    L = len(primes)
+    plan = get_plan(primes, M, negacyclic=negacyclic)
+    ws = [_primes.root_of_unity(p, M) for p in primes]
+    # inner transforms must come from the same canonical root chain
+    for w, p in zip(ws, primes):
+        assert pow(w, R, p) == _primes.root_of_unity(p, Mi), (
+            "non-canonical roots: the split path would diverge from the full-size one")
+
+    ks = np.arange(Mi)
+    fwd, fwd_sh, inv, inv_sh, minv, minv_sh = [], [], [], [], [], []
+    for w, p in zip(ws, primes):
+        w_pows = _mod_powers(w, M, p)
+        winv_pows = _mod_powers(pow(w, p - 2, p), M, p)
+        f_st, i_st = [], []
+        for i in range(s):
+            d = R >> (i + 1)
+            r = np.arange(R)
+            lo = r & (d - 1)
+            idx = ((1 << i) * (lo[:, None] * Mi + ks[None, :])) % M  # [R, Mi]
+            is_b = (r & (2 * d - 1)) >= d
+            f_st.append(np.where(is_b[:, None], w_pows[idx], 1).astype(np.uint32))
+            i_st.append(winv_pows[idx])
+        fwd.append(np.stack(f_st))
+        fwd_sh.append(np.stack([shoup_np(t, p) for t in f_st]))
+        inv.append(np.stack(i_st))
+        inv_sh.append(np.stack([shoup_np(t, p) for t in i_st]))
+        mv = pow(M, p - 2, p)
+        minv.append(mv)
+        minv_sh.append((mv << 32) // p)
+
+    psi = psi_sh = psiinv_s = psiinv_s_sh = None
+    if negacyclic:
+        psi = plan.psi.astype(np.uint32).reshape(L, R, Mi)
+        psi_sh = np.stack([shoup_np(psi[l], p) for l, p in enumerate(primes)])
+        psiinv_s = plan.psi_inv_scaled.astype(np.uint32).reshape(L, R, Mi)
+        psiinv_s_sh = np.stack([shoup_np(psiinv_s[l], p) for l, p in enumerate(primes)])
+
+    return SplitTables(
+        primes=primes, M=M, Mi=Mi,
+        fwd_tw=np.stack(fwd), fwd_tw_sh=np.stack(fwd_sh),
+        inv_tw=np.stack(inv), inv_tw_sh=np.stack(inv_sh),
+        psi=psi, psi_sh=psi_sh, psiinv_s=psiinv_s, psiinv_s_sh=psiinv_s_sh,
+        minv=tuple(minv), minv_sh=tuple(minv_sh),
+    )
+
+
+@lru_cache(maxsize=None)
+def _split_twin_tables(primes: tuple, M: int, Mi: int, negacyclic: bool, device: str):
+    st = get_split_tables(primes, M, Mi, negacyclic)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+
+    return dict(
+        p=t(np.array(primes))[:, None, None],  # [L, 1, 1]
+        fwd_tw=t(st.fwd_tw), inv_tw=t(st.inv_tw),  # [L, s, R, Mi]
+        psi=None if st.psi is None else t(st.psi),  # [L, R, Mi]
+        psiinv_s=None if st.psi is None else t(st.psiinv_s),
+        minv=t(np.array(st.minv))[:, None, None],
+    )
+
+
+def ntt_split_plain(x, plan: NTTPlan, inverse: bool, negacyclic: bool, mi: int = None):
+    """The split transform of ``[..., L, M]`` in plain PyTorch: the outer
+    stages in int64 on the ``[..., L, R, Mi]`` view, and the plain twins'
+    stages for the R inner cyclic transforms of size Mi (unscaled).  Equal
+    to the full-size transform of the same mode, bit for bit."""
+    mi = SPLIT_MI if mi is None else mi
+    M, L = plan.M, plan.L
+    assert tuple(x.shape[-2:]) == (L, M), (tuple(x.shape), L, M)
+    assert not negacyclic or plan.negacyclic, "negacyclic transform with a cyclic plan"
+    R = M // mi
+    tb = _split_twin_tables(plan.primes, M, mi, negacyclic, str(x.device))
+    inner = _twin_tables(plan.primes, mi, False, str(x.device))
+    p = tb["p"]
+    batch = x.shape[:-2]
+    xr = x.to(torch.int64).reshape(*batch, L, R, mi)
+
+    def outer_pairs(v, d):  # [..., L, R, Mi] -> a-rows, b-rows [..., L, R/2d, d, Mi]
+        v = v.reshape(*batch, L, R // (2 * d), 2, d, mi)
+        return v[..., 0, :, :], v[..., 1, :, :]
+
+    def tw_b(tw, i, d):  # b-row twiddles of stage i: [L, R/2d, d, Mi]
+        return tw[:, i].reshape(L, R // (2 * d), 2, d, mi)[:, :, 1]
+
+    def inner_pass(v, stages):  # cyclic stages on the [..., L, R, Mi] rows
+        return stages(v.transpose(-3, -2), inner, mi).transpose(-3, -2)
+
+    if not inverse:
+        if negacyclic:
+            xr = torch.remainder(xr * tb["psi"], p)
+        for i in range(R.bit_length() - 1):
+            d = R >> (i + 1)
+            a, b = outer_pairs(xr, d)
+            na = a + b
+            na = torch.where(na >= p[..., None], na - p[..., None], na)
+            nb = torch.remainder((a - b) * tw_b(tb["fwd_tw"], i, d), p[..., None])
+            xr = torch.stack([na, nb], dim=-3).reshape(*batch, L, R, mi)
+        out = inner_pass(xr, _fwd_stages)
+    else:
+        xr = inner_pass(xr, _inv_stages)
+        for i in range(R.bit_length() - 2, -1, -1):
+            d = R >> (i + 1)
+            a, b = outer_pairs(xr, d)
+            m = torch.remainder(b * tw_b(tb["inv_tw"], i, d), p[..., None])
+            na = a + m
+            na = torch.where(na >= p[..., None], na - p[..., None], na)
+            nb = a - m
+            nb = torch.where(nb < 0, nb + p[..., None], nb)
+            xr = torch.stack([na, nb], dim=-3).reshape(*batch, L, R, mi)
+        scale = tb["psiinv_s"] if negacyclic else tb["minv"]
+        out = torch.remainder(xr * scale, p)
+    return out.reshape(*batch, L, M).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
 # dispatch: CUDA tensor -> kernel, CPU tensor -> plain twin
 # ---------------------------------------------------------------------------
 
 # Largest transform the shared-memory kernel holds (128 KiB of residues).
-# Larger sizes need the split kernel (ROADMAP, kernel queue: the port of
-# `_outer_kernel` / `ntt_split_pallas`).
 MAX_KERNEL_M = 32768
+# The split route: M = R * SPLIT_MI (the JAX package's ``_SPLIT_MI``) with
+# R = 2 .. 32, i.e. M = 2^15 .. 2^19; MAX_KERNEL_M itself stays on the
+# shared-memory kernel.
+SPLIT_MI = 16384
+MAX_SPLIT_M = 1 << 19
 
 # (inverse, negacyclic) -> plain twin
 PLAIN_TWINS = {
@@ -286,15 +479,16 @@ def _dispatch(x, plan: NTTPlan, inverse: bool, negacyclic: bool):
         return PLAIN_TWINS[(inverse, negacyclic)](x, plan)
     if x.device.type != "cuda":
         raise ValueError(f"no NTT route for device {x.device}")
-    if plan.M > MAX_KERNEL_M:
-        raise NotImplementedError(
-            f"NTT of size {plan.M} > {MAX_KERNEL_M} needs the split kernel "
-            "(port of ringsnark_tpu/ops/pallas_ntt.py:_outer_kernel; "
-            "ROADMAP kernel queue), which is not ported yet"
-        )
     from . import cuda_ntt
 
-    return cuda_ntt.ntt(x.contiguous(), plan, inverse=inverse, negacyclic=negacyclic)
+    if plan.M <= MAX_KERNEL_M:
+        return cuda_ntt.ntt(x.contiguous(), plan, inverse=inverse, negacyclic=negacyclic)
+    if plan.M <= MAX_SPLIT_M and plan.M % SPLIT_MI == 0:
+        return cuda_ntt.ntt_split(x.contiguous(), plan, inverse=inverse, negacyclic=negacyclic)
+    raise NotImplementedError(
+        f"NTT of size {plan.M}: the CUDA kernels take M <= {MAX_KERNEL_M}, or a "
+        f"multiple of {SPLIT_MI} up to {MAX_SPLIT_M} (split kernel)"
+    )
 
 
 def cyclic_ntt_rev(x, plan: NTTPlan):

@@ -1,4 +1,5 @@
-"""Proof systems: ringGroth16 over rings (Rinocchio is not ported yet)."""
+"""Proof systems: ringGroth16 over rings, resident and seeded CRS (Rinocchio
+is not ported yet)."""
 
 from .api import KeyPair, SnarkParams  # noqa: F401
-from . import groth16  # noqa: F401
+from . import groth16, seeded  # noqa: F401

@@ -8,8 +8,9 @@ A*B = alpha*beta + gamma*f_io + delta*C.
 
 The prover is non-ZK, as in the reference (`use_zk = false` there) and the
 JAX package.  The generator takes the ring secrets from a numpy `rng`
-(the JAX package's draws, in its order) and the encryption noise from a
-`torch.Generator` where the JAX package takes a jax key.
+and the encryption randomness from a threefry key (``utils/prng.py``),
+both drawn as the JAX package draws them: one ``(rng seed, key)`` gives the
+JAX package's CRS bit for bit.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from ..reductions.r1cs_to_qrp import (
 from ..relations.r1cs import CompiledR1CS
 from ..rings.elem import RingElem
 from ..utils.domain import RootsDomain
+from ..utils import prng
 from ..utils.poly_arr import ring_batch_scale
 from .api import KeyPair, SnarkParams
 from .pipeline import groth16_ip_core, groth16_proof_levels
@@ -77,7 +79,7 @@ def generator(
     comp: CompiledR1CS,
     params: SnarkParams,
     rng: np.random.Generator,
-    gen: torch.Generator,
+    key,
 ) -> KeyPair:
     """Trusted setup (`groth16.tcc:5-67`) over a compiled R1CS."""
     ctx = params.ring
@@ -106,15 +108,16 @@ def generator(
     gamma_io_ring = ring_batch_scale(RingElem(ctx, combo.res[:n_io]), gamma_inv)
 
     enc = params.enc
-    alpha_enc = encode(enc, sk_enc, RingElem.stack([alpha]), gen)[0]
-    beta_enc = encode(enc, sk_enc, RingElem.stack([beta]), gen)[0]
-    s_pows = encode(enc, sk_enc, s_pows_ring, gen)
-    gamma_io = encode(enc, sk_enc, gamma_io_ring, gen)
+    keys = prng.split(key, 6)
+    alpha_enc = encode(enc, sk_enc, RingElem.stack([alpha]), keys[0])[0]
+    beta_enc = encode(enc, sk_enc, RingElem.stack([beta]), keys[1])[0]
+    s_pows = encode(enc, sk_enc, s_pows_ring, keys[2])
+    gamma_io = encode(enc, sk_enc, gamma_io_ring, keys[3])
     delta_mid = None
     if n_aux > 0:
         delta_mid_ring = ring_batch_scale(RingElem(ctx, combo.res[n_io:]), delta_inv)
-        delta_mid = encode(enc, sk_enc, delta_mid_ring, gen)
-    delta_ts = encode(enc, sk_enc, delta_ts_ring, gen)
+        delta_mid = encode(enc, sk_enc, delta_mid_ring, keys[4])
+    delta_ts = encode(enc, sk_enc, delta_ts_ring, keys[5])
 
     pk = ProvingKey(
         compiled=comp, domain=domain, params=params,

@@ -4,10 +4,14 @@ Everything crosses as numpy arrays (residues as uint32), so this module
 never imports jax: the JAX side does its own ``np.asarray``.
 
 * ``keypair_from_numpy(params, arrays)`` builds a port ``KeyPair`` from the
-  arrays of a ringGroth16 keypair (``keypair_to_numpy`` gives the same dict
-  for a port keypair, e.g. to move it to another device);
+  arrays of a ringGroth16 keypair, resident or seeded
+  (``keypair_to_numpy`` gives the same dict for a port keypair, e.g. to
+  move it to another device);
 * ``proof_to_numpy`` / ``proof_from_numpy`` turn a ``Proof`` into
-  ``(c0, c1, level)`` triples and back.
+  ``(c0, c1, level)`` triples and back;
+* ``key_from_numpy`` / ``key_to_numpy`` carry a threefry key as its key
+  data, uint32[2] (``jax.random.key_data`` of a typed key, or a raw
+  ``PRNGKey`` array).
 
 The keypair dict holds:
 
@@ -17,7 +21,12 @@ The keypair dict holds:
 ``domain_size`` the evaluation domain's size M;
 ``crs``       ``{"alpha", "beta", "s_pows", "gamma_io", "delta_mid",
               "delta_ts"}`` -> ``(c0, c1)`` at level 0 (``delta_mid`` may be
-              None); ``alpha``/``beta`` without a batch axis;
+              None); ``alpha``/``beta`` without a batch axis.  In a seeded
+              keypair ``s_pows``, ``delta_mid`` and ``delta_ts`` are dicts
+              ``{"c0", "key", "slab", "batch"}``: c0 with at least `batch`
+              rows (the JAX package pads to whole slabs; the rows past
+              `batch` are dropped), the key data uint32[2], the slab size
+              and the batch length;
 ``vk``        ``{"s", "alpha", "beta", "gamma", "delta"}`` -> ``[L, n]``;
 ``sk``        ``{"s_ntt": [L, L', N'], "s_coeffs": int8 [L, N']}``.
 """
@@ -33,14 +42,17 @@ from ..relations.r1cs import CompiledR1CS
 from ..rings.elem import RingElem
 from ..snark.api import KeyPair, SnarkParams
 from ..snark.groth16 import Proof, ProvingKey, VerificationKey
+from ..snark.seeded import SeededEncoding, SeededProvingKey
+from . import prng
 from .domain import RootsDomain
 
 __all__ = [
     "compiled_from_numpy", "keypair_from_numpy", "keypair_to_numpy",
-    "proof_to_numpy", "proof_from_numpy",
+    "proof_to_numpy", "proof_from_numpy", "key_from_numpy", "key_to_numpy",
 ]
 
 _CRS = ("alpha", "beta", "s_pows", "gamma_io", "delta_mid", "delta_ts")
+_SEEDED = ("s_pows", "delta_mid", "delta_ts")
 _VK = ("s", "alpha", "beta", "gamma", "delta")
 
 
@@ -71,13 +83,19 @@ def keypair_from_numpy(params: SnarkParams, arrays: dict) -> KeyPair:
     domain = RootsDomain(ring, int(arrays["domain_size"]))
     assert domain.m == int(arrays["domain_size"])
 
-    def enc(pair):
-        if pair is None:
+    def enc(entry):
+        if entry is None:
             return None
-        return Encoding(ectx, ring.tensor(pair[0]), ring.tensor(pair[1]), 0)
+        if isinstance(entry, dict):
+            batch = int(entry["batch"])
+            return SeededEncoding(ectx, ring.tensor(np.asarray(entry["c0"])[:batch]),
+                                  key_from_numpy(entry["key"]), int(entry["slab"]), batch)
+        return Encoding(ectx, ring.tensor(entry[0]), ring.tensor(entry[1]), 0)
 
     crs = {k: enc(arrays["crs"][k]) for k in _CRS}
-    pk = ProvingKey(compiled=comp, domain=domain, params=params, **crs)
+    seeded = any(isinstance(crs[k], SeededEncoding) for k in _SEEDED)
+    pk = (SeededProvingKey if seeded else ProvingKey)(
+        compiled=comp, domain=domain, params=params, **crs)
     vk = {k: RingElem(ring, ring.tensor(arrays["vk"][k])) for k in _VK}
     sk = SecretKey(
         ctx=ectx,
@@ -92,7 +110,12 @@ def keypair_to_numpy(kp: KeyPair) -> dict:
     comp = pk.compiled
 
     def enc(e):
-        return None if e is None else (_host(e.c0), _host(e.c1))
+        if e is None:
+            return None
+        if isinstance(e, SeededEncoding):
+            return {"c0": _host(e.c0), "key": key_to_numpy(e.key), "slab": e.slab,
+                    "batch": e.batch}
+        return (_host(e.c0), _host(e.c1))
 
     return {
         "compiled": {
@@ -122,3 +145,14 @@ def proof_from_numpy(params: SnarkParams, triples) -> Proof:
         for c0, c1, level in triples
     )
     return Proof(A=A, B=B, C=C)
+
+
+def key_from_numpy(data) -> prng.Key:
+    """A threefry key from its key data, uint32[2]."""
+    k = np.asarray(data).astype(np.uint64).reshape(-1)
+    assert k.shape == (2,), k.shape
+    return int(k[0]), int(k[1])
+
+
+def key_to_numpy(key: prng.Key) -> np.ndarray:
+    return np.array(key, dtype=np.uint32)

@@ -1,4 +1,4 @@
-"""The Hopper NTT kernel of ringsnark_tpu_torch on the card.
+"""The Hopper NTT kernels of ringsnark_tpu_torch on the card.
 
 These tests need a CUDA device (a CUDA kernel has no CPU mode) and skip
 without one.  This file imports no jax, so it also runs on a machine with
@@ -50,11 +50,51 @@ def test_kernel_equals_twin(cuda, M, inverse, negacyclic):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("order", cuda_ntt.CTA_ORDERS)
+@pytest.mark.parametrize("negacyclic", [False, True])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_cta_orders_equal_twin(cuda, inverse, negacyclic, order):
+    primes = tuple(find_ntt_primes(3, 1 << 15))
+    plan = tntt.get_plan(primes, 16384, negacyclic=negacyclic)
+    x = _residues(primes, 16384, 5, cuda, seed=1)
+    got = cuda_ntt.ntt(x, plan, inverse, negacyclic, order=order)
+    assert torch.equal(got, tntt.PLAIN_TWINS[(inverse, negacyclic)](x, plan))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("negacyclic", [False, True])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("M", [65536, 131072])
+def test_split_kernel_equals_plain(cuda, M, inverse, negacyclic):
+    """The dispatcher sends 32768 < M <= 2^19 to the split kernel, counted
+    once as split_<mode>; equal to the plain split and the full-size twin."""
+    primes = tuple(find_ntt_primes(2, 1 << 18))
+    plan = tntt.get_plan(primes, M, negacyclic=negacyclic)
+    x = _residues(primes, M, 3, cuda, seed=M)
+    before = dict(cuda_ntt.launch_counts)
+    got = DISPATCH[(inverse, negacyclic)](x, plan)
+    torch.cuda.synchronize()
+    mode = cuda_ntt.mode_name(inverse, negacyclic)
+    assert cuda_ntt.launch_counts["split_" + mode] == before["split_" + mode] + 1
+    assert cuda_ntt.launch_counts[mode] == before[mode]
+    assert torch.equal(got, tntt.ntt_split_plain(x, plan, inverse, negacyclic))
+    assert torch.equal(got, tntt.PLAIN_TWINS[(inverse, negacyclic)](x, plan))
+
+
+@pytest.mark.gpu
 def test_split_sizes_and_bad_inputs_raise(cuda):
-    primes = tuple(find_ntt_primes(1, 1 << 17))
-    big = tntt.get_plan(primes, 65536)
+    primes = tuple(find_ntt_primes(1, 1 << 21))
+    big = tntt.get_plan(primes, 1 << 20)
     with pytest.raises(NotImplementedError, match="split kernel"):
-        tntt.cyclic_ntt_rev(_residues(primes, 65536, 1, cuda), big)
+        tntt.cyclic_ntt_rev(_residues(primes, 1 << 20, 1, cuda), big)
+    mid = tntt.get_plan(primes, 65536)
+    x16 = _residues(primes, 65536, 1, cuda)
+    with pytest.raises(ValueError, match="does not fit a split"):
+        cuda_ntt.ntt_split(x16, mid, False, False, mi=65536)  # R = 1
+    with pytest.raises(ValueError, match="does not fit a split"):
+        cuda_ntt.ntt_split(x16, mid, False, False, mi=24576)  # M % mi != 0
+    with pytest.raises(ValueError, match="does not fit"):
+        cuda_ntt.ntt(x16, mid, False, False)  # beyond the shared-memory kernel
     plan = tntt.get_plan(primes, 256, negacyclic=True)
     x = _residues(primes, 256, 2, cuda)
     with pytest.raises(TypeError):
@@ -63,3 +103,5 @@ def test_split_sizes_and_bad_inputs_raise(cuda):
         cuda_ntt.ntt(x.repeat(1, 1, 2)[..., ::2], plan, False, True)
     with pytest.raises(ValueError, match="does not fit"):
         cuda_ntt.ntt(x[..., :128].contiguous(), plan, False, True)
+    with pytest.raises(ValueError, match="CTA order"):
+        cuda_ntt.ntt(x, plan, False, True, order="column")

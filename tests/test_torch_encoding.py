@@ -28,6 +28,7 @@ from ringsnark_tpu_torch.encoding import bgv
 from ringsnark_tpu_torch.ops import ntt as tntt
 from ringsnark_tpu_torch.rings.context import RingContext
 from ringsnark_tpu_torch.rings.elem import RingElem
+from ringsnark_tpu_torch.utils import prng
 
 N_INNER = 32
 
@@ -182,12 +183,11 @@ def test_encode_decode_identity_and_error_distribution(pair):
     _, _, tctx, tsk = pair
     from ringsnark_tpu_torch.encoding import encode
 
-    gen = torch.Generator().manual_seed(3)
     rs = RingElem(tctx.ring, _t(_slots(tctx, 5, seed=14)))
-    enc = encode(tctx, tsk, rs, gen)
+    enc = encode(tctx, tsk, rs, prng.key(3))
     assert enc.c0.shape == (5, tctx.L, tctx.L_inner, N_INNER)
     assert decode(tctx, tsk, enc) == rs.broadcast_to_poly()
-    e = bgv._sample_error_coeffs(tctx, gen, (64,)).to(torch.int64)[..., 0, :]  # limb Q_0
+    e = bgv._sample_error_coeffs(tctx, prng.key(4), (64,)).to(torch.int64)[..., 0, :]  # limb Q_0
     Q0 = tctx.inner_primes[0]
     e = torch.where(e > Q0 // 2, e - Q0, e).double()
     k = bgv._cbd_k(tctx.error_stddev)
@@ -204,6 +204,26 @@ def test_decode_raises_on_exhausted_budget(pair):
     assert rand.shape == shape
     with pytest.raises(DecodingError):
         decode(tctx, tsk, Encoding(tctx, _t(rand), _t(rand), 0))
+
+
+@pytest.mark.parametrize("B", [3, 19], ids=["one-chunk", "three-chunks"])
+def test_encode_same_key_same_ciphertexts(pair, B, monkeypatch):
+    """encode with one key gives the JAX package's c0 and c1 bit for bit,
+    in one chunk (the key itself) and in three chunks of 8 rows (fold_in(key,
+    i), the last chunk short), with the chunk size cut to 8 rows in both."""
+    from ringsnark_tpu.encoding import encode as jencode
+    from ringsnark_tpu.encoding import encoding as jencoding
+    from ringsnark_tpu_torch.encoding import encode, encoding
+
+    jctx, jsk, tctx, tsk = pair
+    per_row = tctx.L * tctx.L_inner * N_INNER
+    monkeypatch.setattr(jencoding, "_ENCODE_CHUNK_ELEMS", 8 * per_row)
+    monkeypatch.setattr(encoding, "_ENCODE_CHUNK_ELEMS", 8 * per_row)
+    slots = _slots(jctx, B, seed=16)
+    je = jencode(jctx, jsk, JRingElem(jctx.ring, jnp.asarray(slots)), jax.random.PRNGKey(9))
+    te = encode(tctx, tsk, RingElem(tctx.ring, _t(slots)), prng.key(9))
+    assert np.array_equal(_u(te.c0), np.asarray(je.c0))
+    assert np.array_equal(_u(te.c1), np.asarray(je.c1))
 
 
 @pytest.mark.parametrize("limbs", [2, 3, 4])

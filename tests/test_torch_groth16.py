@@ -2,7 +2,8 @@
 the CPU: a JAX keypair carried across gives a bit-identical proof; proofs
 cross-verify in both directions; the port's generator draws the same
 secrets from the same numpy seed and its CRS decodes to the JAX ring
-values; the port runs generator -> prover -> verifier on its own."""
+values, and from the same threefry key the JAX CRS bit for bit; the port
+runs generator -> prover -> verifier on its own."""
 
 import numpy as np
 import pytest
@@ -26,7 +27,7 @@ from ringsnark_tpu_torch.rings.context import RingContext
 from ringsnark_tpu_torch.rings.elem import RingElem
 from ringsnark_tpu_torch.snark import groth16 as tg16
 from ringsnark_tpu_torch.snark.api import SnarkParams
-from ringsnark_tpu_torch.utils import interop
+from ringsnark_tpu_torch.utils import interop, prng
 
 N_INNER = 32
 
@@ -139,12 +140,12 @@ def test_jax_verifier_accepts_port_proof(proved):
 
 
 def test_port_generator_same_secrets_and_crs_values(proved):
-    """The port's generator, from the JAX generator's numpy seed: the same
-    s, alpha, beta, gamma, delta and secret key, and a CRS (encrypted with
-    other noise) that decodes to the JAX CRS's ring values."""
+    """The port's generator, from the JAX generator's numpy seed and another
+    key: the same s, alpha, beta, gamma, delta and secret key, and a CRS
+    (encrypted with other noise) that decodes to the JAX CRS's ring values."""
     tp, jp, jkp = proved["tp"], proved["jp"], proved["jkp"]
     tcomp = interop.compiled_from_numpy(tp.ring, _jax_keypair_arrays(jkp)["compiled"])
-    tkp = tg16.generator(tcomp, tp, np.random.default_rng(4), torch.Generator().manual_seed(0))
+    tkp = tg16.generator(tcomp, tp, np.random.default_rng(4), prng.key(0))
     for k in ("s", "alpha", "beta", "gamma", "delta"):
         assert np.array_equal(getattr(tkp.vk, k).numpy(), np.asarray(getattr(jkp.vk, k).res)), k
     assert np.array_equal(tkp.vk.sk_enc.s_coeffs, np.asarray(jkp.vk.sk_enc.s_coeffs))
@@ -157,12 +158,28 @@ def test_port_generator_same_secrets_and_crs_values(proved):
         assert np.array_equal(got, want), k
 
 
+def test_port_generator_gives_jax_crs_bit_for_bit(proved):
+    """One (rng seed, key) gives the JAX package's resident CRS, c0 and c1,
+    bit for bit: the key carried across with `interop.key_from_numpy`."""
+    tp, jkp = proved["tp"], proved["jkp"]
+    jarr = _jax_keypair_arrays(jkp)
+    tcomp = interop.compiled_from_numpy(tp.ring, jarr["compiled"])
+    key = interop.key_from_numpy(np.asarray(jax.random.PRNGKey(103)))
+    tkp = tg16.generator(tcomp, tp, np.random.default_rng(4), key)
+    got = interop.keypair_to_numpy(tkp)["crs"]
+    for k, want in jarr["crs"].items():
+        if want is None:
+            assert got[k] is None, k
+            continue
+        assert np.array_equal(got[k][0], want[0]) and np.array_equal(got[k][1], want[1]), k
+
+
 def test_port_end_to_end_and_cross_verify():
     """The port alone on the squaring chain (Rq), then its proof under the
     port verifier from a keypair moved through numpy."""
     _, tp = _params(16)
     comp, prim, aux = build_synthetic_square_chain(tp.ring, 32, np.random.default_rng(5))
-    kp = tg16.generator(comp, tp, np.random.default_rng(6), torch.Generator().manual_seed(7))
+    kp = tg16.generator(comp, tp, np.random.default_rng(6), prng.key(7))
     proof = tg16.prover(kp.pk, prim, aux)
     assert tg16.verifier(kp.vk, prim, proof)
     assert not tg16.verifier(kp.vk, prim + 1, proof)

@@ -1,0 +1,71 @@
+"""ringsnark_tpu_torch's threefry PRNG against jax.random, on the CPU, bit
+for bit: key, split, fold_in, bits and uint32 randint on odd shapes, and
+draws made by row range equal to the slices of the whole draw (the property
+the chunked encode and the seeded MAC rely on)."""
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+
+from ringsnark_tpu_torch.utils import interop, prng
+
+SHAPES = [(1,), (7,), (3, 5, 7), (2, 1, 3, 33)]
+
+
+def _key(seed):
+    return jax.random.PRNGKey(seed), prng.key(seed)
+
+
+def _pair(k) -> tuple:
+    return tuple(int(v) for v in np.asarray(k))
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**32 + 5, 2**62 + 11])
+def test_key_split_fold_in(seed):
+    jk, tk = _key(seed)
+    assert _pair(jk) == tk
+    assert interop.key_from_numpy(np.asarray(jk)) == tk
+    assert np.array_equal(interop.key_to_numpy(tk), np.asarray(jk))
+    for n in (1, 2, 3, 6):
+        assert [_pair(r) for r in jax.random.split(jk, n)] == prng.split(tk, n)
+    for data in (0, 1, 4095, 2**32 - 1):
+        assert _pair(jax.random.fold_in(jk, data)) == prng.fold_in(tk, data)
+    typed = jax.random.key(seed, impl="threefry2x32")
+    assert interop.key_from_numpy(jax.random.key_data(typed)) == tk
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bits(shape):
+    jk, tk = _key(103)
+    want = np.asarray(jax.random.bits(jk, shape, dtype=jnp.uint32)).astype(np.int64)
+    assert np.array_equal(prng.bits(tk, shape).numpy(), want)
+
+
+@pytest.mark.parametrize("maxval", [7, 65537, 2147352577, 2147483647, 1 << 31])
+@pytest.mark.parametrize("shape", SHAPES[1:3])
+def test_randint(shape, maxval):
+    """uint32 randint; spans above 2^16 take JAX's wrapped multiplier."""
+    jk, tk = _key(5)
+    want = np.asarray(jax.random.randint(jk, shape, 0, maxval, dtype=jnp.uint32))
+    assert np.array_equal(prng.randint(tk, shape, maxval).numpy(), want.astype(np.int64))
+
+
+@pytest.mark.parametrize("axis,rows", [(0, (1, 3)), (1, (2, 5)), (2, (0, 7)), (2, (6, 7)),
+                                       (1, (3, 3))])
+def test_row_range_equals_slice_of_whole_draw(axis, rows):
+    shape = (3, 5, 7)
+    _, tk = _key(11)
+    whole_bits = prng.bits(tk, shape).numpy()
+    whole_int = prng.randint(tk, shape, 2147352577).numpy()
+    sl = tuple(slice(*rows) if d == axis else slice(None) for d in range(3))
+    assert np.array_equal(prng.bits(tk, shape, rows=rows, axis=axis).numpy(), whole_bits[sl])
+    assert np.array_equal(prng.randint(tk, shape, 2147352577, rows=rows, axis=axis).numpy(),
+                          whole_int[sl])
+
+
+def test_bad_arguments_raise():
+    with pytest.raises(ValueError):
+        prng.key(-1)
+    with pytest.raises(ValueError):
+        prng.randint(prng.key(0), (2,), (1 << 31) + 1)
