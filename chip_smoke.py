@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`ringsnark_tpu_torch`) on one GPU.
 
-    python3 chip_smoke.py            # full size: Rq N=8192, L=1, N'=16384; M=2^14 resident, 2^16 seeded
+    python3 chip_smoke.py            # full size: Rq N=8192, L=1, N'=16384; M=2^14 resident,
+                                     # 2^16 seeded and streamed Rinocchio, 2^18 streamed
     python3 chip_smoke.py --small    # the same phases at a small size (debugging)
 
 Phases, each timed on its own line; any failure raises, prints its
@@ -14,11 +15,11 @@ traceback and exits nonzero without the final line:
    every mode at every shape the resident path uses must be equal; then
    both are timed at the main path's batch (CUDA events).
 2b. the split kernel against its plain versions (`ntt_split_plain` and the
-   full-size twin): all four modes at M = 2^16 and 2^17 on the witness
-   map's batch (1024 slot rows) and at 2^18 and 2^19 on a few rows, plus
-   inverse(forward(x)) == x; kernel and plain split timed at the main-path
-   shapes.  Then the two CTA orders of the shared-memory kernel, timed at
-   the seeded MAC's encoding shape.
+   full-size twin): all four modes at M = 2^16, 2^17 (the seeded path's
+   witness map) and 2^18, 2^19 (the streamed path's) on the witness map's
+   batch of 1024 slot rows, plus inverse(forward(x)) == x; kernel and
+   plain versions timed at every shape.  Then the two CTA orders of the
+   shared-memory kernel, timed at the seeded MAC's encoding shape.
 3. the resident main path (M=2^14) through the package API: ringGroth16
    `generator` -> `prover` (cold, then warm: the two proofs must be
    identical) -> `verifier` (True), and `verifier` with one public input
@@ -36,6 +37,22 @@ traceback and exits nonzero without the final line:
 6. small seeded cross-check: the card's seeded proof equals, bit for bit,
    the proof that the same keypair gives on the CPU, and the CPU verifier
    accepts it.
+7. the streamed ringGroth16 path at the north star, M=2^18 (slab 4096,
+   phase_rows 2^16): `streamed.stream_prove` once (setup and prove in one
+   pass, the CRS never resident) -> `verifier` (True; False with a changed
+   public input), launch counts reset before and read after: both
+   negacyclic modes and both cyclic split modes must have launched.
+   Prints the StreamRecord totals, its sections, the wall time and the
+   peak allocation.
+8. streamed Rinocchio at M=2^16: `stream_prove_rinocchio` once (F present)
+   -> `rinocchio.verifier` (True; False with a changed public input), with
+   the same launch checks.
+9. small streamed cross-check (N=256, N'=512, M=2^6; L=1 and L=2, the
+   limb-local branch): `stream_prove` and `stream_prove_rinocchio` on the
+   card equal the CPU's calls bit for bit, two card calls with one seed
+   give one proof, the CPU verifiers accept the card's proofs, and
+   `amplify.prove_repeated` with K=2 verifies and rejects a changed public
+   input.
 
 The line before the last is a JSON object with the kernels' launch counts
 (both main paths), errors and times; the last line is
@@ -58,8 +75,13 @@ import torch
 # seeded CRS fits one 80 GB card)
 FULL = dict(L=1, N=8192, n_inner=16384, log_m=14)
 FULL_SEEDED = dict(FULL, log_m=16)
+# the streamed provers' (slab, phase_rows) are their defaults
+FULL_STREAMED = dict(FULL, log_m=18, slab=4096, phase_rows=1 << 16)
+FULL_RINOCCHIO = dict(FULL_STREAMED, log_m=16)
 SMALL = dict(L=1, N=256, n_inner=512, log_m=8)
 SMALL_SEEDED = dict(SMALL, log_m=9)
+SMALL_STREAMED = dict(SMALL, log_m=11, slab=256, phase_rows=1 << 10)
+SMALL_RINOCCHIO = dict(SMALL_STREAMED, log_m=9)
 REPLACES = "ringsnark_tpu/ops/pallas_ntt.py:170"  # _ntt_kernel_gridfree
 REPLACES_SPLIT = "ringsnark_tpu/ops/pallas_ntt.py:557"  # ntt_split_pallas -> _outer_kernel :458
 SOURCE = "ringsnark_tpu_torch/csrc/ntt.cu"
@@ -103,6 +125,22 @@ def make_params(cfg, device):
     ectx = EncodingContext(ring=ring, n_inner=n_inner, inner_primes=tuple(inner),
                            floor_limbs=floor)
     return SnarkParams(ring=ring, enc=ectx)
+
+
+def make_stage(times: dict):
+    """stage(name, fn): fn() timed on the host clock between synchronizes,
+    into times[name]."""
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        print(f"  {name}: {times[name]:.3f} s", flush=True)
+        return out
+
+    return stage
 
 
 def cuda_ms(fn, iters=10):
@@ -174,26 +212,28 @@ def kernel_vs_plain(params, cfg):
     return report
 
 
-def split_vs_plain(params, cfg, small: bool):
+def split_vs_plain(params, params_streamed, cfg, small: bool):
     """Phase 2b: the split kernel == its plain versions at every shape; times
-    at the witness map's shapes; the two CTA orders of the shared-memory
+    at the witness maps' shapes; the two CTA orders of the shared-memory
     kernel at the seeded MAC's encoding shape."""
     from ringsnark_tpu_torch.ops import cuda_ntt
     from ringsnark_tpu_torch.ops import ntt as nttm
-    from ringsnark_tpu_torch.ops.primes import find_ntt_primes
     from ringsnark_tpu_torch.snark import seeded
 
     ring, ectx = params.ring, params.enc
     mi = (1 << cfg["log_m"]) // 4 if small else nttm.SPLIT_MI  # full size: M = 4 mi
     slot_rows = min(1024, ring.N)
-    big = tuple(find_ntt_primes(1, 2 * 32 * mi))  # roots of order 2M for negacyclic M = 32 mi
-    # (M, primes, rows, timed): the witness map's iNTT at M and product at 2M
-    shapes = [(4 * mi, ring.primes, slot_rows, True), (8 * mi, ring.primes, slot_rows, True),
-              (16 * mi, big, 4, False), (32 * mi, big, 2, False)]
+    # (M, primes): the witness maps' iNTT at M and product at 2M, the seeded
+    # path's (M = 4 mi) and the streamed path's (M = 16 mi), on the outer
+    # primes of each (roots of order 2M for the negacyclic modes)
+    streamed_primes = params_streamed.ring.primes
+    shapes = [(4 * mi, ring.primes), (8 * mi, ring.primes),
+              (16 * mi, streamed_primes), (32 * mi, streamed_primes)]
+    rows = slot_rows
     gen = torch.Generator(device="cuda").manual_seed(4321)
     report = {m: {"max_abs_err": 0, "ms": None, "plain_ms": None, "full_twin_ms": None,
-                  "shape": None} for m in cuda_ntt.SPLIT_MODES}
-    for M, primes, rows, timed in shapes:
+                  "shape": None, "streamed": None} for m in cuda_ntt.SPLIT_MODES}
+    for M, primes in shapes:
         x = torch.cat([torch.randint(0, p, (rows, 1, M), generator=gen, dtype=torch.int32,
                                      device="cuda") for p in primes], dim=1)
         for nega in (False, True):
@@ -211,18 +251,21 @@ def split_vs_plain(params, cfg, small: bool):
                 if not inverse:
                     fwd = got
                 print(f"  equal  {mode:21s} M={M:<7d} rows={rows}", flush=True)
-                if timed:
-                    ms = cuda_ms(lambda: cuda_ntt.ntt_split(x, plan, inverse, nega, mi=mi))
-                    pms = cuda_ms(lambda: nttm.ntt_split_plain(x, plan, inverse, nega, mi=mi),
-                                  iters=3)
-                    fms = cuda_ms(lambda: nttm.PLAIN_TWINS[(inverse, nega)](x, plan), iters=3)
-                    print(f"  time   {mode:21s} M={M:<7d} rows={rows}: kernel {ms:.4f} ms, "
-                          f"plain split {pms:.4f} ms, full twin {fms:.4f} ms", flush=True)
-                    # the witness map's shapes: the cyclic inverse at M
-                    # (interpolation), the forward at 2M (the H product)
-                    if M == (4 * mi if inverse and not nega else 8 * mi):
-                        report[mode].update(ms=ms, plain_ms=pms, full_twin_ms=fms,
-                                            shape=f"M={M}, L={len(primes)}, rows={rows}")
+                del got, plain, full
+                ms = cuda_ms(lambda: cuda_ntt.ntt_split(x, plan, inverse, nega, mi=mi))
+                pms = cuda_ms(lambda: nttm.ntt_split_plain(x, plan, inverse, nega, mi=mi),
+                              iters=3)
+                fms = cuda_ms(lambda: nttm.PLAIN_TWINS[(inverse, nega)](x, plan), iters=3)
+                print(f"  time   {mode:21s} M={M:<7d} rows={rows}: kernel {ms:.4f} ms, "
+                      f"plain split {pms:.4f} ms, full twin {fms:.4f} ms", flush=True)
+                # the witness maps' shapes: the cyclic inverse at M
+                # (interpolation), the forward at 2M (the H product)
+                times = dict(ms=ms, plain_ms=pms, full_twin_ms=fms,
+                             shape=f"M={M}, L={len(primes)}, rows={rows}")
+                if M == (4 * mi if inverse and not nega else 8 * mi):
+                    report[mode].update(times)
+                if M == (16 * mi if inverse and not nega else 32 * mi):
+                    report[mode]["streamed"] = times
             back = cuda_ntt.ntt_split(fwd, plan, True, nega, mi=mi)
             check(torch.equal(back, x), f"split inverse(forward(x)) != x at M={M}, nega={nega}")
         del x
@@ -263,15 +306,7 @@ def main_path(params, cfg):
           f"N'={params.enc.n_inner} L'={params.enc.L_inner} floor={params.enc.floor_limbs} "
           f"inner={params.enc.inner_primes}", flush=True)
     times = {}
-
-    def stage(name, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        times[name] = time.perf_counter() - t0
-        print(f"  {name}: {times[name]:.3f} s", flush=True)
-        return out
+    stage = make_stage(times)
 
     comp, primary, aux = stage(
         "circuit", lambda: build_synthetic_square_chain(ring, M, np.random.default_rng(0)))
@@ -336,7 +371,6 @@ def seeded_path(params, cfg):
     """Phase 5: generator_seeded -> prover_seeded x2 -> verifier (+ tampered)."""
     from ringsnark_tpu_torch.models.synthetic import build_synthetic_square_chain
     from ringsnark_tpu_torch.ops import cuda_ntt
-    from ringsnark_tpu_torch.ops import ntt as nttm
     from ringsnark_tpu_torch.snark import groth16, seeded
     from ringsnark_tpu_torch.utils import prng
 
@@ -346,15 +380,7 @@ def seeded_path(params, cfg):
           f"N'={ectx.n_inner} L'={ectx.L_inner} floor={ectx.floor_limbs} "
           f"inner={ectx.inner_primes}, slab {seeded.DEFAULT_SLAB}", flush=True)
     times = {}
-
-    def stage(name, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        times[name] = time.perf_counter() - t0
-        print(f"  {name}: {times[name]:.3f} s", flush=True)
-        return out
+    stage = make_stage(times)
 
     comp, primary, aux = stage(
         "circuit", lambda: build_synthetic_square_chain(ring, M, np.random.default_rng(0)))
@@ -380,11 +406,7 @@ def seeded_path(params, cfg):
     for e in (proof.A, proof.B, proof.C):
         check(tuple(e.c0.shape) == (ring.L, ectx.floor_limbs, ectx.n_inner),
               f"proof element shape {tuple(e.c0.shape)}")
-    # the witness map's transforms of M and 2M take the split kernel past
-    # MAX_KERNEL_M (at M = 2^16 both do; --small stays below it)
-    cyc = "split_cyclic" if 2 * M > nttm.MAX_KERNEL_M else "cyclic"
-    for mode in ("negacyclic_fwd", "negacyclic_inv", f"{cyc}_fwd", f"{cyc}_inv"):
-        check(counts[mode] > 0, f"kernel mode {mode} never launched on the seeded path")
+    _launch_check(counts, M, "seeded")
     return counts, times, crs_bytes, peak
 
 
@@ -412,6 +434,144 @@ def small_seeded_cross_check():
           "CPU verifier rejected the card's seeded proof")
     print(f"  small seeded input (N={cfg['N']}, N'={cfg['n_inner']}, M=2^{cfg['log_m']}, "
           "slab 16): card proof == CPU proof, CPU verifier accepts", flush=True)
+
+
+def _launch_check(counts, M, path):
+    """Both negacyclic shared-memory modes and both cyclic modes of the
+    witness map (split past MAX_KERNEL_M) must have launched."""
+    from ringsnark_tpu_torch.ops import ntt as nttm
+
+    inv = "split_cyclic_inv" if M > nttm.MAX_KERNEL_M else "cyclic_inv"
+    fwd = "split_cyclic_fwd" if 2 * M > nttm.MAX_KERNEL_M else "cyclic_fwd"
+    for mode in ("negacyclic_fwd", "negacyclic_inv", fwd, inv):
+        check(counts[mode] > 0, f"kernel mode {mode} never launched on the {path} path")
+
+
+def streamed_path(params, cfg):
+    """Phase 7: stream_prove (setup + prove in one pass) -> verifier (+ tampered)."""
+    from ringsnark_tpu_torch.models.synthetic import build_synthetic_square_chain
+    from ringsnark_tpu_torch.ops import cuda_ntt
+    from ringsnark_tpu_torch.snark import groth16, streamed
+    from ringsnark_tpu_torch.utils import prng
+
+    ring, ectx = params.ring, params.enc
+    M = 1 << cfg["log_m"]
+    plan = streamed.plan_chunks(M + 1, cfg["phase_rows"], cfg["slab"])
+    print(f"  config: ring N={ring.N} L={ring.L} primes={ring.primes}, M=2^{cfg['log_m']}, "
+          f"N'={ectx.n_inner} L'={ectx.L_inner} floor={ectx.floor_limbs} "
+          f"inner={ectx.inner_primes}, slab {cfg['slab']}, phase_rows {cfg['phase_rows']}: "
+          f"{plan[0]} chunks of {plan[1]} rows", flush=True)
+    times = {}
+    stage = make_stage(times)
+    comp, primary, aux = stage(
+        "circuit", lambda: build_synthetic_square_chain(ring, M, np.random.default_rng(0)))
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ntt.reset_launch_counts()
+    rec = streamed.StreamRecord(sync=True)
+    proof, vk, _ = stage("setup_prove", lambda: streamed.stream_prove(
+        comp, params, primary, aux, np.random.default_rng(1), prng.key(0), slab=cfg["slab"],
+        phase_rows=cfg["phase_rows"], record=rec))
+    ok = stage("verify", lambda: groth16.verifier(vk, primary, proof))
+    rejected = not stage("verify_tampered", lambda: groth16.verifier(vk, primary + 1, proof))
+    counts = dict(cuda_ntt.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    totals = {k: rec.total(k) for k in ("setup", "prove", "stream")}
+    print(f"  record totals {totals}; sections {[(k, n, round(dt, 3)) for k, n, dt in rec.events]}",
+          flush=True)
+    print(f"  peak allocated {peak / 2**30:.3f} GiB; launches {counts}", flush=True)
+    check(ok is True, "verifier rejected an honest streamed proof")
+    check(rejected, "verifier accepted a streamed proof against a changed public input")
+    for e in (proof.A, proof.B, proof.C):
+        check(tuple(e.c0.shape) == (ring.L, ectx.floor_limbs, ectx.n_inner),
+              f"proof element shape {tuple(e.c0.shape)}")
+    _launch_check(counts, M, "streamed")
+    return counts, times, totals, rec.events, peak
+
+
+def rinocchio_path(params, cfg):
+    """Phase 8: stream_prove_rinocchio -> rinocchio.verifier (+ tampered)."""
+    from ringsnark_tpu_torch.models.synthetic import build_synthetic_square_chain
+    from ringsnark_tpu_torch.ops import cuda_ntt
+    from ringsnark_tpu_torch.snark import rinocchio, streamed
+    from ringsnark_tpu_torch.utils import prng
+
+    ring, ectx = params.ring, params.enc
+    M = 1 << cfg["log_m"]
+    print(f"  config: ring N={ring.N} L={ring.L}, M=2^{cfg['log_m']}, N'={ectx.n_inner} "
+          f"L'={ectx.L_inner} floor={ectx.floor_limbs}, slab {cfg['slab']}, "
+          f"phase_rows {cfg['phase_rows']}", flush=True)
+    times = {}
+    stage = make_stage(times)
+    comp, primary, aux = stage(
+        "circuit", lambda: build_synthetic_square_chain(ring, M, np.random.default_rng(2)))
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ntt.reset_launch_counts()
+    rec = streamed.StreamRecord(sync=True)
+    proof, vk, _ = stage("setup_prove", lambda: streamed.stream_prove_rinocchio(
+        comp, params, primary, aux, np.random.default_rng(3), prng.key(4), slab=cfg["slab"],
+        phase_rows=cfg["phase_rows"], record=rec))
+    ok = stage("verify", lambda: rinocchio.verifier(vk, primary, proof))
+    rejected = not stage("verify_tampered", lambda: rinocchio.verifier(vk, primary + 1, proof))
+    counts = dict(cuda_ntt.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    totals = {k: rec.total(k) for k in ("setup", "prove", "stream")}
+    print(f"  record totals {totals}; peak allocated {peak / 2**30:.3f} GiB; launches {counts}",
+          flush=True)
+    check(proof.F is not None, "Rinocchio proof without F despite auxiliary inputs")
+    check(ok is True, "verifier rejected an honest Rinocchio proof")
+    check(rejected, "verifier accepted a Rinocchio proof against a changed public input")
+    _launch_check(counts, M, "streamed Rinocchio")
+    return counts, times, totals, peak
+
+
+def small_streamed_cross_check():
+    """Phase 9: streamed proofs on the card == the CPU's, bit for bit."""
+    from ringsnark_tpu_torch.models.synthetic import build_synthetic_square_chain
+    from ringsnark_tpu_torch.snark import amplify, groth16, rinocchio, streamed
+    from ringsnark_tpu_torch.snark.api import KeyPair
+    from ringsnark_tpu_torch.utils import interop, prng
+
+    plan = dict(slab=16, phase_rows=32)
+
+    def prove(params, which):
+        comp, primary, aux = build_synthetic_square_chain(params.ring, 64,
+                                                          np.random.default_rng(11))
+        fn = streamed.stream_prove if which == "groth16" else streamed.stream_prove_rinocchio
+        proof, vk, _ = fn(comp, params, primary, aux, np.random.default_rng(12), prng.key(13),
+                          **plan)
+        return proof, vk, comp, primary, aux
+
+    for L in (1, 2):
+        cfg = dict(SMALL, L=L, log_m=6)
+        p_gpu, p_cpu = make_params(cfg, "cuda"), make_params(cfg, "cpu")
+        for which in ("groth16", "rinocchio"):
+            proof, _, comp, primary, aux = prove(p_gpu, which)
+            again = interop.proof_to_numpy(prove(p_gpu, which)[0])
+            proof_cpu, vk_cpu, _, primary_c, _ = prove(p_cpu, which)
+            got = interop.proof_to_numpy(proof)
+            for g, a, c in zip(got, again, interop.proof_to_numpy(proof_cpu)):
+                check(all(x is None for x in (g, a, c)) or (
+                    g[2] == a[2] == c[2] and np.array_equal(g[0], a[0])
+                    and np.array_equal(g[1], a[1]) and np.array_equal(g[0], c[0])
+                    and np.array_equal(g[1], c[1])),
+                    f"L={L} {which}: card proofs differ from each other or from the CPU's")
+            verify = groth16.verifier if which == "groth16" else rinocchio.verifier
+            check(verify(vk_cpu, primary_c, interop.proof_from_numpy(p_cpu, got)),
+                  f"L={L} {which}: CPU verifier rejected the card's streamed proof")
+            check(which == "groth16" or proof.F is not None, "small Rinocchio proof without F")
+        rp = amplify.prove_repeated(comp, p_gpu, primary, aux, np.random.default_rng(14),
+                                    prng.key(15), 2, **plan)
+        check(amplify.verify_repeated(rp, primary), f"L={L}: repeated proofs rejected")
+        check(not amplify.verify_repeated(rp, primary + 1),
+              f"L={L}: repeated proofs accepted a changed public input")
+        # the card's streamed vk survives the trip to the CPU
+        vk_c = interop.keypair_from_numpy(p_cpu, interop.keypair_to_numpy(
+            KeyPair(pk=rp.vks[0].pk, vk=rp.vks[0]))).vk
+        check(groth16.verifier(vk_c, primary_c, interop.proof_from_numpy(
+            p_cpu, interop.proof_to_numpy(rp.proofs[0]))), f"L={L}: carried vk rejected")
+        print(f"  small streamed input (L={L}, N={cfg['N']}, N'={cfg['n_inner']}, "
+              f"M=2^{cfg['log_m']}, slab 16): card proofs == CPU proofs (ringGroth16, "
+              "Rinocchio), repeatable, CPU verifiers accept; amplify K=2 verifies", flush=True)
 
 
 def main() -> int:
@@ -452,8 +612,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     cfg5 = SMALL_SEEDED if args.small else FULL_SEEDED
-    params5 = make_params(cfg5, "cuda")
-    split_report, orders = split_vs_plain(params5, cfg5, args.small)
+    cfg7 = SMALL_STREAMED if args.small else FULL_STREAMED
+    cfg8 = SMALL_RINOCCHIO if args.small else FULL_RINOCCHIO
+    params5, params7 = make_params(cfg5, "cuda"), make_params(cfg7, "cuda")
+    split_report, orders = split_vs_plain(params5, params7, cfg5, args.small)
     phase("2b", "split kernel vs plain, CTA orders", t0)
 
     t0 = time.perf_counter()
@@ -473,27 +635,47 @@ def main() -> int:
     small_seeded_cross_check()
     phase(6, "small seeded cross-check", t0)
 
+    torch.cuda.empty_cache()  # phase 5's seeded CRS is gone with its keypair
+    t0 = time.perf_counter()
+    counts7, times7, rec7, events7, peak7 = streamed_path(params7, cfg7)
+    phase(7, "streamed main path", t0)
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    counts8, times8, rec8, peak8 = rinocchio_path(make_params(cfg8, "cuda"), cfg8)
+    phase(8, "streamed Rinocchio", t0)
+
+    t0 = time.perf_counter()
+    small_streamed_cross_check()
+    phase(9, "small streamed cross-check", t0)
+
+    by_path = {m: {"resident": counts[m], "seeded": counts5[m], "streamed": counts7[m],
+                   "streamed_rinocchio": counts8[m]} for m in counts}
+
     kernels = [
         {"name": f"ntt_{m}", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-         "launches": counts[m] + counts5[m],
-         "launches_by_path": {"resident": counts[m], "seeded": counts5[m]},
+         "launches": sum(by_path[m].values()), "launches_by_path": by_path[m],
          "max_abs_err": report[m]["max_abs_err"],
          "ms": report[m]["ms"], "plain_ms": report[m]["plain_ms"],
          "shape": report[m]["shape"]}
         for m in cuda_ntt.MODES
     ] + [
         {"name": f"ntt_{m}", "route": "cuda", "source": SOURCE, "replaces": REPLACES_SPLIT,
-         "launches": counts[m] + counts5[m],
-         "launches_by_path": {"resident": counts[m], "seeded": counts5[m]},
+         "launches": sum(by_path[m].values()), "launches_by_path": by_path[m],
          "max_abs_err": split_report[m]["max_abs_err"],
          "ms": split_report[m]["ms"], "plain_ms": split_report[m]["plain_ms"],
-         "full_twin_ms": split_report[m]["full_twin_ms"], "shape": split_report[m]["shape"]}
+         "full_twin_ms": split_report[m]["full_twin_ms"], "shape": split_report[m]["shape"],
+         "streamed_shape": split_report[m]["streamed"]}
         for m in cuda_ntt.SPLIT_MODES
     ]
     summary = {"resident": {"config": cfg, "stage_s": times, "crs_gib": crs_bytes / 2**30,
                             "peak_allocated_gib": peak / 2**30},
                "seeded": {"config": cfg5, "stage_s": times5, "crs_c0_gib": crs5 / 2**30,
                           "peak_allocated_gib": peak5 / 2**30},
+               "streamed": {"config": cfg7, "stage_s": times7, "record_s": rec7,
+                            "sections": events7, "peak_allocated_gib": peak7 / 2**30},
+               "streamed_rinocchio": {"config": cfg8, "stage_s": times8, "record_s": rec8,
+                                      "peak_allocated_gib": peak8 / 2**30},
                "cta_order": orders}
     print(json.dumps(summary), flush=True)
     print(card, flush=True)  # as nvidia-smi prints it: name, power limit

@@ -140,6 +140,10 @@ class EncodingContext:
         return torch.tensor(self.level_primes(level), dtype=torch.int64,
                             device=self.device)[:, None]
 
+    def size_in_bits(self, batch: int, level: int = 0) -> int:
+        """Ciphertext size (2 polys), mirroring `seal_ring.tcc:305-315`."""
+        return batch * self.L * 2 * (self.L_inner - level) * 31 * self.n_inner
+
 
 @dataclass(frozen=True)
 class SecretKey:

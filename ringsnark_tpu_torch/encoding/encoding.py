@@ -6,6 +6,8 @@ one `Encoding` with a leading batch axis.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..rings.elem import RingElem
@@ -94,6 +96,9 @@ class Encoding:
             and torch.equal(self.c0, other.c0)
             and torch.equal(self.c1, other.c1)
         )
+
+    def size_in_bits(self) -> int:
+        return self.ctx.size_in_bits(math.prod(self.batch_shape), self.level)
 
 
 def encode(ctx: EncodingContext, sk: SecretKey, rs: RingElem, key) -> Encoding:

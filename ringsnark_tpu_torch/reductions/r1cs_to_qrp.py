@@ -8,7 +8,10 @@ ringGroth16 prove/verify path):
   values;
 * ``prover_witness_map_chunked``: the non-ZK prover's witness map
   (a_full, b_full, H) — SpMVs, cyclic iNTTs of size M, and the size-2M
-  cyclic NTT product whose upper half is H — assembled per slot chunk.
+  cyclic NTT product whose upper half is H — assembled per slot chunk;
+* ``witness_map_kernel_chunked``: the ZK witness map (modes ``"mid"`` and
+  ``"all"``) over the full/io/mid assignment batches of
+  ``_assignment_batches``, with the patch (d2·A + d1·B − d3) + d1·d2·Z.
 
 The io/mid split of the repo counts the constant column once, on the io
 side (not the C++ reference's double count); the prover-mode map needs only
@@ -20,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import ntt as _ntt
-from ..ops.modops import mul_mod
+from ..ops.modops import add_mod, mul_mod, neg_mod, sub_mod
 from ..relations.qrp import QRPInstanceEvaluation
 from ..relations.r1cs import CompiledR1CS, spmv
 from ..rings.elem import RingElem
@@ -31,6 +34,7 @@ __all__ = [
     "r1cs_to_qrp_instance_map_with_evaluation",
     "eval_instance_arrays",
     "prover_witness_map_chunked",
+    "witness_map_kernel_chunked",
 ]
 
 
@@ -96,6 +100,30 @@ def _pa_batches(ctx, primary, auxiliary):
     return arr(primary), arr(auxiliary)
 
 
+def _assignment_batches(ctx, primary, auxiliary):
+    """(full, io, mid) assignment batches, each [1+nv, L, n]:
+    io = [1, primary, 0...], mid = [0, 0..., auxiliary] (the constant counted
+    once, on the io side).  Inputs are lists of RingElem or RingElem batches."""
+    one = RingElem.one(ctx)
+    if isinstance(primary, RingElem) or isinstance(auxiliary, RingElem):
+        p_res, a_res = _pa_batches(ctx, primary, auxiliary)
+        n = max(p_res.shape[-1], a_res.shape[-1], 1)
+        p_res = p_res.expand(*p_res.shape[:-1], n)
+        a_res = a_res.expand(*a_res.shape[:-1], n)
+        one_r = one.res.expand(1, ctx.L, n)
+        full = torch.cat([one_r, p_res, a_res], dim=0)
+        io = torch.cat([one_r, p_res, torch.zeros_like(a_res)], dim=0)
+        mid = torch.cat([torch.zeros_like(one_r), torch.zeros_like(p_res), a_res], dim=0)
+        return RingElem(ctx, full), RingElem(ctx, io), RingElem(ctx, mid)
+    zero = RingElem.zero(ctx)
+    full = RingElem.stack([one] + list(primary) + list(auxiliary))
+    io = RingElem.stack([one] + list(primary) + [zero] * len(auxiliary))
+    mid = RingElem.stack([zero] * (1 + len(primary)) + list(auxiliary))
+    # one slot width for all three (mid with no aux wires is all scalars)
+    n = max(b.res.shape[-1] for b in (full, io, mid))
+    return tuple(RingElem(ctx, b.res.expand(*b.res.shape[:-1], n)) for b in (full, io, mid))
+
+
 def _interp(domain: RootsDomain, evals_bln):
     """[M, L, n] domain-order evals -> [M, L, n] coefficients (via iNTT)."""
     c = domain.interpolate_arr(evals_bln.permute(2, 1, 0))  # [n, L, M]
@@ -128,26 +156,96 @@ def _witness_map_prover(comp, z_full, domain):
     for X^M.  C·z never reaches these outputs (deg C < M leaves the
     quotient's source coefficients alone), so it is not interpolated.
     """
-    ctx = comp.ctx
     M = domain.m
     az, bz, _ = comp.eval_matrices(z_full, num_rows=M)  # [M, L, n]
     aA, aB = _interp(domain, az), _interp(domain, bz)
-    n = aA.shape[-1]
-    if M > 1:
-        plan2 = _ntt.get_plan(ctx.primes, 2 * M)
-
-        def fwd2(a):  # [M, L, n] coefficients -> zero-padded [n, L, 2M] evals
-            x = torch.zeros((n, ctx.L, 2 * M), dtype=torch.int32, device=a.device)
-            x[..., :M] = a.permute(2, 1, 0)
-            return _ntt.cyclic_ntt_rev(x, plan2)
-
-        prod = _ntt.cyclic_intt_nat(mul_mod(fwd2(aA), fwd2(aB), ctx.p), plan2)
-        h_main = prod[..., M:].permute(2, 1, 0)  # [M, L, n], q_{M-1} = 0
-    else:
-        # M == 1: A, B constants; A*B - C = q * (X - x_0) requires q = 0
-        h_main = torch.zeros_like(aA)
+    h_main = _h_main(comp.ctx, aA, aB, M)
     H = torch.cat([h_main, torch.zeros_like(h_main[:1])], dim=0)  # [M+1, L, n]
     return aA, aB, H
+
+
+def _h_main(ctx, aA, aB, M: int):
+    """The upper half of coeffs(A*B), [M, L, n]: a size-2M cyclic NTT
+    product of the zero-padded coefficient batches.  (A*B - C is divisible
+    by Z = X^M - 1, and C, of degree < M, never reaches these coefficients.)"""
+    if M == 1:
+        # A, B constants; A*B - C = q * (X - x_0) requires q = 0
+        return torch.zeros_like(aA)
+    n = aA.shape[-1]
+    plan2 = _ntt.get_plan(ctx.primes, 2 * M)
+
+    def fwd2(a):  # [M, L, n] coefficients -> zero-padded [n, L, 2M] evals
+        x = torch.zeros((n, ctx.L, 2 * M), dtype=torch.int32, device=a.device)
+        x[..., :M] = a.permute(2, 1, 0)
+        return _ntt.cyclic_ntt_rev(x, plan2)
+
+    prod = _ntt.cyclic_intt_nat(mul_mod(fwd2(aA), fwd2(aB), ctx.p), plan2)
+    return prod[..., M:].permute(2, 1, 0)  # q_{M-1} = 0
+
+
+def _witness_map_kernel(comp, z_full, z_io, z_mid, d1r, d2r, d3r, domain, outputs: str = "all"):
+    """The ZK witness map (`r1cs_to_qrp.tcc:148-259`) of one slot chunk:
+    constraint evaluations and iNTTs of the io and mid legs, H from the full
+    assignment, and the patch H += d2*A + d1*B, H[0] -= d3 + d1*d2,
+    H[M] = d1*d2 (that is, + d1*d2*Z).  d's are [L, 1] or [L, n].
+
+      "all" -> (a_io, b_io, c_io, a_mid, b_mid, c_mid, Z, H)
+      "mid" -> (a_mid, b_mid, c_mid, H)
+
+    Only the legs an output needs are run (C of the full assignment never
+    is; the io legs only for "all")."""
+    assert outputs in ("all", "mid"), outputs
+    ctx, M, p = comp.ctx, domain.m, comp.ctx.p
+
+    def legs(z, k=3):
+        return tuple(_interp(domain, e) for e in comp.eval_matrices(z, num_rows=M)[:k])
+
+    aA, aB = legs(z_full, 2)
+    patch = add_mod(mul_mod(aA, d2r, p), mul_mod(aB, d1r, p), p)  # [M, L, n]
+    H = add_mod(_h_main(ctx, aA, aB, M), patch, p)
+    del aA, aB, patch
+    d1d2 = mul_mod(d1r, d2r, p)
+    n = H.shape[-1]
+    head = sub_mod(sub_mod(H[0], d3r, p), d1d2, p)
+    H = torch.cat([head[None], H[1:], d1d2[None].expand(1, ctx.L, n)], dim=0)  # [M+1, L, n]
+    mids = legs(z_mid)
+    if outputs == "mid":
+        return (*mids, H)
+    Z = torch.zeros((M + 1, ctx.L, 1), dtype=torch.int32, device=H.device)  # X^M - 1
+    Z[0] = neg_mod(torch.ones_like(Z[0]), p)
+    Z[M] = 1
+    return (*legs(z_io), *mids, Z, H)
+
+
+def witness_map_kernel_chunked(comp, z_full, z_io, z_mid, d1r, d2r, d3r, domain,
+                               slot_chunk: int = 1024, outputs: str = "all"):
+    """`_witness_map_kernel` over chunks of `slot_chunk` slots (slots never
+    interact), the pieces written into preallocated outputs.  d1r/d2r/d3r
+    are [L, 1] constants or [L, n] per-slot vectors, sliced with the chunk;
+    Z ("all") is a slot-independent [M+1, L, 1] constant, taken once."""
+    n = z_full.shape[-1]
+    for d in (d1r, d2r, d3r):
+        assert d.shape[-1] in (1, n), (tuple(d.shape), n)
+    if n <= slot_chunk:
+        return _witness_map_kernel(comp, z_full, z_io, z_mid, d1r, d2r, d3r, domain, outputs)
+    assert n % slot_chunk == 0, (n, slot_chunk)
+    z_idx = 6 if outputs == "all" else None
+
+    out = None
+    for lo in range(0, n, slot_chunk):
+        sl = slice(lo, lo + slot_chunk)
+        ds = (d if d.shape[-1] == 1 else d[..., sl] for d in (d1r, d2r, d3r))
+        pieces = _witness_map_kernel(
+            _comp_slot_slice(comp, lo, slot_chunk), z_full[..., sl], z_io[..., sl],
+            z_mid[..., sl], *ds, domain, outputs)
+        if out is None:
+            out = [pc if i == z_idx else
+                   torch.empty((*pc.shape[:-1], n), dtype=pc.dtype, device=pc.device)
+                   for i, pc in enumerate(pieces)]
+        for i, (o, pc) in enumerate(zip(out, pieces)):
+            if i != z_idx:
+                o[..., sl] = pc
+    return tuple(out)
 
 
 def prover_witness_map_chunked(comp, p_res, a_res, domain, slot_chunk: int = 1024):

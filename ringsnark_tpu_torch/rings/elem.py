@@ -71,6 +71,14 @@ class RingElem:
         return cls(ctx, ctx.tensor(res))
 
     @classmethod
+    def random_nonzero_element(cls, ctx: RingContext, rng: np.random.Generator) -> "RingElem":
+        """`random_element` draws until one is not zero (the same draws)."""
+        while True:
+            e = cls.random_element(ctx, rng)
+            if not e.is_zero():
+                return e
+
+    @classmethod
     def random_exceptional_element(
         cls, ctx: RingContext, rng: np.random.Generator, domain=None
     ) -> "RingElem":

@@ -54,6 +54,11 @@ class ProvingKey:
     delta_mid: Optional[Encoding]  # [aux] same with /delta
     delta_ts: Encoding  # [M+1] E(Z(s) s^i / delta)
 
+    def size_in_bits(self) -> int:
+        return sum(e.size_in_bits() for e in (self.alpha, self.beta, self.s_pows,
+                                              self.gamma_io, self.delta_mid, self.delta_ts)
+                   if e is not None)
+
 
 @dataclass
 class VerificationKey:
@@ -65,6 +70,9 @@ class VerificationKey:
     delta: RingElem
     sk_enc: Any
 
+    def size_in_bits(self) -> int:
+        return self.pk.size_in_bits()
+
 
 @dataclass
 class Proof:
@@ -73,6 +81,9 @@ class Proof:
     A: Encoding
     B: Encoding
     C: Encoding
+
+    def size_in_bits(self) -> int:
+        return self.A.size_in_bits() + self.B.size_in_bits() + self.C.size_in_bits()
 
 
 def generator(

@@ -93,6 +93,10 @@ class SeededEncoding:
     slab: int
     batch: int
 
+    def size_in_bits(self) -> int:
+        """Stored size: c0 only (c1 is the key)."""
+        return self.ctx.size_in_bits(self.batch) // 2
+
     @property
     def nslab(self) -> int:
         return -(-self.batch // self.slab)
@@ -179,6 +183,11 @@ class SeededProvingKey:
     gamma_io: Encoding
     delta_mid: Optional[SeededEncoding]
     delta_ts: SeededEncoding
+
+    def size_in_bits(self) -> int:
+        return sum(e.size_in_bits() for e in (self.alpha, self.beta, self.gamma_io, self.s_pows,
+                                              self.delta_mid, self.delta_ts)
+                   if e is not None)
 
     def c0_bytes(self) -> int:
         """Device bytes of the resident CRS (seeded batches: c0 only)."""

@@ -4,11 +4,18 @@ Everything crosses as numpy arrays (residues as uint32), so this module
 never imports jax: the JAX side does its own ``np.asarray``.
 
 * ``keypair_from_numpy(params, arrays)`` builds a port ``KeyPair`` from the
-  arrays of a ringGroth16 keypair, resident or seeded
-  (``keypair_to_numpy`` gives the same dict for a port keypair, e.g. to
-  move it to another device);
-* ``proof_to_numpy`` / ``proof_from_numpy`` turn a ``Proof`` into
-  ``(c0, c1, level)`` triples and back;
+  arrays of a ringGroth16 keypair, resident or seeded, or from those of a
+  streamed proof's vk (``KeyPair(pk=vk.pk, vk=vk)``, whose pk is a CRS-less
+  ``SeededProvingKey`` holding only ``gamma_io``); ``keypair_to_numpy``
+  gives the same dict for a port keypair, e.g. to move it to another
+  device;
+* ``rinocchio_vk_to_numpy`` / ``rinocchio_vk_from_numpy`` carry a streamed
+  Rinocchio vk: ``compiled``, ``domain_size``, ``vk`` with ``{"s",
+  "alpha", "beta", "r_v", "r_w", "r_y"}`` and ``sk`` (its pk is a CRS-less
+  stub);
+* ``proof_to_numpy`` / ``proof_from_numpy`` turn a ringGroth16 ``Proof``
+  (3 elements) or a Rinocchio one (9, ``F`` may be None) into
+  ``(c0, c1, level)`` triples (None for a missing element) and back;
 * ``key_from_numpy`` / ``key_to_numpy`` carry a threefry key as its key
   data, uint32[2] (``jax.random.key_data`` of a typed key, or a raw
   ``PRNGKey`` array).
@@ -40,6 +47,7 @@ from ..encoding.context import SecretKey
 from ..encoding.encoding import Encoding
 from ..relations.r1cs import CompiledR1CS
 from ..rings.elem import RingElem
+from ..snark import rinocchio
 from ..snark.api import KeyPair, SnarkParams
 from ..snark.groth16 import Proof, ProvingKey, VerificationKey
 from ..snark.seeded import SeededEncoding, SeededProvingKey
@@ -48,12 +56,14 @@ from .domain import RootsDomain
 
 __all__ = [
     "compiled_from_numpy", "keypair_from_numpy", "keypair_to_numpy",
+    "rinocchio_vk_from_numpy", "rinocchio_vk_to_numpy",
     "proof_to_numpy", "proof_from_numpy", "key_from_numpy", "key_to_numpy",
 ]
 
 _CRS = ("alpha", "beta", "s_pows", "gamma_io", "delta_mid", "delta_ts")
-_SEEDED = ("s_pows", "delta_mid", "delta_ts")
 _VK = ("s", "alpha", "beta", "gamma", "delta")
+_RIN_VK = ("s", "alpha", "beta", "r_v", "r_w", "r_y")
+_RIN_PROOF = ("A", "A_prime", "B", "B_prime", "C", "C_prime", "D", "D_prime", "F")
 
 
 def _host(t) -> np.ndarray:
@@ -93,16 +103,29 @@ def keypair_from_numpy(params: SnarkParams, arrays: dict) -> KeyPair:
         return Encoding(ectx, ring.tensor(entry[0]), ring.tensor(entry[1]), 0)
 
     crs = {k: enc(arrays["crs"][k]) for k in _CRS}
-    seeded = any(isinstance(crs[k], SeededEncoding) for k in _SEEDED)
+    # seeded, or the CRS-less key of a streamed proof (no s_pows at all)
+    seeded = not isinstance(crs["s_pows"], Encoding)
     pk = (SeededProvingKey if seeded else ProvingKey)(
         compiled=comp, domain=domain, params=params, **crs)
     vk = {k: RingElem(ring, ring.tensor(arrays["vk"][k])) for k in _VK}
-    sk = SecretKey(
-        ctx=ectx,
-        s_ntt=ring.tensor(arrays["sk"]["s_ntt"]),
-        s_coeffs=np.asarray(arrays["sk"]["s_coeffs"], dtype=np.int8),
-    )
-    return KeyPair(pk=pk, vk=VerificationKey(pk=pk, sk_enc=sk, **vk))
+    return KeyPair(pk=pk, vk=VerificationKey(pk=pk, sk_enc=_sk_from_numpy(ectx, arrays["sk"]),
+                                             **vk))
+
+
+def _sk_from_numpy(ectx, sk: dict) -> SecretKey:
+    return SecretKey(ctx=ectx, s_ntt=ectx.ring.tensor(sk["s_ntt"]),
+                     s_coeffs=np.asarray(sk["s_coeffs"], dtype=np.int8))
+
+
+def _compiled_to_numpy(comp: CompiledR1CS) -> dict:
+    return {
+        "rows": tuple(r.cpu().numpy() for r in comp.rows),
+        "cols": tuple(r.cpu().numpy() for r in comp.cols),
+        "coeffs": tuple(_host(x) for x in comp.coeffs),
+        "num_constraints": comp.num_constraints,
+        "num_variables": comp.num_variables,
+        "primary_input_size": comp.primary_input_size,
+    }
 
 
 def keypair_to_numpy(kp: KeyPair) -> dict:
@@ -118,14 +141,7 @@ def keypair_to_numpy(kp: KeyPair) -> dict:
         return (_host(e.c0), _host(e.c1))
 
     return {
-        "compiled": {
-            "rows": tuple(r.cpu().numpy() for r in comp.rows),
-            "cols": tuple(r.cpu().numpy() for r in comp.cols),
-            "coeffs": tuple(_host(x) for x in comp.coeffs),
-            "num_constraints": comp.num_constraints,
-            "num_variables": comp.num_variables,
-            "primary_input_size": comp.primary_input_size,
-        },
+        "compiled": _compiled_to_numpy(comp),
         "domain_size": pk.domain.m,
         "crs": {k: enc(getattr(pk, k)) for k in _CRS},
         "vk": {k: getattr(vk, k).numpy() for k in _VK},
@@ -133,18 +149,47 @@ def keypair_to_numpy(kp: KeyPair) -> dict:
     }
 
 
-def proof_to_numpy(proof: Proof):
-    """((A_c0, A_c1, level), (B_...), (C_...)) as uint32 numpy arrays."""
-    return tuple((_host(e.c0), _host(e.c1), e.level) for e in (proof.A, proof.B, proof.C))
-
-
-def proof_from_numpy(params: SnarkParams, triples) -> Proof:
+def rinocchio_vk_from_numpy(params: SnarkParams, arrays: dict) -> rinocchio.VerificationKey:
     ring = params.ring
-    A, B, C = (
-        Encoding(params.enc, ring.tensor(c0), ring.tensor(c1), int(level))
-        for c0, c1, level in triples
-    )
-    return Proof(A=A, B=B, C=C)
+    comp = compiled_from_numpy(ring, arrays["compiled"])
+    domain = RootsDomain(ring, int(arrays["domain_size"]))
+    assert domain.m == int(arrays["domain_size"])
+    stub = {f: None for f in ("s_pows", "alpha_s_pows", "beta_prods", "beta_rv_ts",
+                              "beta_rw_ts", "beta_ry_ts", "alpha_rv_ts", "alpha_rw_ts",
+                              "alpha_ry_ts", "rv_vs", "rw_ws", "ry_ys")}
+    pk = rinocchio.ProvingKey(constraint_system=None, compiled=comp, domain=domain,
+                              params=params, **stub)
+    vk = {k: RingElem(ring, ring.tensor(arrays["vk"][k])) for k in _RIN_VK}
+    return rinocchio.VerificationKey(pk=pk, sk_enc=_sk_from_numpy(params.enc, arrays["sk"]),
+                                     **vk)
+
+
+def rinocchio_vk_to_numpy(vk: rinocchio.VerificationKey) -> dict:
+    return {
+        "compiled": _compiled_to_numpy(vk.pk.compiled),
+        "domain_size": vk.pk.domain.m,
+        "vk": {k: getattr(vk, k).numpy() for k in _RIN_VK},
+        "sk": {"s_ntt": _host(vk.sk_enc.s_ntt), "s_coeffs": vk.sk_enc.s_coeffs},
+    }
+
+
+def proof_to_numpy(proof):
+    """One ``(c0, c1, level)`` triple of uint32 numpy arrays per element
+    (A, B, C; or A, A', ..., D', F for Rinocchio), None for a missing F."""
+    names = _RIN_PROOF if isinstance(proof, rinocchio.Proof) else ("A", "B", "C")
+    return tuple(None if e is None else (_host(e.c0), _host(e.c1), e.level)
+                 for e in (getattr(proof, n) for n in names))
+
+
+def proof_from_numpy(params: SnarkParams, triples):
+    """A ringGroth16 Proof from 3 triples, a Rinocchio Proof from 9."""
+    ring = params.ring
+    encs = [None if t is None else
+            Encoding(params.enc, ring.tensor(t[0]), ring.tensor(t[1]), int(t[2]))
+            for t in triples]
+    if len(encs) == 3:
+        return Proof(*encs)
+    return rinocchio.Proof(**dict(zip(_RIN_PROOF, encs)))
 
 
 def key_from_numpy(data) -> prng.Key:

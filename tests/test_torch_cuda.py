@@ -105,3 +105,45 @@ def test_split_sizes_and_bad_inputs_raise(cuda):
         cuda_ntt.ntt(x[..., :128].contiguous(), plan, False, True)
     with pytest.raises(ValueError, match="CTA order"):
         cuda_ntt.ntt(x, plan, False, True, order="column")
+
+
+def _small_params(L, device):
+    from ringsnark_tpu_torch.encoding import EncodingContext
+    from ringsnark_tpu_torch.rings.context import default_context
+    from ringsnark_tpu_torch.snark.api import SnarkParams
+
+    ring = default_context(L=L, N=64, order=1 << 12, device=device)
+    inner = [q for q in find_ntt_primes(L + 3, 256) if q not in ring.primes][:3]
+    ectx = EncodingContext(ring=ring, n_inner=128, inner_primes=tuple(inner))
+    return SnarkParams(ring=ring, enc=ectx)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [1, 2])
+def test_streamed_proofs_on_card_equal_cpu(cuda, L):
+    """stream_prove and stream_prove_rinocchio on the card give the CPU's
+    proofs bit for bit (L=2 takes the limb-local branch), and verify."""
+    import numpy as np
+
+    from ringsnark_tpu_torch.models.synthetic import build_synthetic_square_chain
+    from ringsnark_tpu_torch.snark import groth16, rinocchio, streamed
+    from ringsnark_tpu_torch.utils import interop, prng
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = _small_params(L, dev)
+        comp, primary, aux = build_synthetic_square_chain(params.ring, 32,
+                                                          np.random.default_rng(2))
+        proof, vk, _ = streamed.stream_prove(comp, params, primary, aux,
+                                             np.random.default_rng(3), prng.key(4),
+                                             slab=8, phase_rows=16)
+        rproof, rvk, _ = streamed.stream_prove_rinocchio(comp, params, primary, aux,
+                                                         np.random.default_rng(5), prng.key(6),
+                                                         slab=8, phase_rows=16)
+        assert groth16.verifier(vk, primary, proof)
+        assert rinocchio.verifier(rvk, primary, rproof)
+        out[dev] = (interop.proof_to_numpy(proof), interop.proof_to_numpy(rproof))
+    for got, want in zip(out["cuda"], out["cpu"]):
+        for g, w in zip(got, want):
+            assert g[2] == w[2] and np.array_equal(g[0], w[0])
+            assert np.array_equal(g[1], w[1])
