@@ -10,15 +10,21 @@ traceback and exits nonzero without the final line:
 
 0. environment: torch/CUDA versions, nvcc, the card's name and power limit;
    fails without CUDA.
-1. build the NTT kernels from `ringsnark_tpu_torch/csrc/ntt.cu`.
+1. build the NTT kernels from `ringsnark_tpu_torch/csrc/ntt.cu`; `ptxas` must
+   report no register spills.
 2. the shared-memory kernel against its plain PyTorch twin, on the card:
-   every mode at every shape the resident path uses must be equal; then
-   both are timed at the main path's batch (CUDA events).
+   every mode at every shape the resident path uses, and at the streamed
+   path's encryption shapes ([512, 1, 4, 16384] forward, [512, 1, 16384]
+   mod t inverse), must be equal; then both are timed at the main path's
+   batch (CUDA events), beside the bound (one read and one write of every
+   residue at 3.35 TB/s) and the kernel's share of it.
 2b. the split kernel against its plain versions (`ntt_split_plain` and the
    full-size twin): all four modes at M = 2^16, 2^17 (the seeded path's
    witness map) and 2^18, 2^19 (the streamed path's) on the witness map's
-   batch of 1024 slot rows, plus inverse(forward(x)) == x; kernel and
-   plain versions timed at every shape.  Then the two CTA orders of the
+   batch of 1024 slot rows, on the route `cuda_ntt.split_path(M)` picks
+   (printed: one pass in a thread-block cluster up to R = 8, two passes
+   from R = 16), plus inverse(forward(x)) == x; kernel and plain versions timed
+   at every shape, beside the bound and share.  Then the two CTA orders of the
    shared-memory kernel, timed at the seeded MAC's encoding shape.
 3. the resident main path (M=2^14) through the package API: ringGroth16
    `generator` -> `prover` (cold, then warm: the two proofs must be
@@ -55,7 +61,9 @@ traceback and exits nonzero without the final line:
    input.
 
 The line before the last is a JSON object with the kernels' launch counts
-(both main paths), errors and times; the last line is
+(per path), errors, times, bounds (`bound_ms`, `bound_by`, `share_of_bound`)
+and `library_ms` (null: no PyTorch call computes an NTT modulo a prime);
+the last line is
 `{"ok": true, "device": {...}}`.  This script imports nothing of JAX.
 """
 
@@ -85,6 +93,12 @@ SMALL_RINOCCHIO = dict(SMALL_STREAMED, log_m=9)
 REPLACES = "ringsnark_tpu/ops/pallas_ntt.py:170"  # _ntt_kernel_gridfree
 REPLACES_SPLIT = "ringsnark_tpu/ops/pallas_ntt.py:557"  # ntt_split_pallas -> _outer_kernel :458
 SOURCE = "ringsnark_tpu_torch/csrc/ntt.cu"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+
+
+def bound_ms(numel: int) -> float:
+    """One read and one write of every int32 residue at the card's memory rate."""
+    return 2 * 4 * numel / HBM_BYTES_PER_S * 1e3
 
 
 def check(cond, msg):
@@ -159,27 +173,33 @@ def kernel_vs_plain(params, cfg):
     """Phase 2: equality at every slice shape, then times per mode."""
     from ringsnark_tpu_torch.ops import cuda_ntt
     from ringsnark_tpu_torch.ops import ntt as nttm
+    from ringsnark_tpu_torch.snark import seeded
 
     ring, ectx = params.ring, params.enc
     M, N, n_inner = 1 << cfg["log_m"], cfg["N"], cfg["n_inner"]
     enc_rows = max(1, (1 << 24) // (ring.L * ectx.L_inner * n_inner))  # encode/MAC chunk
+    sub_rows = seeded._sub_rows(ectx)  # the streamed path's encryption sub-chunk
     slot_rows = min(1024, N)  # witness-map slot chunk
     floor_level = ectx.L_inner - ectx.floor_limbs
     # (label, primes, size, negacyclic, rows at the main path's batch, modes timed)
     shapes = [(f"ring N={N} outer", ring.primes, N, True, 16, ())]
     shapes += [
         (f"inner N'={n_inner} L'={ectx.L_inner - lv}", ectx.level_primes(lv), n_inner,
-         True, enc_rows, ("negacyclic_fwd",) if lv == 0 else ())
+         True, enc_rows, ())
         for lv in range(floor_level + 1)
     ]
     shapes += [
-        (f"plain t N'={n_inner}", ring.primes, n_inner, True, enc_rows, ("negacyclic_inv",)),
+        (f"plain t N'={n_inner}", ring.primes, n_inner, True, enc_rows, ()),
+        (f"encrypt N'={n_inner} L'={ectx.L_inner}", ectx.level_primes(0), n_inner, True,
+         sub_rows, ("negacyclic_fwd",)),
+        (f"encrypt plain t N'={n_inner}", ring.primes, n_inner, True, sub_rows,
+         ("negacyclic_inv",)),
         (f"cyclic M={M} outer", ring.primes, M, False, slot_rows, ("cyclic_inv",)),
         (f"cyclic 2M={2 * M} outer", ring.primes, 2 * M, False, slot_rows, ("cyclic_fwd",)),
     ]
     gen = torch.Generator(device=ring.device).manual_seed(1234)
-    report = {m: {"max_abs_err": 0, "ms": None, "plain_ms": None, "shape": None}
-              for m in cuda_ntt.MODES}
+    report = {m: {"max_abs_err": 0, "ms": None, "plain_ms": None, "shape": None,
+                  "bound_ms": None} for m in cuda_ntt.MODES}
 
     def rand(primes, size, rows):
         cols = [torch.randint(0, p, (rows, 1, size), generator=gen, dtype=torch.int32,
@@ -204,10 +224,11 @@ def kernel_vs_plain(params, cfg):
             mode = cuda_ntt.mode_name(inverse, nega)
             ms = cuda_ms(lambda: cuda_ntt.ntt(xb, plan, inverse, nega))
             pms = cuda_ms(lambda: nttm.PLAIN_TWINS[(inverse, nega)](xb, plan), iters=3)
+            bms = bound_ms(xb.numel())
             print(f"  time   {mode:15s} {label:28s} rows={rows}: kernel {ms:.4f} ms, "
-                  f"plain {pms:.4f} ms", flush=True)
+                  f"plain {pms:.4f} ms, bound {bms:.4f} ms ({100 * bms / ms:.1f} %)", flush=True)
             if mode in timed:
-                report[mode].update(ms=ms, plain_ms=pms,
+                report[mode].update(ms=ms, plain_ms=pms, bound_ms=bms,
                                     shape=f"{label}, rows={rows}")
     return report
 
@@ -232,8 +253,10 @@ def split_vs_plain(params, params_streamed, cfg, small: bool):
     rows = slot_rows
     gen = torch.Generator(device="cuda").manual_seed(4321)
     report = {m: {"max_abs_err": 0, "ms": None, "plain_ms": None, "full_twin_ms": None,
-                  "shape": None, "streamed": None} for m in cuda_ntt.SPLIT_MODES}
+                  "shape": None, "bound_ms": None, "path": None, "streamed": None}
+              for m in cuda_ntt.SPLIT_MODES}
     for M, primes in shapes:
+        print(f"  route  M={M:<7d} = {M // mi} x {mi}: {cuda_ntt.split_path(M, mi)}", flush=True)
         x = torch.cat([torch.randint(0, p, (rows, 1, M), generator=gen, dtype=torch.int32,
                                      device="cuda") for p in primes], dim=1)
         for nega in (False, True):
@@ -256,11 +279,14 @@ def split_vs_plain(params, params_streamed, cfg, small: bool):
                 pms = cuda_ms(lambda: nttm.ntt_split_plain(x, plan, inverse, nega, mi=mi),
                               iters=3)
                 fms = cuda_ms(lambda: nttm.PLAIN_TWINS[(inverse, nega)](x, plan), iters=3)
+                bms = bound_ms(x.numel())
                 print(f"  time   {mode:21s} M={M:<7d} rows={rows}: kernel {ms:.4f} ms, "
-                      f"plain split {pms:.4f} ms, full twin {fms:.4f} ms", flush=True)
+                      f"plain split {pms:.4f} ms, full twin {fms:.4f} ms, bound {bms:.4f} ms "
+                      f"({100 * bms / ms:.1f} %)", flush=True)
                 # the witness maps' shapes: the cyclic inverse at M
                 # (interpolation), the forward at 2M (the H product)
-                times = dict(ms=ms, plain_ms=pms, full_twin_ms=fms,
+                times = dict(ms=ms, plain_ms=pms, full_twin_ms=fms, bound_ms=bms,
+                             path=cuda_ntt.split_path(M, mi),
                              shape=f"M={M}, L={len(primes)}, rows={rows}")
                 if M == (4 * mi if inverse and not nega else 8 * mi):
                     report[mode].update(times)
@@ -600,9 +626,14 @@ def main() -> int:
     t0 = time.perf_counter()
     built = cuda_ntt.build()
     print(f"  built {built.path.name}", flush=True)
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    lines = built.log.splitlines()
+    regs = [int(w.split()[0]) for line in lines for w in line.split("Used ")[1:]]
+    spills = [line.strip() for line in lines
+              if "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes "
+                                                                   "spill stores, 0 bytes spill")]
+    print(f"  ptxas: {len(regs)} kernels, registers per thread {min(regs)}-{max(regs)}, "
+          f"spills: {spills or 'none'}", flush=True)
+    check(regs and not spills, "ptxas reports register spills (or no kernel)")
     phase(1, "build", t0)
 
     params = make_params(cfg, "cuda")
@@ -652,11 +683,15 @@ def main() -> int:
     by_path = {m: {"resident": counts[m], "seeded": counts5[m], "streamed": counts7[m],
                    "streamed_rinocchio": counts8[m]} for m in counts}
 
+    def bounds(r):  # no PyTorch call computes an NTT modulo a prime: library_ms is null
+        return {"bound_ms": r["bound_ms"], "bound_by": "bytes",
+                "share_of_bound": r["bound_ms"] / r["ms"], "library_ms": None}
+
     kernels = [
         {"name": f"ntt_{m}", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
          "launches": sum(by_path[m].values()), "launches_by_path": by_path[m],
          "max_abs_err": report[m]["max_abs_err"],
-         "ms": report[m]["ms"], "plain_ms": report[m]["plain_ms"],
+         "ms": report[m]["ms"], "plain_ms": report[m]["plain_ms"], **bounds(report[m]),
          "shape": report[m]["shape"]}
         for m in cuda_ntt.MODES
     ] + [
@@ -664,6 +699,7 @@ def main() -> int:
          "launches": sum(by_path[m].values()), "launches_by_path": by_path[m],
          "max_abs_err": split_report[m]["max_abs_err"],
          "ms": split_report[m]["ms"], "plain_ms": split_report[m]["plain_ms"],
+         **bounds(split_report[m]), "path": split_report[m]["path"],
          "full_twin_ms": split_report[m]["full_twin_ms"], "shape": split_report[m]["shape"],
          "streamed_shape": split_report[m]["streamed"]}
         for m in cuda_ntt.SPLIT_MODES

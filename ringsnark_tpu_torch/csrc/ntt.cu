@@ -8,11 +8,13 @@
 //     `_apply_blm`): here one kernel, `ntt_kernel`, whose CTA order is a
 //     launch argument;
 //   * the split large-M path `ntt_split_pallas` / `_outer_pass` /
-//     `_outer_kernel`: `outer_kernel` below plus `ntt_kernel` on the
-//     [B, L, R, Mi] view as the inner pass.
+//     `_outer_kernel`: for R = M / Mi <= 8 one launch of
+//     `split_cluster_kernel` (a thread-block cluster holds the transform),
+//     from R = 16 `outer_kernel` plus `ntt_kernel` on the [B, L, R, Mi] view.
 //
 // Contract (identical to the TPU kernels and to the plain twins in
-// ops/ntt.py, bit for bit):
+// ops/ntt.py, bit for bit; an NTT output reduced into [0, p) is unique, so
+// every exact schedule gives the same words):
 //   forward: natural order in, bit-reversed order out (DIF butterflies
 //            a' = a + b, b' = (a - b) * w); negacyclic first twists by psi^i;
 //   inverse: bit-reversed order in, natural order out (DIT butterflies
@@ -20,341 +22,826 @@
 //            (negacyclic) or M^-1 (cyclic).
 //   Inputs are residues in [0, p); outputs are fully reduced into [0, p).
 //
-// What bounds it on this card: it is memory-bound.  Each transform reads and
-// writes its M residues once (8 bytes per element), plus the per-stage
-// twiddles and their Shoup companions (8 bytes per butterfly), which are
-// shared by every row of a limb and stay in L2.  The modular arithmetic is
-// a handful of 32-bit integer ops per butterfly (one __umulhi Shoup
-// multiply, no 64-bit products).
+// What bounds it on this card: the bound is device memory, 8 bytes per
+// element (one read, one write).  But a butterfly is one Shoup multiply
+// (__umulhi and two low products) and about six adds, selects and minima,
+// 14 butterfly stages at M = 16384: the integer pipes need about as long
+// as the memory, and what keeps a transform on the SM (shared-memory
+// exchanges, barriers, twiddle and psi loads) comes on top.  On the H100
+// the kernels reach 25-35 % of the memory bound (PERF.md).
 //
 // What the design does about it:
-// * ntt_kernel: one CTA per (row, limb) transform holds the whole
-//   polynomial in dynamic shared memory (32 KiB at M = 8192, 128 KiB at
-//   M = 32768) and runs all log2(M) stages there with __syncthreads between
-//   stages, so device memory sees one read and one write per element.  The
-//   psi twist and M^-1 fold into the load / store passes.  Data are
-//   [B, L, S, M] (S = 1 for a plain batch, S = R for the split inner pass);
-//   CTA g takes transform g in row order, or in limb-major order (all rows
-//   of limb 0 first), which only changes which transforms run together.
-// * outer_kernel (split M = R * Mi, Mi = 16384 on the main path): one
-//   thread per (row, limb, column c) loads the R residues of column c of
-//   the [R, Mi] view (stride Mi; coalesced across threads along c), keeps
-//   them in registers, runs all log2(R) outer stages and writes them back:
-//   one more read and write per element than a single-pass transform.
-//   The psi twist (forward) and psi^-k M^-1 or M^-1 (inverse) fold into it,
-//   so the inner pass runs unscaled.
-// Not done yet (later work): a register-resident radix, several rows per
-// CTA, fusing the outer pass into the inner kernel's load or store.
+// * ntt_kernel, register radix: a thread holds E = 16 residues of one
+//   transform (E = M below 16) at stride D and runs up to log2(E) = 4
+//   stages on them in registers; a transform of log2(M) stages is a few
+//   such passes (14 = 2 + 4 + 4 + 4, the short pass at the top), with one
+//   shared-memory exchange and one __syncthreads between passes instead of
+//   one per stage.  Each distinct twiddle of a pass is one 8-byte load of
+//   a (w, w_sh) pair, coalesced across the warp, from a per-limb table
+//   that every row shares (15 loads per 16 residues a pass, not 2 per
+//   butterfly).  The shared layout is XOR-swizzled within 32-word rows
+//   (swz) so that every exchange is free of bank conflicts, and swz is
+//   linear, so a residue's address is one XOR.  The psi twist, M^-1 and
+//   the choice of output are template arguments: no branch sits between a
+//   group's loads.  Conditional subtractions are unsigned minima.
+// * ntt_kernel, persistent: about (SMs x CTAs per SM) CTAs walk the tiles
+//   of the [rows, L, S] batch (row or limb-major order), a tile being TP
+//   transforms (TP > 1 below M = 4096, so a CTA runs 256 threads).  Up to
+//   M = 16384 two CTAs of 256 threads share a SM and interleave their
+//   loads, passes and stores (faster on the card than one CTA of 512 with
+//   a second buffer); a tile of at most 32 KiB has a second buffer, filled
+//   with cp.async while the current one computes.  M = 32768 runs one CTA
+//   of 512 threads (128 KiB).  A thread keeps up to 128 registers, none
+//   spilled.  The first pass reads shared memory; the last pass writes
+//   device memory from registers, through the warp's own shared words
+//   where a thread's 16 residues are contiguous, so that every store is
+//   128 contiguous bytes.
+// * split_cluster_kernel (M = R * Mi, R <= 8): a cluster of R CTAs holds
+//   one [R, Mi] transform in distributed shared memory, row r in CTA r.
+//   Forward: each CTA takes Mi/R columns, loads their R residues from
+//   device memory, runs the log2(R) outer stages in registers and stores
+//   row r's residue into CTA r's shared memory (DSMEM); cluster.sync();
+//   each CTA runs ntt_kernel's passes on its row and writes it out.  The
+//   inverse runs the same steps backwards.  Device memory sees one read
+//   and one write per element.
+// * outer_kernel (R >= 16): one thread per column runs the outer stages
+//   global to global, then ntt_kernel runs the inner transforms: two
+//   passes over device memory.  At R = 16 a cluster would need 16 CTAs
+//   (beyond the portable 8) or two rows per CTA (128 KiB, one CTA a SM,
+//   nothing to overlap its outer phase with); both ran slower on the card
+//   than the two passes, which keep two inner CTAs a SM.
+// * outer twiddles are factored: the b-row twiddle of outer stage i,
+//   w^(2^i (lo Mi + c)), is w^(2^i c) (column table [L, s, Mi]) times
+//   (w^Mi)^(2^i lo) (row table [L, s, R/2]), applied as two Shoup
+//   multiplies (the second skipped where lo = 0): R times less table than
+//   the positioned [L, s, R, Mi] table of the TPU kernel.
+// Not done yet (later work): psi merged into the stage twiddles, warp
+// shuffles for the passes whose partners lie in one warp, E = 32 (three
+// passes at M = 16384), cp.async.bulk (TMA) copies, and a prefetch of the
+// next transform inside the cluster kernel.
 //
-// Tables (built once per (primes, M) on the host from ops/ntt.get_plan and
-// ops/ntt.get_split_tables):
-//   tw, tw_sh   [L, M] uint32: entry d + k (1 <= d < M, k < d) is w_{2d}^k
-//               (forward: w; inverse: w^-1) and its Shoup constant
-//               floor(w * 2^32 / p); entry 0 is unused.
-//   sc, sc_sh   [L, M] uint32: psi^i (forward) or psi^-i * M^-1 (inverse)
-//               and Shoup constants; unused for cyclic transforms.
-//   consts      [L, 3] uint32: p, M^-1 mod p, Shoup constant of M^-1.
-//   outer:      tw [L, s, R, Mi] positioned stage twiddles (read at the
-//               b-row of each pair), sc [L, R, Mi] twists, consts with the
-//               full-size M^-1.
+// Tables (built once per (primes, M) on the host by ops/cuda_ntt.py from
+// ops/ntt.get_plan's roots), uint32 pairs (value, Shoup constant
+// floor(value * 2^32 / p)):
+//   tw [L, M, 2]   entry d + k (1 <= d < M, k < d) is w_{2d}^k (forward: w;
+//                  inverse: w^-1); entry 0 is unused.
+//   sc [L, M, 2]   psi^i (forward) or psi^-i * M^-1 (inverse); unused for
+//                  cyclic transforms.
+//   consts [L, 3]  p, M^-1 mod p, Shoup constant of M^-1.
+//   split:  col [L, s, Mi, 2] = w^(2^i c), row [L, s, R/2, 2] =
+//           w^(2^i Mi lo) (inverse: w^-1), sc [L, R, Mi, 2] twists, the
+//           inner transforms' tw [L, Mi, 2], consts with the full-size M^-1.
 //
-// C interface: ringsnark_ntt_launch and ringsnark_ntt_outer_launch return
-// cudaGetLastError() after the launch (0 on success); the Python wrapper
-// raises on anything else.
+// C interface: ringsnark_ntt_launch, ringsnark_ntt_outer_launch and
+// ringsnark_ntt_split_launch return cudaGetLastError() after the launch
+// (0 on success) or the error of a refused configuration; the Python
+// wrapper raises on anything else.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
+// A thread needs up to 128 registers (E = 16 residues, their twiddles and
+// addresses; 64 spill): so 512 threads a SM, as one CTA of 512 (ntt_kernel
+// at M = 32768) or two of 256 (ntt_kernel up to M = 16384 and the cluster
+// kernel, where two CTAs interleave their loads, passes and stores:
+// measured faster than one CTA of 512 with a second buffer).
+constexpr int kMaxThreads = 512;
+
+// An error returned before or by a launch also stays as the runtime's last
+// error, which the next launch's cudaGetLastError() would report as its
+// own: clear it, and return it to this caller.
+inline cudaError_t refused(cudaError_t err) {
+  (void)cudaGetLastError();
+  return err;
+}
+
+// x in [0, 2p) -> x mod p: where x < p, x - p wraps above x (unsigned min).
+__device__ __forceinline__ uint32_t reduce_once(uint32_t x, uint32_t p) {
+  return min(x, x - p);
+}
+
 __device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b, uint32_t p) {
-  uint32_t s = a + b;  // a, b < p < 2^31: no wrap
-  return s >= p ? s - p : s;
+  return reduce_once(a + b, p);  // a, b < p < 2^31: no wrap
 }
 
 __device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b, uint32_t p) {
-  uint32_t d = a + p - b;  // in [1, 2p)
-  return d >= p ? d - p : d;
+  return reduce_once(a + p - b, p);  // in [1, 2p)
 }
 
-// a * w mod p with w_sh = floor(w * 2^32 / p): r = a*w - q*p lies in [0, 2p).
-__device__ __forceinline__ uint32_t shoup_mul(uint32_t a, uint32_t w, uint32_t w_sh,
-                                              uint32_t p) {
-  uint32_t q = __umulhi(a, w_sh);
-  uint32_t r = a * w - q * p;
-  return r >= p ? r - p : r;
+// a * w mod p with w_sh = floor(w * 2^32 / p), for any a < 2^32:
+// r = a*w - q*p lies in [0, 2p).
+__device__ __forceinline__ uint32_t shoup_mul(uint32_t a, uint2 w, uint32_t p) {
+  const uint32_t q = __umulhi(a, w.y);
+  return reduce_once(a * w.x - q * p, p);
 }
 
-template <bool kInverse, bool kNegacyclic>
-__global__ void ntt_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
-                           const uint32_t* __restrict__ tw,
-                           const uint32_t* __restrict__ tw_sh,
-                           const uint32_t* __restrict__ sc,
-                           const uint32_t* __restrict__ sc_sh,
-                           const uint32_t* __restrict__ consts, int rows, int L,
-                           int S, int log_m, int limb_major, int scale) {
-  extern __shared__ uint32_t buf[];
-  const int M = 1 << log_m;
-  const int half = M >> 1;
-  // transform t of the [rows, L, S] batch; limb-major order walks limb 0's
-  // rows * S transforms first
-  const size_t g = blockIdx.x;
-  int limb;
-  size_t t;
+// Shared-memory address of logical word a: the low 5 bits are XORed with
+// bits of the 32-word row index, so that the exchanges at D = 1, 16 and
+// >= 32 hit 32 distinct banks per warp access.  swz is linear over GF(2)
+// (swz(a ^ b) = swz(a) ^ swz(b)), and a group's words are A ^ (j << log_d)
+// with those bits of A clear, so a residue's address is swz(A) ^ sj[j].
+__device__ __forceinline__ uint32_t swz(uint32_t a) {
+  const uint32_t row = a >> 5;
+  return a ^ ((row & 15u) | ((row & 8u) << 1));
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t* smem, const uint32_t* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The passes of a size-2^log_m transform in register groups of 2^log_e:
+// a top pass of r0 = 1 .. log_e stages at stride D = 2^(log_m - log_e),
+// then full passes at D = 2^(log_e k), k descending (forward order; the
+// inverse runs them in reverse).  Pass q's stages are the j-exponents
+// [e_lo, log_e) of the group (j-distance 2^e is index distance 2^e * D).
+__device__ __forceinline__ int num_passes(int log_m, int log_e) {
+  const int r0 = (log_m - 1) % log_e + 1;
+  return 1 + (log_m - r0) / log_e;
+}
+
+__device__ __forceinline__ void pass_info(int q, int npass, bool inverse, int log_m,
+                                          int log_e, int& log_d, int& e_lo) {
+  const int top = inverse ? npass - 1 : 0;
+  if (q == top) {
+    log_d = log_m - log_e;
+    e_lo = log_e - ((log_m - 1) % log_e + 1);
+  } else {
+    log_d = log_e * (inverse ? q : npass - 1 - q);
+    e_lo = 0;
+  }
+}
+
+// The stages of one pass on the E residues v[j] = x[base + j * D] of a
+// group (lo = base mod D): forward DIF from the top j-exponent down,
+// inverse DIT from e_lo up.  The twiddle of a pair at j-distance jd is
+// tw[d + lo + (j mod jd) * D] with d = jd * D.
+template <bool kInverse, int kLogE>
+__device__ __forceinline__ void group_stages(uint32_t (&v)[1 << kLogE],
+                                             const uint2* __restrict__ tw, int log_d,
+                                             int e_lo, uint32_t lo, uint32_t p) {
+  constexpr int E = 1 << kLogE;
+#pragma unroll
+  for (int s = 0; s < kLogE; ++s) {
+    const int e = kInverse ? s : kLogE - 1 - s;
+    if (e < e_lo) continue;
+    const int jd = 1 << e;
+    const uint32_t d = static_cast<uint32_t>(jd) << log_d;
+#pragma unroll
+    for (int m = 0; m < jd; ++m) {
+      const uint2 w = __ldg(tw + d + lo + (static_cast<uint32_t>(m) << log_d));
+#pragma unroll
+      for (int q = 0; q < E; q += 2 * jd) {
+        const int j = q + m;
+        const uint32_t a = v[j];
+        if (kInverse) {
+          const uint32_t mm = shoup_mul(v[j + jd], w, p);
+          v[j] = add_mod(a, mm, p);
+          v[j + jd] = sub_mod(a, mm, p);
+        } else {
+          const uint32_t b = v[j + jd];
+          v[j] = add_mod(a, b, p);
+          v[j + jd] = shoup_mul(a + p - b, w, p);  // a - b + p < 2p < 2^32
+        }
+      }
+    }
+  }
+}
+
+// sj[j] = swz(j << log_d): a pass's shared-word offsets of a group.
+template <int kLogE>
+__device__ __forceinline__ void pass_offsets(uint32_t (&sj)[1 << kLogE], int log_d) {
+#pragma unroll
+  for (int j = 0; j < (1 << kLogE); ++j) sj[j] = swz(static_cast<uint32_t>(j) << log_d);
+}
+
+// What a pass does with its groups, besides the stages.
+struct PassArgs {
+  uint32_t* buf;          // the tile's shared words
+  uint32_t toff;          // tile-logical offset of the transform
+  int log_g, log_d, e_lo;
+  const uint2* tw;        // the limb's stage twiddles
+  const uint2* sc;        // the limb's psi twist (forward) or scale (inverse) table
+  uint32_t p;
+  uint2 minv;             // M^-1 and its Shoup constant
+  uint32_t* y;            // the transform in device memory (last pass)
+};
+
+// Where a group goes after its stages: back to shared memory, or to device
+// memory as it is, times the per-element table sc, or times M^-1.
+enum : int { kToShared = 0, kToGlobal = 1, kScaleTable = 2, kScaleMinv = 3 };
+
+// One pass of group g: read it from shared memory (twisted by sc first when
+// kTwist), run the stages, write it out as kOut says.  The choices are
+// template arguments, so no branch sits between a group's loads.
+template <bool kInverse, int kLogE, bool kTwist, int kOut>
+__device__ __forceinline__ void group_pass(const PassArgs& pa, const uint32_t (&sj)[1 << kLogE],
+                                           uint32_t g) {
+  constexpr int E = 1 << kLogE;
+  const int log_d = pa.log_d;
+  const uint32_t lo = g & ((1u << log_d) - 1u);
+  const uint32_t base = ((g >> log_d) << (log_d + kLogE)) | lo;
+  const uint32_t a = swz(pa.toff + base);
+  uint32_t v[E];
+#pragma unroll
+  for (int j = 0; j < E; ++j) v[j] = pa.buf[a ^ sj[j]];
+  if (kTwist) {
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      v[j] = shoup_mul(v[j], __ldg(pa.sc + base + (static_cast<uint32_t>(j) << log_d)), pa.p);
+    }
+  }
+  group_stages<kInverse, kLogE>(v, pa.tw, log_d, pa.e_lo, lo, pa.p);
+  if (kOut == kToShared) {
+#pragma unroll
+    for (int j = 0; j < E; ++j) pa.buf[a ^ sj[j]] = v[j];
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < E; ++j) {
+    if (kOut == kScaleTable) {
+      v[j] = shoup_mul(v[j], __ldg(pa.sc + base + (static_cast<uint32_t>(j) << log_d)), pa.p);
+    } else if (kOut == kScaleMinv) {
+      v[j] = shoup_mul(v[j], pa.minv, pa.p);
+    }
+  }
+  if (kLogE == 4 && log_d == 0 && pa.log_g >= 5) {
+    // the warp's 32 groups are 512 contiguous residues of one transform:
+    // through its own shared words, so that each store is 128 contiguous bytes
+#pragma unroll
+    for (int j = 0; j < E; ++j) pa.buf[a ^ sj[j]] = v[j];
+    __syncwarp();
+    const uint32_t lane = threadIdx.x & 31u;
+    const uint32_t wbase = base - (lane << kLogE);
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      const uint32_t i = wbase + (static_cast<uint32_t>(k) << 5) + lane;
+      pa.y[i] = pa.buf[swz(pa.toff + i)];
+    }
+  } else if (kLogE == 4 && log_d == 0) {  // 16 contiguous residues, 64-byte aligned
+    uint4* dst = reinterpret_cast<uint4*>(pa.y + base);
+#pragma unroll
+    for (int j = 0; j < E; j += 4) dst[j / 4] = make_uint4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < E; ++j) pa.y[base + (static_cast<uint32_t>(j) << log_d)] = v[j];
+  }
+}
+
+// group_pass of a transform's pass q: the first pass of a forward
+// negacyclic transform twists; the last pass writes to device memory
+// (scaled when inverse: psi^-i M^-1, or M^-1 unless `scale` is off) or,
+// with `keep`, back to shared memory.
+template <bool kInverse, bool kNegacyclic, int kLogE>
+__device__ __forceinline__ void run_group(const PassArgs& pa, const uint32_t (&sj)[1 << kLogE],
+                                          uint32_t g, bool first, bool last, bool scale,
+                                          bool keep) {
+  constexpr bool kTw = !kInverse && kNegacyclic;
+  if (!last || keep) {
+    if (kTw && first) {
+      group_pass<kInverse, kLogE, kTw, kToShared>(pa, sj, g);
+    } else {
+      group_pass<kInverse, kLogE, false, kToShared>(pa, sj, g);
+    }
+  } else if (kTw && first) {  // a one-pass transform (M <= 16)
+    group_pass<kInverse, kLogE, kTw, kToGlobal>(pa, sj, g);
+  } else if (kInverse && kNegacyclic) {
+    group_pass<kInverse, kLogE, false, kScaleTable>(pa, sj, g);
+  } else if (kInverse && scale) {
+    group_pass<kInverse, kLogE, false, kScaleMinv>(pa, sj, g);
+  } else {
+    group_pass<kInverse, kLogE, false, kToGlobal>(pa, sj, g);
+  }
+}
+
+// transform s of the [rows, L, S] batch in CTA order: row order is memory
+// order; limb-major order walks limb 0's rows * S transforms first
+__device__ __forceinline__ void locate(uint32_t s, uint32_t rows, uint32_t L, uint32_t S,
+                                       bool limb_major, uint32_t& t, uint32_t& limb) {
   if (limb_major) {
-    const size_t per_limb = (size_t)rows * (size_t)S;
-    limb = (int)(g / per_limb);
-    const size_t j = g % per_limb;
+    const uint32_t per_limb = rows * S;
+    limb = s / per_limb;
+    const uint32_t j = s - limb * per_limb;
     t = ((j / S) * L + limb) * S + j % S;
   } else {
-    limb = (int)((g / S) % L);
-    t = g;
-  }
-  const size_t base = t * (size_t)M;
-  const size_t tbase = (size_t)limb * (size_t)M;
-  const uint32_t p = consts[3 * limb];
-  const uint32_t* w = tw + tbase;
-  const uint32_t* w_sh = tw_sh + tbase;
-
-  for (int i = threadIdx.x; i < M; i += blockDim.x) {
-    uint32_t v = x[base + i];
-    if (!kInverse && kNegacyclic) v = shoup_mul(v, sc[tbase + i], sc_sh[tbase + i], p);
-    buf[i] = v;
-  }
-  __syncthreads();
-
-  if (!kInverse) {
-    // DIF: d = M/2 .. 1
-    for (int logd = log_m - 1; logd >= 0; --logd) {
-      const int d = 1 << logd;
-      for (int j = threadIdx.x; j < half; j += blockDim.x) {
-        const int k = j & (d - 1);
-        const int i0 = ((j >> logd) << (logd + 1)) + k;
-        const uint32_t a = buf[i0];
-        const uint32_t b = buf[i0 + d];
-        buf[i0] = add_mod(a, b, p);
-        buf[i0 + d] = shoup_mul(sub_mod(a, b, p), w[d + k], w_sh[d + k], p);
-      }
-      __syncthreads();
-    }
-  } else {
-    // DIT: d = 1 .. M/2
-    for (int logd = 0; logd < log_m; ++logd) {
-      const int d = 1 << logd;
-      for (int j = threadIdx.x; j < half; j += blockDim.x) {
-        const int k = j & (d - 1);
-        const int i0 = ((j >> logd) << (logd + 1)) + k;
-        const uint32_t a = buf[i0];
-        const uint32_t m = shoup_mul(buf[i0 + d], w[d + k], w_sh[d + k], p);
-        buf[i0] = add_mod(a, m, p);
-        buf[i0 + d] = sub_mod(a, m, p);
-      }
-      __syncthreads();
-    }
-  }
-
-  const uint32_t minv = consts[3 * limb + 1];
-  const uint32_t minv_sh = consts[3 * limb + 2];
-  for (int i = threadIdx.x; i < M; i += blockDim.x) {
-    uint32_t v = buf[i];
-    if (kInverse) {
-      if (kNegacyclic) {
-        v = shoup_mul(v, sc[tbase + i], sc_sh[tbase + i], p);
-      } else if (scale) {
-        v = shoup_mul(v, minv, minv_sh, p);
-      }
-    }
-    y[base + i] = v;
+    limb = (s / S) % L;
+    t = s;
   }
 }
 
-template <bool kInverse, bool kNegacyclic>
-cudaError_t launch(const uint32_t* x, uint32_t* y, const uint32_t* tw,
-                   const uint32_t* tw_sh, const uint32_t* sc, const uint32_t* sc_sh,
-                   const uint32_t* consts, int rows, int L, int S, int log_m,
-                   int limb_major, int scale, cudaStream_t stream) {
-  const int M = 1 << log_m;
-  const size_t smem = (size_t)M * sizeof(uint32_t);
-  int threads = M / 2;
-  if (threads > 1024) threads = 1024;
-  if (threads < 32) threads = 32;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(ntt_kernel<kInverse, kNegacyclic>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return err;
+// Copy tile `tile` (tile_tf transforms) into buf with cp.async, swizzled.
+__device__ __forceinline__ void load_tile(uint32_t* buf, const uint32_t* __restrict__ x,
+                                          uint32_t tile, uint32_t tile_tf, uint32_t nt,
+                                          int log_m, uint32_t rows, uint32_t L, uint32_t S,
+                                          bool limb_major) {
+  const uint32_t M = 1u << log_m;
+  if (M >= blockDim.x) {  // a transform at a time, located once
+    for (uint32_t tr = 0; tr < tile_tf; ++tr) {
+      const uint32_t s = tile * tile_tf + tr;
+      if (s >= nt) break;
+      uint32_t t, limb;
+      locate(s, rows, L, S, limb_major, t, limb);
+      const uint32_t* src = x + (static_cast<size_t>(t) << log_m);
+      for (uint32_t i = threadIdx.x; i < M; i += blockDim.x) {
+        cp_async4(buf + swz((tr << log_m) + i), src + i);
+      }
+    }
+    return;
   }
-  const unsigned int blocks = (unsigned int)rows * (unsigned int)L * (unsigned int)S;
-  ntt_kernel<kInverse, kNegacyclic><<<blocks, threads, smem, stream>>>(
-      x, y, tw, tw_sh, sc, sc_sh, consts, rows, L, S, log_m, limb_major, scale);
+  for (uint32_t idx = threadIdx.x; idx < (tile_tf << log_m); idx += blockDim.x) {
+    const uint32_t s = tile * tile_tf + (idx >> log_m);
+    if (s >= nt) break;
+    uint32_t t, limb;
+    locate(s, rows, L, S, limb_major, t, limb);
+    cp_async4(buf + swz(idx), x + (static_cast<size_t>(t) << log_m) + (idx & (M - 1u)));
+  }
+}
+
+// The shared-memory NTT: persistent CTAs of `blockDim.x` threads walk tiles
+// of tile_tf transforms; thread tid works on transform tid >> log_g of the
+// tile (log_g = log2 of the groups per transform) and on the groups
+// gi = tid, tid + blockDim.x, ... of the tile.
+template <bool kInverse, bool kNegacyclic, int kLogE, int kThreads>
+__global__ void __launch_bounds__(kThreads, kMaxThreads / kThreads)
+    ntt_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
+               const uint2* __restrict__ tw, const uint2* __restrict__ sc,
+               const uint32_t* __restrict__ consts, uint32_t rows, uint32_t L, uint32_t S,
+               int log_m, int limb_major, int scale, uint32_t tile_tf, int nbuf) {
+  extern __shared__ uint32_t smem[];
+  const uint32_t nt = rows * L * S;
+  const uint32_t tiles = (nt + tile_tf - 1) / tile_tf;
+  const uint32_t tile_words = tile_tf << log_m;
+  const int log_g = log_m - kLogE;
+  const uint32_t groups = tile_tf << log_g;
+  const int npass = num_passes(log_m, kLogE);
+  const uint32_t tr = threadIdx.x >> log_g;  // the same in every pass
+  const bool lm = limb_major != 0;
+
+  uint32_t tile = blockIdx.x;
+  if (tile < tiles) load_tile(smem, x, tile, tile_tf, nt, log_m, rows, L, S, lm);
+  cp_async_commit();
+  for (int it = 0; tile < tiles; ++it, tile += gridDim.x) {
+    uint32_t* buf = smem + (nbuf == 2 ? (it & 1) * tile_words : 0);
+    const uint32_t next = tile + gridDim.x;
+    if (nbuf == 2) {
+      if (next < tiles) {
+        load_tile(smem + ((it + 1) & 1) * tile_words, x, next, tile_tf, nt, log_m, rows, L,
+                  S, lm);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    const uint32_t s = tile * tile_tf + tr;
+    const bool valid = s < nt;
+    uint32_t t = 0, limb = 0;
+    if (valid) locate(s, rows, L, S, lm, t, limb);
+    const size_t tbase = static_cast<size_t>(limb) << log_m;
+    PassArgs pa;
+    pa.buf = buf;
+    pa.toff = tr << log_m;
+    pa.log_g = log_g;
+    pa.tw = tw + tbase;
+    pa.sc = sc + tbase;
+    pa.p = consts[3 * limb];
+    pa.minv = make_uint2(consts[3 * limb + 1], consts[3 * limb + 2]);
+    pa.y = y + (static_cast<size_t>(t) << log_m);
+    for (int q = 0; q < npass; ++q) {
+      pass_info(q, npass, kInverse, log_m, kLogE, pa.log_d, pa.e_lo);
+      uint32_t sj[1 << kLogE];
+      pass_offsets<kLogE>(sj, pa.log_d);
+      if (valid) {
+        for (uint32_t gi = threadIdx.x; gi < groups; gi += blockDim.x) {
+          run_group<kInverse, kNegacyclic, kLogE>(pa, sj, gi & ((1u << log_g) - 1u), q == 0,
+                                                  q == npass - 1, scale != 0, false);
+        }
+      }
+      if (q != npass - 1) __syncthreads();
+    }
+    __syncthreads();  // the buffer is refilled next iteration
+    if (nbuf == 1 && next < tiles) {
+      load_tile(smem, x, next, tile_tf, nt, log_m, rows, L, S, lm);
+      cp_async_commit();
+    }
+  }
+}
+
+template <bool kInverse, bool kNegacyclic, int kLogE, int kThreads>
+cudaError_t launch(const uint32_t* x, uint32_t* y, const uint2* tw, const uint2* sc,
+                   const uint32_t* consts, int rows, int L, int S, int log_m, int limb_major,
+                   int scale, int threads, int tile_tf, int nbuf, cudaStream_t stream) {
+  auto kernel = ntt_kernel<kInverse, kNegacyclic, kLogE, kThreads>;
+  const size_t smem = static_cast<size_t>(nbuf) * tile_tf * (sizeof(uint32_t) << log_m);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return refused(err);
+  int per_sm = 0, sms = 0, dev = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return refused(err);
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return refused(err);
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) !=
+      cudaSuccess)
+    return refused(err);
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long nt = static_cast<long long>(rows) * L * S;
+  const long long tiles = (nt + tile_tf - 1) / tile_tf;
+  const long long slots = static_cast<long long>(per_sm) * sms;
+  const unsigned int blocks = static_cast<unsigned int>(tiles < slots ? tiles : slots);
+  kernel<<<blocks, threads, smem, stream>>>(x, y, tw, sc, consts, rows, L, S, log_m,
+                                             limb_major, scale, tile_tf, nbuf);
   return cudaGetLastError();
 }
 
-// All log2(R) outer stages of the split transform on the [B, L, R, Mi] view:
-// thread t = (row b, limb l, column c) owns x[b, l, 0..R-1, c].
+template <bool kInverse, bool kNegacyclic>
+cudaError_t launch_e(const uint32_t* x, uint32_t* y, const uint2* tw, const uint2* sc,
+                     const uint32_t* consts, int rows, int L, int S, int log_m, int limb_major,
+                     int scale, int threads, int tile_tf, int nbuf, cudaStream_t stream) {
+#define RINGSNARK_LAUNCH(E, T)                                                              \
+  launch<kInverse, kNegacyclic, E, T>(x, y, tw, sc, consts, rows, L, S, log_m, limb_major, \
+                                      scale, threads, tile_tf, nbuf, stream)
+  if (threads > kMaxThreads / 2) {
+    if (log_m < 4) return cudaErrorInvalidValue;
+    return RINGSNARK_LAUNCH(4, kMaxThreads);
+  }
+  switch (log_m < 4 ? log_m : 4) {
+    case 1: return RINGSNARK_LAUNCH(1, kMaxThreads / 2);
+    case 2: return RINGSNARK_LAUNCH(2, kMaxThreads / 2);
+    case 3: return RINGSNARK_LAUNCH(3, kMaxThreads / 2);
+    default: return RINGSNARK_LAUNCH(4, kMaxThreads / 2);
+  }
+#undef RINGSNARK_LAUNCH
+}
+
+// ---------------------------------------------------------------------------
+// the split transform's outer stages (factored twiddles)
+// ---------------------------------------------------------------------------
+
+// All log2(R) outer stages on the R residues v[r] = x[r, c] of column c.
+// col: [s, Mi] pairs of the limb; row: [s, R/2] pairs of the limb.
+template <int kLogR, bool kInverse>
+__device__ __forceinline__ void outer_stages(uint32_t (&v)[1 << kLogR],
+                                             const uint2* __restrict__ col,
+                                             const uint2* __restrict__ row, uint32_t c,
+                                             int log_mi, uint32_t p) {
+  constexpr int R = 1 << kLogR;
+#pragma unroll
+  for (int k = 0; k < kLogR; ++k) {
+    const int i = kInverse ? kLogR - 1 - k : k;  // DIT runs the stages in reverse
+    const int d = R >> (i + 1);
+    const uint2 wc = __ldg(col + (static_cast<size_t>(i) << log_mi) + c);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if ((r & (2 * d - 1)) < d) {
+        const int lo = r & (d - 1);
+        const uint32_t a = v[r];
+        if (kInverse) {
+          uint32_t m = shoup_mul(v[r + d], wc, p);
+          if (lo) m = shoup_mul(m, __ldg(row + i * (R / 2) + lo), p);
+          v[r] = add_mod(a, m, p);
+          v[r + d] = sub_mod(a, m, p);
+        } else {
+          const uint32_t b = v[r + d];
+          v[r] = add_mod(a, b, p);
+          uint32_t t = shoup_mul(sub_mod(a, b, p), wc, p);
+          if (lo) t = shoup_mul(t, __ldg(row + i * (R / 2) + lo), p);
+          v[r + d] = t;
+        }
+      }
+    }
+  }
+}
+
+// Two-pass split (R >= 16): one thread per (row, limb, column c) of the
+// [B, L, R, Mi] view, global to global.  Forward: psi twist + outer DIF;
+// inverse: outer DIT + psi^-k M^-1 or M^-1.
 template <int kLogR, bool kInverse, bool kNegacyclic>
 __global__ void outer_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
-                             const uint32_t* __restrict__ tw,
-                             const uint32_t* __restrict__ tw_sh,
-                             const uint32_t* __restrict__ sc,
-                             const uint32_t* __restrict__ sc_sh,
+                             const uint2* __restrict__ col, const uint2* __restrict__ row,
+                             const uint2* __restrict__ sc,
                              const uint32_t* __restrict__ consts, size_t columns, int L,
                              int log_mi) {
   constexpr int R = 1 << kLogR;
-  const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t t = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= columns) return;
-  const size_t Mi = (size_t)1 << log_mi;
-  const size_t c = t & (Mi - 1);
+  const size_t Mi = static_cast<size_t>(1) << log_mi;
+  const uint32_t c = static_cast<uint32_t>(t & (Mi - 1));
   const size_t bl = t >> log_mi;  // row * L + limb
-  const int limb = (int)(bl % L);
+  const int limb = static_cast<int>(bl % L);
   const size_t base = bl * R * Mi + c;
-  const size_t sbase = (size_t)limb * R * Mi + c;          // sc: [L, R, Mi]
-  const size_t tbase = (size_t)limb * kLogR * R * Mi + c;  // tw: [L, s, R, Mi]
+  const uint2* scl = sc + (static_cast<size_t>(limb) * R << log_mi) + c;
   const uint32_t p = consts[3 * limb];
 
   uint32_t v[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     v[r] = x[base + r * Mi];
-    if (!kInverse && kNegacyclic) {
-      v[r] = shoup_mul(v[r], sc[sbase + r * Mi], sc_sh[sbase + r * Mi], p);
-    }
+    if (!kInverse && kNegacyclic) v[r] = shoup_mul(v[r], __ldg(scl + r * Mi), p);
   }
-
-  if (!kInverse) {
-    // DIF: stage i pairs rows r, r + d with d = R >> (i + 1)
-#pragma unroll
-    for (int i = 0; i < kLogR; ++i) {
-      const int d = R >> (i + 1);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        if ((r & (2 * d - 1)) < d) {
-          const size_t ti = tbase + ((size_t)i * R + r + d) * Mi;
-          const uint32_t a = v[r];
-          const uint32_t b = v[r + d];
-          v[r] = add_mod(a, b, p);
-          v[r + d] = shoup_mul(sub_mod(a, b, p), tw[ti], tw_sh[ti], p);
-        }
-      }
-    }
-  } else {
-    // DIT: stages in reverse order, the twiddle read at the b-row
-#pragma unroll
-    for (int i = kLogR - 1; i >= 0; --i) {
-      const int d = R >> (i + 1);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        if ((r & (2 * d - 1)) < d) {
-          const size_t ti = tbase + ((size_t)i * R + r + d) * Mi;
-          const uint32_t a = v[r];
-          const uint32_t m = shoup_mul(v[r + d], tw[ti], tw_sh[ti], p);
-          v[r] = add_mod(a, m, p);
-          v[r + d] = sub_mod(a, m, p);
-        }
-      }
-    }
-    const uint32_t minv = consts[3 * limb + 1];
-    const uint32_t minv_sh = consts[3 * limb + 2];
+  outer_stages<kLogR, kInverse>(v, col + (static_cast<size_t>(limb) * kLogR << log_mi),
+                                row + limb * kLogR * (R / 2), c, log_mi, p);
+  if (kInverse) {
+    const uint2 minv = make_uint2(consts[3 * limb + 1], consts[3 * limb + 2]);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      v[r] = kNegacyclic ? shoup_mul(v[r], sc[sbase + r * Mi], sc_sh[sbase + r * Mi], p)
-                         : shoup_mul(v[r], minv, minv_sh, p);
+      v[r] = kNegacyclic ? shoup_mul(v[r], __ldg(scl + r * Mi), p) : shoup_mul(v[r], minv, p);
     }
   }
-
 #pragma unroll
   for (int r = 0; r < R; ++r) y[base + r * Mi] = v[r];
 }
 
-template <int kLogR>
-cudaError_t launch_outer(const uint32_t* x, uint32_t* y, const uint32_t* tw,
-                         const uint32_t* tw_sh, const uint32_t* sc, const uint32_t* sc_sh,
-                         const uint32_t* consts, int rows, int L, int log_mi, bool inverse,
-                         bool negacyclic, cudaStream_t stream) {
-  const size_t columns = (size_t)rows * (size_t)L << log_mi;
+template <int kLogR, bool kInverse, bool kNegacyclic>
+cudaError_t launch_outer(const uint32_t* x, uint32_t* y, const uint2* col, const uint2* row,
+                         const uint2* sc, const uint32_t* consts, int rows, int L, int log_mi,
+                         cudaStream_t stream) {
+  const size_t columns = static_cast<size_t>(rows) * static_cast<size_t>(L) << log_mi;
   const int threads = 256;
-  const unsigned int blocks = (unsigned int)((columns + threads - 1) / threads);
-  if (inverse) {
-    if (negacyclic) {
-      outer_kernel<kLogR, true, true><<<blocks, threads, 0, stream>>>(
-          x, y, tw, tw_sh, sc, sc_sh, consts, columns, L, log_mi);
+  const unsigned int blocks = static_cast<unsigned int>((columns + threads - 1) / threads);
+  outer_kernel<kLogR, kInverse, kNegacyclic><<<blocks, threads, 0, stream>>>(
+      x, y, col, row, sc, consts, columns, L, log_mi);
+  return cudaGetLastError();
+}
+
+template <int kLogR>
+cudaError_t launch_outer_mode(const uint32_t* x, uint32_t* y, const uint2* col,
+                              const uint2* row, const uint2* sc, const uint32_t* consts,
+                              int rows, int L, int log_mi, bool inv, bool nega,
+                              cudaStream_t st) {
+  if (inv) {
+    return nega ? launch_outer<kLogR, true, true>(x, y, col, row, sc, consts, rows, L, log_mi, st)
+                : launch_outer<kLogR, true, false>(x, y, col, row, sc, consts, rows, L, log_mi, st);
+  }
+  return nega ? launch_outer<kLogR, false, true>(x, y, col, row, sc, consts, rows, L, log_mi, st)
+              : launch_outer<kLogR, false, false>(x, y, col, row, sc, consts, rows, L, log_mi, st);
+}
+
+// ---------------------------------------------------------------------------
+// one-pass split: a cluster holds the transform
+// ---------------------------------------------------------------------------
+
+// A cluster of R CTAs per [R, Mi] transform of the [B, L, R, Mi] batch,
+// kClusterThreads threads each, two CTAs a SM: CTA `rank` holds row `rank`
+// in its shared memory and takes columns [rank * Mi/R, (rank+1) * Mi/R) in
+// the outer stages.  Clusters walk the B * L transforms.
+constexpr int kClusterThreads = kMaxThreads / 2;
+
+template <int kLogR, bool kInverse, bool kNegacyclic>
+__global__ void __launch_bounds__(kClusterThreads, 2)
+    split_cluster_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
+                         const uint2* __restrict__ col, const uint2* __restrict__ row,
+                         const uint2* __restrict__ sc, const uint2* __restrict__ itw,
+                         const uint32_t* __restrict__ consts, uint32_t rows, uint32_t L,
+                         int log_mi) {
+  constexpr int R = 1 << kLogR;
+  constexpr int kLogE = 4;
+  extern __shared__ uint32_t smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const uint32_t rank = cluster.block_rank();
+  const uint32_t Mi = 1u << log_mi;
+  const uint32_t c0 = rank * (Mi / R), c1 = c0 + Mi / R;  // this CTA's columns
+  const uint32_t nt = rows * L;
+  const uint32_t nclusters = gridDim.x / R;
+  const int log_g = log_mi - kLogE;
+  const uint32_t groups = 1u << log_g;
+  const int npass = num_passes(log_mi, kLogE);
+
+  cluster.sync();  // every CTA of the cluster runs before any DSMEM access
+  for (uint32_t tf = blockIdx.x / R; tf < nt; tf += nclusters) {
+    const uint32_t limb = tf % L;
+    const uint32_t p = consts[3 * limb];
+    const size_t base = static_cast<size_t>(tf) * R << log_mi;
+    const uint2* colp = col + (static_cast<size_t>(limb) * kLogR << log_mi);
+    const uint2* rowp = row + limb * kLogR * (R / 2);
+    const uint2* scl = sc + (static_cast<size_t>(limb) * R << log_mi);
+    PassArgs pa;  // the inner passes on this CTA's row: cyclic, unscaled
+    pa.buf = smem;
+    pa.toff = 0;
+    pa.log_g = log_g;
+    pa.tw = itw + (static_cast<size_t>(limb) << log_mi);
+    pa.sc = nullptr;
+    pa.p = p;
+    pa.minv = make_uint2(0, 0);
+
+    if (!kInverse) {
+      // outer: this CTA's columns, device memory -> the owners' shared memory
+      for (uint32_t c = c0 + threadIdx.x; c < c1; c += blockDim.x) {
+        uint32_t v[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          v[r] = x[base + (static_cast<size_t>(r) << log_mi) + c];
+          if (kNegacyclic) v[r] = shoup_mul(v[r], __ldg(scl + (r << log_mi) + c), p);
+        }
+        outer_stages<kLogR, false>(v, colp, rowp, c, log_mi, p);
+#pragma unroll
+        for (int r = 0; r < R; ++r) cluster.map_shared_rank(smem, r)[swz(c)] = v[r];
+      }
+      cluster.sync();
+      // inner: this CTA's row, shared memory -> device memory
+      pa.y = y + base + (static_cast<size_t>(rank) << log_mi);
+      for (int q = 0; q < npass; ++q) {
+        pass_info(q, npass, false, log_mi, kLogE, pa.log_d, pa.e_lo);
+        uint32_t sj[1 << kLogE];
+        pass_offsets<kLogE>(sj, pa.log_d);
+        for (uint32_t g = threadIdx.x; g < groups; g += blockDim.x) {
+          run_group<false, false, kLogE>(pa, sj, g, q == 0, q == npass - 1, false, false);
+        }
+        if (q != npass - 1) __syncthreads();
+      }
+      cluster.sync();  // every CTA's row is out before the next transform lands
     } else {
-      outer_kernel<kLogR, true, false><<<blocks, threads, 0, stream>>>(
-          x, y, tw, tw_sh, sc, sc_sh, consts, columns, L, log_mi);
-    }
-  } else {
-    if (negacyclic) {
-      outer_kernel<kLogR, false, true><<<blocks, threads, 0, stream>>>(
-          x, y, tw, tw_sh, sc, sc_sh, consts, columns, L, log_mi);
-    } else {
-      outer_kernel<kLogR, false, false><<<blocks, threads, 0, stream>>>(
-          x, y, tw, tw_sh, sc, sc_sh, consts, columns, L, log_mi);
+      // inner: this CTA's row, device memory -> shared memory, unscaled
+      const uint32_t* src = x + base + (static_cast<size_t>(rank) << log_mi);
+      for (uint32_t i = threadIdx.x; i < Mi; i += blockDim.x) cp_async4(smem + swz(i), src + i);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      pa.y = nullptr;
+      for (int q = 0; q < npass; ++q) {
+        pass_info(q, npass, true, log_mi, kLogE, pa.log_d, pa.e_lo);
+        uint32_t sj[1 << kLogE];
+        pass_offsets<kLogE>(sj, pa.log_d);
+        for (uint32_t g = threadIdx.x; g < groups; g += blockDim.x) {
+          run_group<true, false, kLogE>(pa, sj, g, q == 0, q == npass - 1, false, true);
+        }
+        __syncthreads();
+      }
+      cluster.sync();
+      // outer: this CTA's columns, the owners' shared memory -> device memory
+      const uint2 minv = make_uint2(consts[3 * limb + 1], consts[3 * limb + 2]);
+      for (uint32_t c = c0 + threadIdx.x; c < c1; c += blockDim.x) {
+        uint32_t v[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) v[r] = cluster.map_shared_rank(smem, r)[swz(c)];
+        outer_stages<kLogR, true>(v, colp, rowp, c, log_mi, p);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const uint32_t o = (static_cast<uint32_t>(r) << log_mi) + c;
+          v[r] = kNegacyclic ? shoup_mul(v[r], __ldg(scl + o), p) : shoup_mul(v[r], minv, p);
+          y[base + o] = v[r];
+        }
+      }
+      cluster.sync();  // every CTA is done reading before shared memory is refilled
     }
   }
+}
+
+template <int kLogR, bool kInverse, bool kNegacyclic>
+cudaError_t launch_cluster(const uint32_t* x, uint32_t* y, const uint2* col, const uint2* row,
+                           const uint2* sc, const uint2* itw, const uint32_t* consts, int rows,
+                           int L, int log_mi, cudaStream_t stream) {
+  auto kernel = split_cluster_kernel<kLogR, kInverse, kNegacyclic>;
+  const int R = 1 << kLogR;
+  const size_t smem = sizeof(uint32_t) << log_mi;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return refused(err);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = R;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(R, 1, 1);
+  cfg.blockDim = dim3(kClusterThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int active = 0;
+  if ((err = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg)) != cudaSuccess) {
+    return refused(err);
+  }
+  if (active < 1) return cudaErrorInvalidClusterSize;  // the card cannot place one cluster
+  const long long nt = static_cast<long long>(rows) * L;
+  cfg.gridDim = dim3(static_cast<unsigned int>((nt < active ? nt : active) * R), 1, 1);
+  err = cudaLaunchKernelEx(&cfg, kernel, x, y, col, row, sc, itw, consts,
+                           static_cast<uint32_t>(rows), static_cast<uint32_t>(L), log_mi);
+  if (err != cudaSuccess) return refused(err);
   return cudaGetLastError();
+}
+
+template <int kLogR>
+cudaError_t launch_cluster_mode(const uint32_t* x, uint32_t* y, const uint2* col,
+                                const uint2* row, const uint2* sc, const uint2* itw,
+                                const uint32_t* consts, int rows, int L, int log_mi, bool inv,
+                                bool nega, cudaStream_t st) {
+#define RINGSNARK_CLUSTER(I, N) \
+  launch_cluster<kLogR, I, N>(x, y, col, row, sc, itw, consts, rows, L, log_mi, st)
+  if (inv) return nega ? RINGSNARK_CLUSTER(true, true) : RINGSNARK_CLUSTER(true, false);
+  return nega ? RINGSNARK_CLUSTER(false, true) : RINGSNARK_CLUSTER(false, false);
+#undef RINGSNARK_CLUSTER
 }
 
 }  // namespace
 
-extern "C" int ringsnark_ntt_launch(const void* x, void* y, const void* tw,
-                                    const void* tw_sh, const void* sc,
-                                    const void* sc_sh, const void* consts, int rows,
-                                    int L, int S, int log_m, int inverse, int negacyclic,
-                                    int limb_major, int scale, void* stream) {
-  if (log_m < 1 || log_m > 15 || rows < 1 || L < 1 || S < 1 ||
-      (long long)rows * (long long)L * (long long)S > 0x7fffffffLL) {
-    return (int)cudaErrorInvalidValue;
+extern "C" int ringsnark_ntt_launch(const void* x, void* y, const void* tw, const void* sc,
+                                    const void* consts, int rows, int L, int S, int log_m,
+                                    int inverse, int negacyclic, int limb_major, int scale,
+                                    int threads, int tile_tf, int nbuf, void* stream) {
+  const long long nt = static_cast<long long>(rows) * L * S;
+  if (log_m < 1 || log_m > 15 || rows < 1 || L < 1 || S < 1 || nt > 0x7fffffffLL ||
+      threads < 1 || threads > kMaxThreads || tile_tf < 1 || (nbuf != 1 && nbuf != 2) ||
+      (static_cast<long long>(tile_tf) << log_m) > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   const uint32_t* xi = static_cast<const uint32_t*>(x);
   uint32_t* yo = static_cast<uint32_t*>(y);
-  const uint32_t* t = static_cast<const uint32_t*>(tw);
-  const uint32_t* ts = static_cast<const uint32_t*>(tw_sh);
-  const uint32_t* s = static_cast<const uint32_t*>(sc);
-  const uint32_t* ss = static_cast<const uint32_t*>(sc_sh);
+  const uint2* t = static_cast<const uint2*>(tw);
+  const uint2* s = static_cast<const uint2*>(sc);
   const uint32_t* c = static_cast<const uint32_t*>(consts);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (inverse) {
-    err = negacyclic
-              ? launch<true, true>(xi, yo, t, ts, s, ss, c, rows, L, S, log_m, limb_major,
-                                   scale, st)
-              : launch<true, false>(xi, yo, t, ts, s, ss, c, rows, L, S, log_m, limb_major,
-                                    scale, st);
+    err = negacyclic ? launch_e<true, true>(xi, yo, t, s, c, rows, L, S, log_m, limb_major,
+                                            scale, threads, tile_tf, nbuf, st)
+                     : launch_e<true, false>(xi, yo, t, s, c, rows, L, S, log_m, limb_major,
+                                             scale, threads, tile_tf, nbuf, st);
   } else {
-    err = negacyclic
-              ? launch<false, true>(xi, yo, t, ts, s, ss, c, rows, L, S, log_m, limb_major,
-                                    scale, st)
-              : launch<false, false>(xi, yo, t, ts, s, ss, c, rows, L, S, log_m,
-                                     limb_major, scale, st);
+    err = negacyclic ? launch_e<false, true>(xi, yo, t, s, c, rows, L, S, log_m, limb_major,
+                                             scale, threads, tile_tf, nbuf, st)
+                     : launch_e<false, false>(xi, yo, t, s, c, rows, L, S, log_m, limb_major,
+                                              scale, threads, tile_tf, nbuf, st);
   }
-  return (int)err;
+  return static_cast<int>(err);
 }
 
-extern "C" int ringsnark_ntt_outer_launch(const void* x, void* y, const void* tw,
-                                          const void* tw_sh, const void* sc,
-                                          const void* sc_sh, const void* consts, int rows,
-                                          int L, int log_r, int log_mi, int inverse,
+extern "C" int ringsnark_ntt_outer_launch(const void* x, void* y, const void* col,
+                                          const void* row, const void* sc, const void* consts,
+                                          int rows, int L, int log_r, int log_mi, int inverse,
                                           int negacyclic, void* stream) {
   if (log_r < 1 || log_r > 5 || log_mi < 1 || log_mi > 20 || rows < 1 || L < 1 ||
-      (((long long)rows * (long long)L) << log_mi) / 256 > 0x7fffffffLL) {
-    return (int)cudaErrorInvalidValue;
+      ((static_cast<long long>(rows) * L) << log_mi) / 256 > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   const uint32_t* xi = static_cast<const uint32_t*>(x);
   uint32_t* yo = static_cast<uint32_t*>(y);
-  const uint32_t* t = static_cast<const uint32_t*>(tw);
-  const uint32_t* ts = static_cast<const uint32_t*>(tw_sh);
-  const uint32_t* s = static_cast<const uint32_t*>(sc);
-  const uint32_t* ss = static_cast<const uint32_t*>(sc_sh);
+  const uint2* co = static_cast<const uint2*>(col);
+  const uint2* ro = static_cast<const uint2*>(row);
+  const uint2* s = static_cast<const uint2*>(sc);
   const uint32_t* c = static_cast<const uint32_t*>(consts);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool inv = inverse != 0, nega = negacyclic != 0;
   cudaError_t err;
   switch (log_r) {
-    case 1: err = launch_outer<1>(xi, yo, t, ts, s, ss, c, rows, L, log_mi, inv, nega, st); break;
-    case 2: err = launch_outer<2>(xi, yo, t, ts, s, ss, c, rows, L, log_mi, inv, nega, st); break;
-    case 3: err = launch_outer<3>(xi, yo, t, ts, s, ss, c, rows, L, log_mi, inv, nega, st); break;
-    case 4: err = launch_outer<4>(xi, yo, t, ts, s, ss, c, rows, L, log_mi, inv, nega, st); break;
-    default: err = launch_outer<5>(xi, yo, t, ts, s, ss, c, rows, L, log_mi, inv, nega, st); break;
+    case 1: err = launch_outer_mode<1>(xi, yo, co, ro, s, c, rows, L, log_mi, inv, nega, st); break;
+    case 2: err = launch_outer_mode<2>(xi, yo, co, ro, s, c, rows, L, log_mi, inv, nega, st); break;
+    case 3: err = launch_outer_mode<3>(xi, yo, co, ro, s, c, rows, L, log_mi, inv, nega, st); break;
+    case 4: err = launch_outer_mode<4>(xi, yo, co, ro, s, c, rows, L, log_mi, inv, nega, st); break;
+    default: err = launch_outer_mode<5>(xi, yo, co, ro, s, c, rows, L, log_mi, inv, nega, st); break;
   }
-  return (int)err;
+  return static_cast<int>(err);
+}
+
+extern "C" int ringsnark_ntt_split_launch(const void* x, void* y, const void* col,
+                                          const void* row, const void* sc, const void* itw,
+                                          const void* consts, int rows, int L, int log_r,
+                                          int log_mi, int inverse, int negacyclic,
+                                          void* stream) {
+  // R = 16 is taken, so that the card's refusal of a 16-CTA cluster shows
+  if (log_r < 1 || log_r > 4 || log_mi < 4 || log_mi > 15 || rows < 1 || L < 1 ||
+      static_cast<long long>(rows) * L > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const uint32_t* xi = static_cast<const uint32_t*>(x);
+  uint32_t* yo = static_cast<uint32_t*>(y);
+  const uint2* co = static_cast<const uint2*>(col);
+  const uint2* ro = static_cast<const uint2*>(row);
+  const uint2* s = static_cast<const uint2*>(sc);
+  const uint2* it = static_cast<const uint2*>(itw);
+  const uint32_t* c = static_cast<const uint32_t*>(consts);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool inv = inverse != 0, nega = negacyclic != 0;
+  cudaError_t err;
+  switch (log_r) {
+    case 1:
+      err = launch_cluster_mode<1>(xi, yo, co, ro, s, it, c, rows, L, log_mi, inv, nega, st);
+      break;
+    case 2:
+      err = launch_cluster_mode<2>(xi, yo, co, ro, s, it, c, rows, L, log_mi, inv, nega, st);
+      break;
+    case 3:
+      err = launch_cluster_mode<3>(xi, yo, co, ro, s, it, c, rows, L, log_mi, inv, nega, st);
+      break;
+    default:
+      err = launch_cluster_mode<4>(xi, yo, co, ro, s, it, c, rows, L, log_mi, inv, nega, st);
+      break;
+  }
+  return static_cast<int>(err);
 }

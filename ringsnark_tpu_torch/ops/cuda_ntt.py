@@ -7,14 +7,22 @@ four modes, ``ntt``) and the split large-M path `ntt_split_pallas` with its
 ``ringsnark_tpu_torch/_build/`` (a shared library with a plain C interface,
 loaded with ctypes).  Nothing is built or loaded at import time.
 
+``ntt`` is one launch of the register-radix shared-memory kernel; its
+schedule (``geometry``, ``kernel_passes``, ``swizzle``) lives here as well
+as in the source, so the CPU tests can replay it.  ``ntt_split`` takes the
+route ``split_path(M)`` names: one launch of the cluster kernel for
+R = M / mi <= 8, the outer kernel and the shared-memory kernel from R = 16.
+
 The wrappers take only int32 CUDA tensors ``[B, L, M]`` (contiguous) and
-raise on anything else; a failed build or launch raises too.  The plain
-versions live in ``ops/ntt.py`` (the twins and ``ntt_split_plain``).
+raise on anything else; a failed build or a refused or failed launch
+raises too, nothing falls back.  The plain versions live in ``ops/ntt.py``
+(the twins and ``ntt_split_plain``).
 
 ``launch_counts`` holds one plain integer per mode, incremented where a
 wrapper launches its kernel and nowhere else: ``ntt`` counts its mode
 (``cyclic_fwd`` ...), ``ntt_split`` counts ``split_<mode>`` once per call
-(its inner pass is part of it and is not counted as ``<mode>``).
+(its inner pass, where it has one, is part of it and is not counted as
+``<mode>``).
 """
 
 from __future__ import annotations
@@ -31,10 +39,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .ntt import SPLIT_MI, NTTPlan, get_plan, get_split_tables, shoup_np
+from .ntt import SPLIT_MI, NTTPlan, _mod_powers, get_plan, shoup_np
+from .primes import root_of_unity
 
-__all__ = ["build", "ntt", "ntt_split", "launch_counts", "reset_launch_counts", "mode_name",
-           "MODES", "SPLIT_MODES", "CTA_ORDERS"]
+__all__ = ["build", "ntt", "ntt_split", "split_path", "geometry", "kernel_passes",
+           "launch_counts", "reset_launch_counts", "mode_name", "MODES", "SPLIT_MODES",
+           "SPLIT_ROUTES", "CTA_ORDERS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "ntt.cu"
@@ -99,12 +109,12 @@ def build() -> BuildResult:
 @lru_cache(maxsize=None)
 def _lib():
     lib = ctypes.CDLL(str(build().path))
-    fn = lib.ringsnark_ntt_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.ringsnark_ntt_outer_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for name, n_ptr, n_int in (("ringsnark_ntt_launch", 5, 11),
+                               ("ringsnark_ntt_outer_launch", 6, 6),
+                               ("ringsnark_ntt_split_launch", 7, 6)):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -113,12 +123,72 @@ def _shoup(vals: np.ndarray, primes: tuple) -> np.ndarray:
     return shoup_np(vals, np.reshape(primes, (-1, *([1] * (np.ndim(vals) - 1)))))
 
 
+def _pairs(vals: np.ndarray, primes: tuple, device: str) -> torch.Tensor:
+    """[L, ...] residues as int32 (value, Shoup constant) pairs [L, ..., 2] on device."""
+    vals = np.asarray(vals, dtype=np.uint64)
+    a = np.stack([vals, _shoup(vals, primes)], axis=-1).astype(np.uint32)
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device)
+
+
+def _words(a, device: str) -> torch.Tensor:
+    a = np.ascontiguousarray(np.asarray(a, dtype=np.uint64).astype(np.uint32))
+    return torch.from_numpy(a.view(np.int32)).to(device)
+
+
+# ---------------------------------------------------------------------------
+# the shared-memory kernel's schedule (mirrors csrc/ntt.cu; the CPU tests
+# replay it)
+# ---------------------------------------------------------------------------
+
+MAX_THREADS = 512  # kMaxThreads in csrc/ntt.cu: one CTA of 512 or two of 256 a SM
+MIN_THREADS = 256  # a CTA takes several small transforms to reach this
+DOUBLE_BUFFER_BYTES = 64 * 1024  # two tiles up to this much shared memory
+
+
+@dataclass(frozen=True)
+class Geometry:
+    log_e: int  # log2 of the residues a thread holds per group
+    threads: int  # per CTA
+    tile_tf: int  # transforms per tile
+    nbuf: int  # shared buffers (2: the next tile is copied during this one)
+    M: int
+
+
+def geometry(M: int) -> Geometry:
+    """CTA shape of the shared-memory kernel for transforms of size M: 256
+    threads (two CTAs a SM) up to M = 16384, 512 at M = 32768 (one CTA of
+    128 KiB a SM); a second buffer where two tiles take at most 64 KiB."""
+    log_m = M.bit_length() - 1
+    log_e = min(4, log_m)
+    groups = M >> log_e
+    tile_tf = max(1, MIN_THREADS // groups)
+    threads = min(MAX_THREADS if M > 16384 else MIN_THREADS, tile_tf * groups)
+    nbuf = 2 if 2 * tile_tf * M * 4 <= DOUBLE_BUFFER_BYTES else 1
+    return Geometry(log_e, threads, tile_tf, nbuf, M)
+
+
+def kernel_passes(M: int, inverse: bool) -> list:
+    """The passes of `ntt_kernel` in execution order, as (log2 D, e_lo): a
+    group holds 2^log_e residues at stride D and runs the stages of
+    j-exponents [e_lo, log_e) (index distance 2^e * D)."""
+    log_m = M.bit_length() - 1
+    log_e = min(4, log_m)
+    r0 = (log_m - 1) % log_e + 1
+    top = (log_m - log_e, log_e - r0)
+    full = [(log_e * k, 0) for k in range((log_m - r0) // log_e)]  # k ascending
+    return full + [top] if inverse else [top] + full[::-1]
+
+
+def swizzle(a):
+    """Shared-memory word of logical word a (`swz` in csrc/ntt.cu)."""
+    row = a >> 5
+    return a ^ ((row & 15) | ((row & 8) << 1))
+
+
 @dataclass(frozen=True)
 class KernelTables:
-    tw: torch.Tensor  # [L, M] int32 bit patterns of uint32, entry d + k = w_{2d}^k
-    tw_sh: torch.Tensor
-    sc: torch.Tensor  # [L, M] psi^i (fwd) or psi^-i * M^-1 (inv); tw when cyclic
-    sc_sh: torch.Tensor
+    tw: torch.Tensor  # [L, M, 2] int32 (w, Shoup) pairs, entry d + k = w_{2d}^k
+    sc: torch.Tensor  # [L, M, 2] psi^i (fwd) or psi^-i * M^-1 (inv); tw when cyclic
     consts: torch.Tensor  # [L, 3]: p, M^-1, Shoup(M^-1)
 
 
@@ -131,17 +201,12 @@ def _tables(primes: tuple, M: int, inverse: bool, negacyclic: bool, device: str)
     assert tw.shape == (L, M)
     minv = plan.minv.astype(np.uint64)  # [L, 1]
     consts = np.concatenate([plan.p.astype(np.uint64), minv, _shoup(minv, primes)], axis=1)
-
-    def dev(a):
-        a = np.ascontiguousarray(np.asarray(a, dtype=np.uint64).astype(np.uint32))
-        return torch.from_numpy(a.view(np.int32)).to(device)
-
+    tw_t = _pairs(tw, primes, device)
     if negacyclic:
-        sc = plan.psi_inv_scaled if inverse else plan.psi
-        sc_t, sc_sh_t = dev(sc), dev(_shoup(sc, primes))
+        sc_t = _pairs(plan.psi_inv_scaled if inverse else plan.psi, primes, device)
     else:
-        sc_t = sc_sh_t = dev(tw)  # never read by the cyclic kernels
-    return KernelTables(dev(tw), dev(_shoup(tw, primes)), sc_t, sc_sh_t, dev(consts))
+        sc_t = tw_t  # never read by the cyclic kernels
+    return KernelTables(tw_t, sc_t, _words(consts, device))
 
 
 def _check(x: torch.Tensor, plan: NTTPlan, negacyclic: bool, name: str):
@@ -155,18 +220,23 @@ def _check(x: torch.Tensor, plan: NTTPlan, negacyclic: bool, name: str):
         raise ValueError("negacyclic transform with a cyclic plan")
 
 
+def _stream(x: torch.Tensor):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
 def _launch(x, y, primes, M, inverse, negacyclic, rows, S=1, scale=True, order=None):
     """One launch of the shared-memory kernel over ``[rows, L, S, M]``."""
     order = CTA_ORDER if order is None else order
     if order not in CTA_ORDERS:
         raise ValueError(f"CTA order {order!r} is not one of {CTA_ORDERS}")
     tb = _tables(primes, M, inverse, negacyclic, str(x.device))
+    geo = geometry(M)
     with torch.cuda.device(x.device):
         rc = _lib().ringsnark_ntt_launch(
-            x.data_ptr(), y.data_ptr(), tb.tw.data_ptr(), tb.tw_sh.data_ptr(),
-            tb.sc.data_ptr(), tb.sc_sh.data_ptr(), tb.consts.data_ptr(),
-            rows, len(primes), S, M.bit_length() - 1, int(inverse), int(negacyclic),
-            int(order == "limb"), int(scale), torch.cuda.current_stream(x.device).cuda_stream,
+            x.data_ptr(), y.data_ptr(), tb.tw.data_ptr(), tb.sc.data_ptr(),
+            tb.consts.data_ptr(), rows, len(primes), S, M.bit_length() - 1, int(inverse),
+            int(negacyclic), int(order == "limb"), int(scale), geo.threads, geo.tile_tf,
+            geo.nbuf, _stream(x),
         )
     if rc != 0:
         raise RuntimeError(f"NTT kernel launch failed: cudaError {rc}")
@@ -189,42 +259,57 @@ def ntt(x: torch.Tensor, plan: NTTPlan, inverse: bool, negacyclic: bool,
     return y
 
 
+# ---------------------------------------------------------------------------
+# the split transform M = R * mi
+# ---------------------------------------------------------------------------
+
+# One pass in a thread-block cluster of R CTAs (one row each) up to R = 8,
+# the portable cluster size; from R = 16 two passes, which the card ran
+# faster than a cluster at R = 16 (PERF.md).
+CLUSTER_MAX_R = 8
+
+
+def split_path(M: int, mi: int = SPLIT_MI) -> str:
+    """The route of a split transform: a pure function of (M, mi)."""
+    R = M // mi
+    return "cluster" if R <= CLUSTER_MAX_R and 16 <= mi <= 32768 else "two_pass"
+
+
 @dataclass(frozen=True)
-class OuterTables:
-    tw: torch.Tensor  # [L, s, R, Mi] int32 bit patterns of uint32
-    tw_sh: torch.Tensor
-    sc: torch.Tensor  # [L, R, Mi] psi (fwd) or psi^-k M^-1 (inv); tw when cyclic
-    sc_sh: torch.Tensor
+class SplitKernelTables:
+    col: torch.Tensor  # [L, s, Mi, 2] pairs: w^(2^i c) (inverse: w^-(2^i c))
+    row: torch.Tensor  # [L, s, R/2, 2] pairs: w^(2^i Mi lo)
+    sc: torch.Tensor  # [L, R, Mi, 2] psi (fwd) or psi^-k M^-1 (inv); col when cyclic
     consts: torch.Tensor  # [L, 3]: p, full-size M^-1, Shoup(M^-1)
 
 
 @lru_cache(maxsize=None)
-def _outer_tables(primes: tuple, M: int, Mi: int, inverse: bool, negacyclic: bool,
-                  device: str) -> OuterTables:
-    st = get_split_tables(primes, M, Mi, negacyclic)
-
-    def dev(a):
-        a = np.ascontiguousarray(np.asarray(a, dtype=np.uint64).astype(np.uint32))
-        return torch.from_numpy(a.view(np.int32)).to(device)
-
-    tw, tw_sh = (st.inv_tw, st.inv_tw_sh) if inverse else (st.fwd_tw, st.fwd_tw_sh)
-    consts = np.stack([np.array(primes, np.uint64), np.array(st.minv, np.uint64),
-                       np.array(st.minv_sh, np.uint64)], axis=1)
+def _split_tables(primes: tuple, M: int, Mi: int, inverse: bool, negacyclic: bool,
+                  device: str) -> SplitKernelTables:
+    """Factored outer twiddles: the b-row twiddle of stage i at row lo, column
+    c is w^(2^i (lo Mi + c)) = col[i, c] * row[i, lo]."""
+    R = M // Mi
+    s = R.bit_length() - 1
+    col, row = [], []
+    for p in primes:
+        w = root_of_unity(p, M)
+        pw = _mod_powers(pow(w, p - 2, p) if inverse else w, M, p).astype(np.int64)
+        col.append(np.stack([pw[((1 << i) * np.arange(Mi)) % M] for i in range(s)]))
+        row.append(np.stack([pw[((1 << i) * Mi * np.arange(R // 2)) % M] for i in range(s)]))
+    plan = get_plan(primes, M, negacyclic)
+    minv = plan.minv.astype(np.uint64)
+    consts = np.concatenate([plan.p.astype(np.uint64), minv, _shoup(minv, primes)], axis=1)
+    col_t = _pairs(np.stack(col), primes, device)
     if negacyclic:
-        sc, sc_sh = (st.psiinv_s, st.psiinv_s_sh) if inverse else (st.psi, st.psi_sh)
-        sc_t, sc_sh_t = dev(sc), dev(sc_sh)
+        sc = plan.psi_inv_scaled if inverse else plan.psi
+        sc_t = _pairs(np.asarray(sc).reshape(len(primes), R, Mi), primes, device)
     else:
-        sc_t = sc_sh_t = dev(tw)  # never read by the cyclic kernels
-    return OuterTables(dev(tw), dev(tw_sh), sc_t, sc_sh_t, dev(consts))
+        sc_t = col_t  # never read by the cyclic kernels
+    return SplitKernelTables(col_t, _pairs(np.stack(row), primes, device), sc_t,
+                             _words(consts, device))
 
 
-def ntt_split(x: torch.Tensor, plan: NTTPlan, inverse: bool, negacyclic: bool,
-              mi: int = SPLIT_MI) -> torch.Tensor:
-    """The split transform of ``x``: int32 CUDA ``[..., L, M]``, contiguous,
-    M = R * mi with R = 2 .. 32.  Forward: outer kernel (psi twist + outer
-    DIF stages), then the shared-memory kernel over the R rows of size mi;
-    inverse: the shared-memory kernel unscaled, then the outer kernel (DIT
-    stages + the full-size scale).  Counted once, as ``split_<mode>``."""
+def _split_check(x: torch.Tensor, plan: NTTPlan, negacyclic: bool, mi: int) -> int:
     L, M = plan.L, plan.M
     _check(x, plan, negacyclic, "ntt_split")
     R = M // mi
@@ -232,20 +317,44 @@ def ntt_split(x: torch.Tensor, plan: NTTPlan, inverse: bool, negacyclic: bool,
             or mi > 32768 or mi & (mi - 1)):
         raise ValueError(f"shape {tuple(x.shape)} does not fit a split of M={M} into "
                          f"R x {mi} with R = 2 .. 32")
-    rows = x.numel() // (L * M)
-    y = torch.empty_like(x)
-    if rows == 0:
-        return y
+    return R
+
+
+def _cluster_launch(x, y, plan: NTTPlan, inverse: bool, negacyclic: bool, mi: int):
+    """The "cluster" route: one launch, R = M / mi CTAs a transform (the
+    card refuses R = 16, beyond the portable cluster size)."""
+    R = _split_check(x, plan, negacyclic, mi)
+    st = _split_tables(plan.primes, plan.M, mi, inverse, negacyclic, str(x.device))
+    inner = _tables(plan.primes, mi, inverse, False, str(x.device))
+    rows = x.numel() // (plan.L * plan.M)
+    with torch.cuda.device(x.device):
+        rc = _lib().ringsnark_ntt_split_launch(
+            x.data_ptr(), y.data_ptr(), st.col.data_ptr(), st.row.data_ptr(),
+            st.sc.data_ptr(), inner.tw.data_ptr(), st.consts.data_ptr(), rows, plan.L,
+            R.bit_length() - 1, mi.bit_length() - 1, int(inverse), int(negacyclic),
+            _stream(x),
+        )
+    if rc != 0:
+        raise RuntimeError(f"NTT cluster kernel launch failed ({R} CTAs per cluster): "
+                           f"cudaError {rc}")
+
+
+def _two_pass_launch(x, y, plan: NTTPlan, inverse: bool, negacyclic: bool, mi: int):
+    """The "two_pass" route: forward the outer kernel (psi twist + outer DIF
+    stages), then the shared-memory kernel over the R rows of size mi;
+    inverse the shared-memory kernel unscaled, then the outer kernel (DIT
+    stages + the full-size scale)."""
+    R = _split_check(x, plan, negacyclic, mi)
+    st = _split_tables(plan.primes, plan.M, mi, inverse, negacyclic, str(x.device))
+    rows = x.numel() // (plan.L * plan.M)
     tmp = torch.empty_like(x)
-    ot = _outer_tables(plan.primes, M, mi, inverse, negacyclic, str(x.device))
 
     def outer(src, dst):
         with torch.cuda.device(x.device):
             rc = _lib().ringsnark_ntt_outer_launch(
-                src.data_ptr(), dst.data_ptr(), ot.tw.data_ptr(), ot.tw_sh.data_ptr(),
-                ot.sc.data_ptr(), ot.sc_sh.data_ptr(), ot.consts.data_ptr(),
-                rows, L, R.bit_length() - 1, mi.bit_length() - 1, int(inverse),
-                int(negacyclic), torch.cuda.current_stream(x.device).cuda_stream,
+                src.data_ptr(), dst.data_ptr(), st.col.data_ptr(), st.row.data_ptr(),
+                st.sc.data_ptr(), st.consts.data_ptr(), rows, plan.L, R.bit_length() - 1,
+                mi.bit_length() - 1, int(inverse), int(negacyclic), _stream(x),
             )
         if rc != 0:
             raise RuntimeError(f"NTT outer kernel launch failed: cudaError {rc}")
@@ -256,5 +365,22 @@ def ntt_split(x: torch.Tensor, plan: NTTPlan, inverse: bool, negacyclic: bool,
     else:
         _launch(x, tmp, plan.primes, mi, True, False, rows, S=R, scale=False)
         outer(tmp, y)
+
+
+# the split routes by name: ntt_split takes split_path's; the card tests and
+# bench_torch_ntt.py run the other one too
+SPLIT_ROUTES = {"cluster": _cluster_launch, "two_pass": _two_pass_launch}
+
+
+def ntt_split(x: torch.Tensor, plan: NTTPlan, inverse: bool, negacyclic: bool,
+              mi: int = SPLIT_MI) -> torch.Tensor:
+    """The split transform of ``x``: int32 CUDA ``[..., L, M]``, contiguous,
+    M = R * mi with R = 2 .. 32, on the route ``split_path(M, mi)`` names
+    (``SPLIT_ROUTES``).  Counted once, as ``split_<mode>``."""
+    _split_check(x, plan, negacyclic, mi)
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    SPLIT_ROUTES[split_path(plan.M, mi)](x, y, plan, inverse, negacyclic, mi)
     launch_counts["split_" + mode_name(inverse, negacyclic)] += 1
     return y

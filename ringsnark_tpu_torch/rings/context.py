@@ -30,7 +30,7 @@ class RingContext:
 
     primes: tuple[int, ...]
     N: int = 1
-    device: str = "cpu"
+    device: str = "cuda"
 
     def __post_init__(self):
         assert len(self.primes) >= 1
@@ -81,7 +81,7 @@ def _canon_device(device) -> str:
 
 @lru_cache(maxsize=None)
 def default_context(
-    L: int = 3, N: int = 1, order: int = 1 << 21, device: str = "cpu"
+    L: int = 3, N: int = 1, order: int = 1 << 21, device: str = "cuda"
 ) -> RingContext:
     """Convenience preset: L limbs of ~31-bit primes ≡ 1 mod `order`."""
     ps = tuple(_primes.find_ntt_primes(L, order))

@@ -93,7 +93,7 @@ def _counters(shape, rows, axis: int, device) -> torch.Tensor:
     return c.reshape(*shape[:axis], hi - lo, *shape[axis + 1:])
 
 
-def bits(k: Key, shape, device="cpu", rows=None, axis: int = 0) -> torch.Tensor:
+def bits(k: Key, shape, device, rows=None, axis: int = 0) -> torch.Tensor:
     """``jax.random.bits(k, shape, uint32)`` as int64 values in [0, 2^32).
 
     ``rows=(lo, hi)`` draws only indices ``[lo, hi)`` along `axis` (the
@@ -104,7 +104,7 @@ def bits(k: Key, shape, device="cpu", rows=None, axis: int = 0) -> torch.Tensor:
     return y0 ^ y1
 
 
-def randint(k: Key, shape, maxval: int, device="cpu", rows=None, axis: int = 0) -> torch.Tensor:
+def randint(k: Key, shape, maxval: int, device, rows=None, axis: int = 0) -> torch.Tensor:
     """``jax.random.randint(k, shape, 0, maxval, dtype=uint32)`` as int64.
 
     JAX draws two 32-bit words per value, from the two halves of

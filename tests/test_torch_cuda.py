@@ -36,17 +36,24 @@ def _residues(primes, M, rows, device, seed=0):
 @pytest.mark.gpu
 @pytest.mark.parametrize("negacyclic", [False, True])
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("M", [2, 256, 8192, 32768])
+@pytest.mark.parametrize("M", [1 << k for k in range(1, 16)])
 def test_kernel_equals_twin(cuda, M, inverse, negacyclic):
+    """Every size of the shared-memory kernel (register groups of E = M
+    below 16, several transforms per CTA below 4096, one buffer at 32768),
+    in both CTA orders, on a batch that leaves the last tile part-full."""
     primes = tuple(find_ntt_primes(2, 1 << 16))
     plan = tntt.get_plan(primes, M, negacyclic=negacyclic)
-    x = _residues(primes, M, 3, cuda, seed=M)
+    x = _residues(primes, M, 3 + 257 // M, cuda, seed=M)
+    want = tntt.PLAIN_TWINS[(inverse, negacyclic)](x, plan)
     before = dict(cuda_ntt.launch_counts)
     got = DISPATCH[(inverse, negacyclic)](x, plan)
     torch.cuda.synchronize()
     mode = cuda_ntt.mode_name(inverse, negacyclic)
     assert cuda_ntt.launch_counts[mode] == before[mode] + 1
-    assert torch.equal(got, tntt.PLAIN_TWINS[(inverse, negacyclic)](x, plan))
+    assert torch.equal(got, want)
+    assert torch.equal(cuda_ntt.ntt(x, plan, inverse, negacyclic, order="limb"), want)
+    back = cuda_ntt.ntt(got, plan, not inverse, negacyclic)
+    assert torch.equal(back, x)
 
 
 @pytest.mark.gpu
@@ -62,23 +69,54 @@ def test_cta_orders_equal_twin(cuda, inverse, negacyclic, order):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("route", sorted(cuda_ntt.SPLIT_ROUTES))
 @pytest.mark.parametrize("negacyclic", [False, True])
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("M", [65536, 131072])
-def test_split_kernel_equals_plain(cuda, M, inverse, negacyclic):
-    """The dispatcher sends 32768 < M <= 2^19 to the split kernel, counted
-    once as split_<mode>; equal to the plain split and the full-size twin."""
-    primes = tuple(find_ntt_primes(2, 1 << 18))
+@pytest.mark.parametrize("M", [1 << k for k in range(15, 20)])
+def test_split_kernel_equals_plain(cuda, M, inverse, negacyclic, route):
+    """Both split routes at every M = 2^15 .. 2^19 where they run equal the
+    plain split and the full-size twin and invert each other; the dispatcher
+    sends 32768 < M <= 2^19 to split_path(M)'s route, counted once as
+    split_<mode>.  The cluster route refuses R > 8 and raises."""
+    primes = tuple(find_ntt_primes(2, 1 << 20))
     plan = tntt.get_plan(primes, M, negacyclic=negacyclic)
     x = _residues(primes, M, 3, cuda, seed=M)
-    before = dict(cuda_ntt.launch_counts)
-    got = DISPATCH[(inverse, negacyclic)](x, plan)
+    run = cuda_ntt.SPLIT_ROUTES[route]
+    y = torch.empty_like(x)
+    if route == "cluster" and M // tntt.SPLIT_MI > cuda_ntt.CLUSTER_MAX_R:
+        with pytest.raises(RuntimeError, match="cluster"):
+            run(x, y, plan, inverse, negacyclic, tntt.SPLIT_MI)
+        return
+    run(x, y, plan, inverse, negacyclic, tntt.SPLIT_MI)
     torch.cuda.synchronize()
-    mode = cuda_ntt.mode_name(inverse, negacyclic)
-    assert cuda_ntt.launch_counts["split_" + mode] == before["split_" + mode] + 1
-    assert cuda_ntt.launch_counts[mode] == before[mode]
-    assert torch.equal(got, tntt.ntt_split_plain(x, plan, inverse, negacyclic))
-    assert torch.equal(got, tntt.PLAIN_TWINS[(inverse, negacyclic)](x, plan))
+    assert torch.equal(y, tntt.ntt_split_plain(x, plan, inverse, negacyclic))
+    assert torch.equal(y, tntt.PLAIN_TWINS[(inverse, negacyclic)](x, plan))
+    back = torch.empty_like(x)
+    run(y, back, plan, not inverse, negacyclic, tntt.SPLIT_MI)
+    assert torch.equal(back, x)
+    if M > tntt.MAX_KERNEL_M and route == cuda_ntt.split_path(M):
+        mode = cuda_ntt.mode_name(inverse, negacyclic)
+        before = dict(cuda_ntt.launch_counts)
+        assert torch.equal(DISPATCH[(inverse, negacyclic)](x, plan), y)
+        assert cuda_ntt.launch_counts["split_" + mode] == before["split_" + mode] + 1
+        assert cuda_ntt.launch_counts[mode] == before[mode]
+
+
+@pytest.mark.gpu
+def test_refused_cluster_launch_raises(cuda):
+    """At M = 2^18 the cluster kernel would need 16 CTAs, beyond the
+    portable cluster size: the card refuses the launch and the wrapper
+    raises; nothing falls back (the route takes two passes there)."""
+    primes = tuple(find_ntt_primes(1, 1 << 19))
+    M = 1 << 18
+    assert cuda_ntt.split_path(M) == "two_pass"
+    plan = tntt.get_plan(primes, M)
+    x = _residues(primes, M, 1, cuda)
+    with pytest.raises(RuntimeError, match="cluster"):
+        cuda_ntt._cluster_launch(x, torch.empty_like(x), plan, False, False, tntt.SPLIT_MI)
+    # the refusal does not leak into the next launch
+    y = cuda_ntt.ntt_split(x, plan, False, False)
+    assert torch.equal(y, tntt.ntt_split_plain(x, plan, False, False))
 
 
 @pytest.mark.gpu

@@ -67,8 +67,8 @@ def pair(request):
         if c not in jring.primes:
             inner.append(c)
     jctx = JEncodingContext(ring=jring, n_inner=N_INNER, inner_primes=tuple(inner))
-    tctx = EncodingContext(ring=RingContext(primes=jring.primes, N=N), n_inner=N_INNER,
-                           inner_primes=tuple(inner))
+    tring = RingContext(primes=jring.primes, N=N, device="cpu")
+    tctx = EncodingContext(ring=tring, n_inner=N_INNER, inner_primes=tuple(inner))
     _, jsk = jkeygen(jctx, np.random.default_rng(42))
     _, tsk = keygen(tctx, np.random.default_rng(42))
     return jctx, jsk, tctx, tsk

@@ -3,9 +3,10 @@ the JAX package, on the CPU, bit for bit.
 
 * the four plain PyTorch transforms against `ringsnark_tpu.ops.ntt` (its
   XLA path on the CPU) and against the Pallas kernels in interpret mode;
-* the CUDA kernel's tables and index arithmetic, through a numpy replay of
-  `csrc/ntt.cu`'s loops (the kernel itself runs only on the card:
-  `tests/test_torch_cuda.py` and `chip_smoke.py`);
+* the CUDA kernel's tables, register passes and swizzled exchanges,
+  through a numpy replay of `csrc/ntt.cu`'s schedule (`tests/ntt_replay.py`;
+  the kernel itself runs only on the card: `tests/test_torch_cuda.py` and
+  `chip_smoke.py`);
 * int64 modular arithmetic with p just under 2^31;
 * `import ringsnark_tpu_torch` keeps jax out of `sys.modules`.
 """
@@ -26,6 +27,8 @@ from ringsnark_tpu.ops.modops import mul_mod as jmul_mod
 from ringsnark_tpu.ops.primes import find_ntt_primes, make_prime
 from ringsnark_tpu_torch.ops import cuda_ntt, modops
 from ringsnark_tpu_torch.ops import ntt as tntt
+
+import ntt_replay
 
 MODES = ["cyclic_fwd", "cyclic_inv", "negacyclic_fwd", "negacyclic_inv"]
 # jitted: one compile per shape instead of one per eager op
@@ -92,65 +95,60 @@ def test_plain_twin_matches_pallas_interpret(mode):
     assert np.array_equal(_u32(got), want)
 
 
-def _replay_kernel(x, tb, inverse, negacyclic, primes):
-    """numpy replay of csrc/ntt.cu (uint32 wrap-around via uint64 & mask)."""
-    MASK = np.uint64(0xFFFFFFFF)
-    B, L, M = x.shape
-    log_m = M.bit_length() - 1
-
-    def u(t):
-        return t.numpy().view(np.uint32).astype(np.uint64)
-
-    tw, tw_sh, sc, sc_sh, consts = (u(t) for t in (tb.tw, tb.tw_sh, tb.sc, tb.sc_sh, tb.consts))
-    p = consts[:, 0:1]  # [L, 1]
-    assert np.array_equal(p[:, 0], np.array(primes, dtype=np.uint64))
-
-    def shoup(a, w, w_sh):
-        q = (a * w_sh) >> np.uint64(32)
-        r = (a * w - q * p) & MASK
-        return np.where(r >= p, r - p, r)
-
-    def add(a, b):
-        s = a + b
-        return np.where(s >= p, s - p, s)
-
-    def sub(a, b):
-        d = (a + p - b) & MASK
-        return np.where(d >= p, d - p, d)
-
-    buf = x.astype(np.uint64)
-    if negacyclic and not inverse:
-        buf = shoup(buf, sc, sc_sh)
-    j = np.arange(M // 2)
-    logds = range(log_m) if inverse else range(log_m - 1, -1, -1)
-    for logd in logds:
-        d = 1 << logd
-        k = j & (d - 1)
-        i0 = ((j >> logd) << (logd + 1)) + k
-        a, b = buf[..., i0], buf[..., i0 + d]
-        w, w_sh = tw[:, d + k], tw_sh[:, d + k]
-        if inverse:
-            m = shoup(b, w, w_sh)
-            buf[..., i0], buf[..., i0 + d] = add(a, m), sub(a, m)
-        else:
-            buf[..., i0], buf[..., i0 + d] = add(a, b), shoup(sub(a, b), w, w_sh)
-    if inverse:
-        buf = shoup(buf, sc, sc_sh) if negacyclic else shoup(buf, consts[:, 1:2], consts[:, 2:3])
-    return buf.astype(np.uint32)
-
-
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("M", [2, 64, 2048])
 def test_kernel_tables_replayed_match_twin(M, mode):
-    """The kernel's tables, indexing and Shoup arithmetic give the twin's
-    output (replayed on the host; the card runs the same loops)."""
+    """The kernel's tables, tiles, register passes, swizzled exchanges and
+    Shoup arithmetic give the twin's output (replayed on the host; the card
+    runs the same schedule)."""
     inverse, nega = mode.endswith("inv"), mode.startswith("nega")
     primes = tuple(find_ntt_primes(3, 1 << 12))
-    tb = cuda_ntt._tables(primes, M, inverse, nega, "cpu")
     x = _residues(primes, M, 2, seed=M)
-    got = _replay_kernel(x, tb, inverse, nega, primes)
+    got = ntt_replay.ntt_kernel(x, primes, M, inverse, nega)
     want = _u32(PLAIN_FN[mode](_t(x), tntt.get_plan(primes, M, negacyclic=nega)))
-    assert np.array_equal(got, want)
+    assert np.array_equal(got.astype(np.uint32), want)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_register_radix_replayed_at_16384(mode):
+    """E = 16 at the main path's N' = 16384, one limb: the top pass of two
+    stages and three full passes of four, 256 threads of four groups each,
+    one buffer (two CTAs a SM)."""
+    inverse, nega = mode.endswith("inv"), mode.startswith("nega")
+    M = 16384
+    geo = cuda_ntt.geometry(M)
+    assert (geo.log_e, geo.threads, geo.tile_tf, geo.nbuf) == (4, 256, 1, 1)
+    assert cuda_ntt.kernel_passes(M, inverse) == (
+        [(0, 0), (4, 0), (8, 0), (10, 2)] if inverse else [(10, 2), (8, 0), (4, 0), (0, 0)])
+    primes = tuple(find_ntt_primes(1, 1 << 15))
+    x = _residues(primes, M, 3, seed=16)
+    got = ntt_replay.ntt_kernel(x, primes, M, inverse, nega)
+    want = _u32(PLAIN_FN[mode](_t(x), tntt.get_plan(primes, M, negacyclic=nega)))
+    assert np.array_equal(got.astype(np.uint32), want)
+
+
+@pytest.mark.parametrize("M", [8192, 16384, 32768])
+def test_exchanges_free_of_bank_conflicts(M):
+    """Every warp access of every pass (fixed register j, 32 consecutive
+    threads) hits 32 distinct banks of the swizzled layout; the swizzle is
+    a permutation of each 32-word row and linear over GF(2), which the
+    kernel's swz(A) ^ swz(j << log_d) addressing relies on."""
+    a = np.arange(M)
+    assert np.array_equal(np.sort(cuda_ntt.swizzle(a).reshape(-1, 32), axis=1),
+                          a.reshape(-1, 32))
+    b = np.random.default_rng(M).integers(0, M, M)
+    assert np.array_equal(cuda_ntt.swizzle(a ^ b), cuda_ntt.swizzle(a) ^ cuda_ntt.swizzle(b))
+    log_m = M.bit_length() - 1
+    G = M >> 4
+    g = np.arange(G)
+    for inverse in (False, True):
+        for log_d, _ in cuda_ntt.kernel_passes(M, inverse):
+            lo = g & ((1 << log_d) - 1)
+            base = ((g >> log_d) << (log_d + 4)) | lo
+            for j in range(16):
+                banks = (cuda_ntt.swizzle(base + (j << log_d)) & 31).reshape(-1, 32)
+                assert all(len(set(w)) == 32 for w in banks), (M, inverse, log_d, j)
+    assert log_m >= 13
 
 
 def test_modops_near_2_31():

@@ -39,7 +39,7 @@ def test_key_split_fold_in(seed):
 def test_bits(shape):
     jk, tk = _key(103)
     want = np.asarray(jax.random.bits(jk, shape, dtype=jnp.uint32)).astype(np.int64)
-    assert np.array_equal(prng.bits(tk, shape).numpy(), want)
+    assert np.array_equal(prng.bits(tk, shape, "cpu").numpy(), want)
 
 
 @pytest.mark.parametrize("maxval", [7, 65537, 2147352577, 2147483647, 1 << 31])
@@ -48,7 +48,7 @@ def test_randint(shape, maxval):
     """uint32 randint; spans above 2^16 take JAX's wrapped multiplier."""
     jk, tk = _key(5)
     want = np.asarray(jax.random.randint(jk, shape, 0, maxval, dtype=jnp.uint32))
-    assert np.array_equal(prng.randint(tk, shape, maxval).numpy(), want.astype(np.int64))
+    assert np.array_equal(prng.randint(tk, shape, maxval, "cpu").numpy(), want.astype(np.int64))
 
 
 @pytest.mark.parametrize("axis,rows", [(0, (1, 3)), (1, (2, 5)), (2, (0, 7)), (2, (6, 7)),
@@ -56,16 +56,35 @@ def test_randint(shape, maxval):
 def test_row_range_equals_slice_of_whole_draw(axis, rows):
     shape = (3, 5, 7)
     _, tk = _key(11)
-    whole_bits = prng.bits(tk, shape).numpy()
-    whole_int = prng.randint(tk, shape, 2147352577).numpy()
+    whole_bits = prng.bits(tk, shape, "cpu").numpy()
+    whole_int = prng.randint(tk, shape, 2147352577, "cpu").numpy()
     sl = tuple(slice(*rows) if d == axis else slice(None) for d in range(3))
-    assert np.array_equal(prng.bits(tk, shape, rows=rows, axis=axis).numpy(), whole_bits[sl])
-    assert np.array_equal(prng.randint(tk, shape, 2147352577, rows=rows, axis=axis).numpy(),
-                          whole_int[sl])
+    part_bits = prng.bits(tk, shape, "cpu", rows=rows, axis=axis).numpy()
+    part_int = prng.randint(tk, shape, 2147352577, "cpu", rows=rows, axis=axis).numpy()
+    assert np.array_equal(part_bits, whole_bits[sl])
+    assert np.array_equal(part_int, whole_int[sl])
 
 
 def test_bad_arguments_raise():
     with pytest.raises(ValueError):
         prng.key(-1)
     with pytest.raises(ValueError):
-        prng.randint(prng.key(0), (2,), (1 << 31) + 1)
+        prng.randint(prng.key(0), (2,), (1 << 31) + 1, "cpu")
+
+
+def test_contexts_and_draws_default_to_the_card():
+    """A context built without a device is on the card ("cuda:0"), without
+    touching CUDA; a draw names its device, there is no CPU default."""
+    import inspect
+
+    from ringsnark_tpu_torch.rings.context import RingContext, default_context
+
+    p = 2013265921  # 15 * 2^27 + 1: NTT-friendly for N=8
+    ring = RingContext(primes=(p,), N=8)
+    assert ring.device == "cuda:0"
+    assert default_context().device == "cuda:0"
+    assert default_context(L=1, N=8, device="cpu").device == "cpu"
+    for fn in (prng.bits, prng.randint):
+        assert inspect.signature(fn).parameters["device"].default is inspect.Parameter.empty
+    with pytest.raises(TypeError):
+        prng.bits(prng.key(0), (2,))

@@ -65,7 +65,7 @@ def circuit(request):
     pb.set_val(v[5], v5)
     assert pb.is_satisfied()
     jcomp = pb.compile()
-    tring = RingContext(primes=jring.primes, N=jring.N)
+    tring = RingContext(primes=jring.primes, N=jring.N, device="cpu")
     tcomp = compiled_from_numpy(tring, _compiled_arrays(jcomp))
     p_res, a_res = jred._pa_batches(jring, pb.primary_input(), pb.auxiliary_input())
     jdom = JRootsDomain(jring, pb.num_constraints())
@@ -109,7 +109,7 @@ def test_witness_map_prover_slot_chunked():
         jcomp, full.res, io.res, mid.res, zero, zero, zero, jdom,
         slot_chunk=jring.N, outputs="prover",
     )
-    tring = RingContext(primes=jring.primes, N=8)
+    tring = RingContext(primes=jring.primes, N=8, device="cpu")
     tcomp = compiled_from_numpy(tring, _compiled_arrays(jcomp))
     tdom = RootsDomain(tring, tcomp.num_constraints)
     tchunked = tred.prover_witness_map_chunked(tcomp, _t(p_res), _t(a_res), tdom, slot_chunk=2)
@@ -124,7 +124,7 @@ def test_witness_map_prover_slot_chunked():
 @pytest.mark.parametrize("N", [1, 16])
 def test_square_chain_matches_jax_and_device_path(N):
     jring = jdefault_context(L=2, N=N, order=1 << 12)
-    tring = RingContext(primes=jring.primes, N=N)
+    tring = RingContext(primes=jring.primes, N=N, device="cpu")
     jcomp, jprim, jaux = jsquare_chain(jring, 32, np.random.default_rng(9))
     tcomp, tprim, taux = tsynth.build_synthetic_square_chain(tring, 32, np.random.default_rng(9))
     assert np.array_equal(_u(tprim.res), np.asarray(jprim.res))

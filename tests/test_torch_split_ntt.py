@@ -4,10 +4,12 @@ the CPU, bit for bit:
 * ``ntt_split_plain`` against the JAX split path (``ntt_split_pallas`` in
   interpret mode) in all four modes, and against the full-size plain twin;
 * ``get_split_tables`` against the JAX package's;
-* the CUDA kernels' index arithmetic and tables, through a numpy replay of
-  ``csrc/ntt.cu``'s ``outer_kernel`` and of ``ntt_kernel`` over the
-  ``[B, L, R, Mi]`` view in both CTA orders (the kernels themselves run
-  only on the card: ``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
+* the CUDA kernels' schedules and tables, through a numpy replay of
+  ``csrc/ntt.cu`` (``tests/ntt_replay.py``): the two-pass route
+  (``outer_kernel`` with factored twiddles, then ``ntt_kernel`` over the
+  ``[B, L, R, Mi]`` view in both CTA orders) and the one-pass cluster
+  route (the kernels themselves run only on the card:
+  ``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
 """
 
 import numpy as np
@@ -20,10 +22,11 @@ from ringsnark_tpu.ops.primes import find_ntt_primes
 from ringsnark_tpu_torch.ops import cuda_ntt
 from ringsnark_tpu_torch.ops import ntt as tntt
 
+import ntt_replay
+
 M, MI = 1024, 256
 MODES = [(False, True), (True, True), (False, False), (True, False)]
 IDS = ["negacyclic_fwd", "negacyclic_inv", "cyclic_fwd", "cyclic_inv"]
-MASK = np.uint64(0xFFFFFFFF)
 
 
 def _residues(primes, size, B, seed):
@@ -39,10 +42,6 @@ def _t(x: np.ndarray) -> torch.Tensor:
 
 def _u32(t: torch.Tensor) -> np.ndarray:
     return t.numpy().view(np.uint32)
-
-
-def _host(t: torch.Tensor) -> np.ndarray:
-    return t.numpy().view(np.uint32).astype(np.uint64)
 
 
 @pytest.fixture(scope="module")
@@ -98,117 +97,67 @@ def test_split_tables_match_jax(primes):
 
 
 # ---------------------------------------------------------------------------
-# numpy replay of csrc/ntt.cu
+# numpy replay of csrc/ntt.cu (tests/ntt_replay.py)
 # ---------------------------------------------------------------------------
-
-
-def _shoup(a, w, w_sh, p):
-    q = (a * w_sh) >> np.uint64(32)
-    r = (a * w - q * p) & MASK
-    return np.where(r >= p, r - p, r)
-
-
-def _add(a, b, p):
-    s = a + b
-    return np.where(s >= p, s - p, s)
-
-
-def _sub(a, b, p):
-    d = (a + p - b) & MASK
-    return np.where(d >= p, d - p, d)
-
-
-def _replay_ntt_kernel(x, primes, size, inverse, negacyclic, S, limb_major, scale):
-    """`ntt_kernel` over x [rows, L, S, size]: CTA g -> (limb, transform t)
-    as the kernel computes them, then its stages on each CTA's polynomial."""
-    rows, L = x.shape[0], x.shape[1]
-    tb = cuda_ntt._tables(primes, size, inverse, negacyclic, "cpu")
-    tw, tw_sh, sc, sc_sh, consts = (_host(t) for t in (tb.tw, tb.tw_sh, tb.sc, tb.sc_sh,
-                                                       tb.consts))
-    g = np.arange(rows * L * S)
-    if limb_major:
-        per_limb = rows * S
-        limb, j = g // per_limb, g % per_limb
-        t = ((j // S) * L + limb) * S + j % S
-    else:
-        limb, t = (g // S) % L, g
-    assert np.array_equal(np.sort(t), g), "CTAs must cover every transform once"
-    flat = x.reshape(-1, size).astype(np.uint64)
-    buf, p = flat[t], consts[limb, 0:1]
-    if negacyclic and not inverse:
-        buf = _shoup(buf, sc[limb], sc_sh[limb], p)
-    log_m = size.bit_length() - 1
-    j = np.arange(size // 2)
-    for logd in (range(log_m) if inverse else range(log_m - 1, -1, -1)):
-        d = 1 << logd
-        k = j & (d - 1)
-        i0 = ((j >> logd) << (logd + 1)) + k
-        a, b = buf[:, i0], buf[:, i0 + d]
-        w, w_sh = tw[limb][:, d + k], tw_sh[limb][:, d + k]
-        if inverse:
-            m = _shoup(b, w, w_sh, p)
-            buf[:, i0], buf[:, i0 + d] = _add(a, m, p), _sub(a, m, p)
-        else:
-            buf[:, i0], buf[:, i0 + d] = _add(a, b, p), _shoup(_sub(a, b, p), w, w_sh, p)
-    if inverse and negacyclic:
-        buf = _shoup(buf, sc[limb], sc_sh[limb], p)
-    elif inverse and scale:
-        buf = _shoup(buf, consts[limb, 1:2], consts[limb, 2:3], p)
-    out = np.empty_like(flat)
-    out[t] = buf
-    return out.reshape(x.shape)
-
-
-def _replay_outer_kernel(x, primes, size, mi, inverse, negacyclic):
-    """`outer_kernel` over x [rows, L, R, mi]: every (row, limb, column)
-    thread's R registers at once."""
-    R, s = size // mi, (size // mi).bit_length() - 1
-    ot = cuda_ntt._outer_tables(primes, size, mi, inverse, negacyclic, "cpu")
-    tw, tw_sh, sc, sc_sh, consts = (_host(t) for t in (ot.tw, ot.tw_sh, ot.sc, ot.sc_sh,
-                                                       ot.consts))
-    p = consts[:, 0][:, None]  # [L, 1] against v[r]: [rows, L, mi]
-    v = [x[:, :, r, :].astype(np.uint64) for r in range(R)]
-    if negacyclic and not inverse:
-        v = [_shoup(v[r], sc[:, r], sc_sh[:, r], p) for r in range(R)]
-    stages = range(s - 1, -1, -1) if inverse else range(s)
-    for i in stages:
-        d = R >> (i + 1)
-        for r in range(R):
-            if (r & (2 * d - 1)) < d:
-                w, w_sh = tw[:, i, r + d], tw_sh[:, i, r + d]
-                a = v[r]
-                if inverse:
-                    m = _shoup(v[r + d], w, w_sh, p)
-                    v[r], v[r + d] = _add(a, m, p), _sub(a, m, p)
-                else:
-                    v[r], v[r + d] = _add(a, v[r + d], p), _shoup(_sub(a, v[r + d], p), w, w_sh, p)
-    if inverse:
-        v = [_shoup(v[r], sc[:, r], sc_sh[:, r], p) if negacyclic
-             else _shoup(v[r], consts[:, 1:2], consts[:, 2:3], p) for r in range(R)]
-    return np.stack(v, axis=2)
 
 
 @pytest.mark.parametrize("order", cuda_ntt.CTA_ORDERS)
 @pytest.mark.parametrize("inverse,negacyclic", MODES, ids=IDS)
 def test_split_kernels_replayed_match_twin(inverse, negacyclic, order):
-    """ntt_split's two launches (outer kernel, then the shared-memory kernel
-    with S = R, unscaled when inverse) replayed on the host give the
-    full-size twin's output."""
+    """ntt_split's two paths replayed on the host give the full-size twin's
+    output: two-pass (outer kernel with factored twiddles, then the
+    shared-memory kernel with S = R in this CTA order, unscaled when
+    inverse) and one-pass (the cluster kernel, one row per CTA)."""
     size, mi = 1024, 128
-    R = size // mi
     ps = tuple(find_ntt_primes(3, 1 << 13))
     x = _residues(ps, size, 3, seed=11)
-    xr = x.reshape(3, 3, R, mi)
-    lm = order == "limb"
-    if not inverse:
-        mid = _replay_outer_kernel(xr, ps, size, mi, False, negacyclic)
-        got = _replay_ntt_kernel(mid, ps, mi, False, False, R, lm, True)
-    else:
-        mid = _replay_ntt_kernel(xr, ps, mi, True, False, R, lm, False)
-        got = _replay_outer_kernel(mid, ps, size, mi, True, negacyclic)
     plan = tntt.get_plan(ps, size, negacyclic=negacyclic)
     want = _u32(tntt.PLAIN_TWINS[(inverse, negacyclic)](_t(x), plan))
-    assert np.array_equal(got.reshape(x.shape).astype(np.uint32), want)
+    got = ntt_replay.split_two_pass(x, ps, size, mi, inverse, negacyclic, order == "limb")
+    assert np.array_equal(got.astype(np.uint32), want)
+    assert cuda_ntt.split_path(size, mi) == "cluster"
+    got = ntt_replay.split_cluster(x, ps, size, mi, inverse, negacyclic)
+    assert np.array_equal(got.astype(np.uint32), want)
+
+
+@pytest.mark.parametrize("size,mi", [(256, 128), (512, 128), (2048, 256), (4096, 128)])
+def test_cluster_partition_replayed_matches_twin(size, mi):
+    """The cluster kernel at R = 2, 4 and 8 (the route up to R = 8) and the
+    two-pass route of R = 32, all four modes."""
+    ps = tuple(find_ntt_primes(2, 1 << 13))
+    x = _residues(ps, size, 2, seed=size)
+    R = size // mi
+    assert cuda_ntt.split_path(size, mi) == ("cluster" if R <= 8 else "two_pass")
+    for inverse, nega in MODES:
+        plan = tntt.get_plan(ps, size, negacyclic=nega)
+        want = _u32(tntt.PLAIN_TWINS[(inverse, nega)](_t(x), plan))
+        if R <= 8:
+            got = ntt_replay.split_cluster(x, ps, size, mi, inverse, nega)
+        else:
+            got = ntt_replay.split_two_pass(x, ps, size, mi, inverse, nega)
+        assert np.array_equal(got.astype(np.uint32), want), (inverse, nega)
+
+
+def test_factored_outer_twiddles_equal_positioned_table():
+    """col[i, c] * row[i, lo] is the JAX package's positioned b-row twiddle
+    w^(2^i (lo Mi + c)) of `get_split_tables`, forward and inverse."""
+    ps = tuple(find_ntt_primes(2, 1 << 13))
+    size, mi = 2048, 64
+    R, s = size // mi, (size // mi).bit_length() - 1
+    ref = tntt.get_split_tables(ps, size, mi, negacyclic=False)
+    for inverse in (False, True):
+        st = cuda_ntt._split_tables(ps, size, mi, inverse, False, "cpu")
+        col, row = ntt_replay.host(st.col), ntt_replay.host(st.row)
+        pos = np.asarray(ref.inv_tw if inverse else ref.fwd_tw).astype(np.uint64)
+        for l, p in enumerate(ps):
+            for i in range(s):
+                d = R >> (i + 1)
+                for r in range(R):
+                    if r & d:  # a b-row of stage i
+                        prod = col[l, i, :, 0] * row[l, i, r & (d - 1), 0] % np.uint64(p)
+                        assert np.array_equal(prod, pos[l, i, r]), (inverse, l, i, r)
+        assert np.array_equal(col[..., 1], (col[..., 0] << np.uint64(32))
+                              // np.asarray(ps, np.uint64)[:, None, None])
 
 
 @pytest.mark.parametrize("inverse,negacyclic", MODES, ids=IDS)
@@ -216,10 +165,10 @@ def test_limb_major_cta_order_replayed_matches_twin(inverse, negacyclic):
     """The shared-memory kernel alone on [B, L, M] in limb-major CTA order."""
     ps = tuple(find_ntt_primes(3, 1 << 12))
     x = _residues(ps, 256, 5, seed=3)
-    got = _replay_ntt_kernel(x[:, :, None, :], ps, 256, inverse, negacyclic, 1, True, True)
+    got = ntt_replay.ntt_kernel(x, ps, 256, inverse, negacyclic, limb_major=True)
     plan = tntt.get_plan(ps, 256, negacyclic=negacyclic)
     want = _u32(tntt.PLAIN_TWINS[(inverse, negacyclic)](_t(x), plan))
-    assert np.array_equal(got[:, :, 0].astype(np.uint32), want)
+    assert np.array_equal(got.astype(np.uint32), want)
 
 
 def test_split_route_refuses_what_it_cannot_take():

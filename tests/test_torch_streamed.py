@@ -64,7 +64,7 @@ def _params(L, N):
             inner.append(c)
     jp = JSnarkParams(ring=jring, enc=JEncodingContext(ring=jring, n_inner=n_inner,
                                                        inner_primes=tuple(inner)))
-    tring = RingContext(primes=jring.primes, N=N)
+    tring = RingContext(primes=jring.primes, N=N, device="cpu")
     tp = SnarkParams(ring=tring, enc=EncodingContext(ring=tring, n_inner=n_inner,
                                                      inner_primes=tuple(inner)))
     return jp, tp

@@ -42,7 +42,7 @@ def _u(x) -> np.ndarray:
 def chain():
     """The squaring chain (M=16, L=2, N=8) in both packages, one seed."""
     jring = jdefault_context(L=L, N=N, order=1 << 10)
-    tring = RingContext(primes=jring.primes, N=N)
+    tring = RingContext(primes=jring.primes, N=N, device="cpu")
     jcomp, jprim, jaux = jsquare_chain(jring, M, np.random.default_rng(0))
     tcomp, tprim, taux = build_synthetic_square_chain(tring, M, np.random.default_rng(0))
     assert np.array_equal(_u(taux.res), np.asarray(jaux.res))
@@ -108,7 +108,7 @@ def test_prover_mode_is_io_plus_mid(chain):
 @pytest.mark.parametrize("n", [1, 8])
 def test_random_nonzero_element_same_draws(n):
     jring = jdefault_context(L=L, N=n, order=1 << 10)
-    tring = RingContext(primes=jring.primes, N=n)
+    tring = RingContext(primes=jring.primes, N=n, device="cpu")
     jrng, trng = np.random.default_rng(4), np.random.default_rng(4)
     for _ in range(3):
         w = JRingElem.random_nonzero_element(jring, jrng)
