@@ -10,21 +10,23 @@ traceback and exits nonzero without the final line:
 
 0. environment: torch/CUDA versions, nvcc, the card's name and power limit;
    fails without CUDA.
-1. build the NTT kernels from `ringsnark_tpu_torch/csrc/ntt.cu`; `ptxas` must
-   report no register spills.
+1. build the NTT kernels from `ringsnark_tpu_torch/csrc/ntt.cu` (or reuse
+   the library of this exact source, with the compiler output kept beside
+   it); `ptxas` must report no register spills.
 2. the shared-memory kernel against its plain PyTorch twin, on the card:
    every mode at every shape the resident path uses, and at the streamed
    path's encryption shapes ([512, 1, 4, 16384] forward, [512, 1, 16384]
-   mod t inverse), must be equal; then both are timed at the main path's
-   batch (CUDA events), beside the bound (one read and one write of every
-   residue at 3.35 TB/s) and the kernel's share of it.
-2b. the split kernel against its plain versions (`ntt_split_plain` and the
-   full-size twin): all four modes at M = 2^16, 2^17 (the seeded path's
-   witness map) and 2^18, 2^19 (the streamed path's) on the witness map's
-   batch of 1024 slot rows, on the route `cuda_ntt.split_path(M)` picks
-   (printed: one pass in a thread-block cluster up to R = 8, two passes
-   from R = 16), plus inverse(forward(x)) == x; kernel and plain versions timed
-   at every shape, beside the bound and share.  Then the two CTA orders of the
+   mod t inverse), must be equal, on a batch of up to 32 rows and on the
+   main path's batch (at the encryption and witness-map shapes several
+   tiles for every persistent CTA); then both are timed on that batch (CUDA
+   events), beside the bound (one read and one write of every residue at
+   3.35 TB/s) and the kernel's share of it.
+2b. the split kernel (two passes) against its plain versions
+   (`ntt_split_plain` and the full-size twin): all four modes at M = 2^16,
+   2^17 (the seeded path's witness map) and 2^18, 2^19 (the streamed
+   path's) on the witness map's batch of 1024 slot rows, plus
+   inverse(forward(x)) == x; kernel and plain versions timed at every
+   shape, beside the bound and share.  Then the two CTA orders of the
    shared-memory kernel, timed at the seeded MAC's encoding shape.
 3. the resident main path (M=2^14) through the package API: ringGroth16
    `generator` -> `prover` (cold, then warm: the two proofs must be
@@ -104,6 +106,24 @@ def bound_ms(numel: int) -> float:
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+def build_kernels():
+    """Phase 1: build (or reuse) the kernels' library; its ptxas report must
+    name every kernel's registers and no spill."""
+    from ringsnark_tpu_torch.ops import cuda_ntt
+
+    built = cuda_ntt.build()
+    print(f"  library {built.path.name}", flush=True)
+    lines = built.log.splitlines()
+    regs = [int(w.split()[0]) for line in lines for w in line.split("Used ")[1:]]
+    spills = [line.strip() for line in lines
+              if "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes "
+                                                                   "spill stores, 0 bytes spill")]
+    check(regs and not spills, f"ptxas reports register spills ({spills}) or no kernel")
+    print(f"  ptxas: {len(regs)} kernels, registers per thread {min(regs)}-{max(regs)}, "
+          "spills: none", flush=True)
+    return built
 
 
 def phase(n, name, t0):  # n: phase number or label
@@ -222,10 +242,13 @@ def kernel_vs_plain(params, cfg):
         xb = rand(primes, size, rows)
         for inverse in (False, True):
             mode = cuda_ntt.mode_name(inverse, nega)
+            check(torch.equal(cuda_ntt.ntt(xb, plan, inverse, nega),
+                              nttm.PLAIN_TWINS[(inverse, nega)](xb, plan)),
+                  f"{mode} kernel != plain twin at {label}, rows={rows}")
             ms = cuda_ms(lambda: cuda_ntt.ntt(xb, plan, inverse, nega))
             pms = cuda_ms(lambda: nttm.PLAIN_TWINS[(inverse, nega)](xb, plan), iters=3)
             bms = bound_ms(xb.numel())
-            print(f"  time   {mode:15s} {label:28s} rows={rows}: kernel {ms:.4f} ms, "
+            print(f"  equal, time {mode:15s} {label:28s} rows={rows}: kernel {ms:.4f} ms, "
                   f"plain {pms:.4f} ms, bound {bms:.4f} ms ({100 * bms / ms:.1f} %)", flush=True)
             if mode in timed:
                 report[mode].update(ms=ms, plain_ms=pms, bound_ms=bms,
@@ -253,10 +276,9 @@ def split_vs_plain(params, params_streamed, cfg, small: bool):
     rows = slot_rows
     gen = torch.Generator(device="cuda").manual_seed(4321)
     report = {m: {"max_abs_err": 0, "ms": None, "plain_ms": None, "full_twin_ms": None,
-                  "shape": None, "bound_ms": None, "path": None, "streamed": None}
+                  "shape": None, "bound_ms": None, "streamed": None}
               for m in cuda_ntt.SPLIT_MODES}
     for M, primes in shapes:
-        print(f"  route  M={M:<7d} = {M // mi} x {mi}: {cuda_ntt.split_path(M, mi)}", flush=True)
         x = torch.cat([torch.randint(0, p, (rows, 1, M), generator=gen, dtype=torch.int32,
                                      device="cuda") for p in primes], dim=1)
         for nega in (False, True):
@@ -286,7 +308,6 @@ def split_vs_plain(params, params_streamed, cfg, small: bool):
                 # the witness maps' shapes: the cyclic inverse at M
                 # (interpolation), the forward at 2M (the H product)
                 times = dict(ms=ms, plain_ms=pms, full_twin_ms=fms, bound_ms=bms,
-                             path=cuda_ntt.split_path(M, mi),
                              shape=f"M={M}, L={len(primes)}, rows={rows}")
                 if M == (4 * mi if inverse and not nega else 8 * mi):
                     report[mode].update(times)
@@ -624,16 +645,7 @@ def main() -> int:
     phase(0, "environment", t0)
 
     t0 = time.perf_counter()
-    built = cuda_ntt.build()
-    print(f"  built {built.path.name}", flush=True)
-    lines = built.log.splitlines()
-    regs = [int(w.split()[0]) for line in lines for w in line.split("Used ")[1:]]
-    spills = [line.strip() for line in lines
-              if "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes "
-                                                                   "spill stores, 0 bytes spill")]
-    print(f"  ptxas: {len(regs)} kernels, registers per thread {min(regs)}-{max(regs)}, "
-          f"spills: {spills or 'none'}", flush=True)
-    check(regs and not spills, "ptxas reports register spills (or no kernel)")
+    build_kernels()
     phase(1, "build", t0)
 
     params = make_params(cfg, "cuda")
@@ -699,7 +711,7 @@ def main() -> int:
          "launches": sum(by_path[m].values()), "launches_by_path": by_path[m],
          "max_abs_err": split_report[m]["max_abs_err"],
          "ms": split_report[m]["ms"], "plain_ms": split_report[m]["plain_ms"],
-         **bounds(split_report[m]), "path": split_report[m]["path"],
+         **bounds(split_report[m]),
          "full_twin_ms": split_report[m]["full_twin_ms"], "shape": split_report[m]["shape"],
          "streamed_shape": split_report[m]["streamed"]}
         for m in cuda_ntt.SPLIT_MODES

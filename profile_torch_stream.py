@@ -26,7 +26,7 @@ import time
 import numpy as np
 import torch
 
-NTT_KERNELS = ("ntt_kernel", "split_cluster_kernel", "outer_kernel")
+NTT_KERNELS = ("ntt_kernel", "outer_kernel")
 
 
 def _device_us(evt) -> float:

@@ -8,9 +8,8 @@
 //     `_apply_blm`): here one kernel, `ntt_kernel`, whose CTA order is a
 //     launch argument;
 //   * the split large-M path `ntt_split_pallas` / `_outer_pass` /
-//     `_outer_kernel`: for R = M / Mi <= 8 one launch of
-//     `split_cluster_kernel` (a thread-block cluster holds the transform),
-//     from R = 16 `outer_kernel` plus `ntt_kernel` on the [B, L, R, Mi] view.
+//     `_outer_kernel`: `outer_kernel` plus `ntt_kernel` on the
+//     [B, L, R, Mi] view of M = R * Mi.
 //
 // Contract (identical to the TPU kernels and to the plain twins in
 // ops/ntt.py, bit for bit; an NTT output reduced into [0, p) is unique, so
@@ -56,20 +55,12 @@
 //   device memory from registers, through the warp's own shared words
 //   where a thread's 16 residues are contiguous, so that every store is
 //   128 contiguous bytes.
-// * split_cluster_kernel (M = R * Mi, R <= 8): a cluster of R CTAs holds
-//   one [R, Mi] transform in distributed shared memory, row r in CTA r.
-//   Forward: each CTA takes Mi/R columns, loads their R residues from
-//   device memory, runs the log2(R) outer stages in registers and stores
-//   row r's residue into CTA r's shared memory (DSMEM); cluster.sync();
-//   each CTA runs ntt_kernel's passes on its row and writes it out.  The
-//   inverse runs the same steps backwards.  Device memory sees one read
-//   and one write per element.
-// * outer_kernel (R >= 16): one thread per column runs the outer stages
-//   global to global, then ntt_kernel runs the inner transforms: two
-//   passes over device memory.  At R = 16 a cluster would need 16 CTAs
-//   (beyond the portable 8) or two rows per CTA (128 KiB, one CTA a SM,
-//   nothing to overlap its outer phase with); both ran slower on the card
-//   than the two passes, which keep two inner CTAs a SM.
+// * outer_kernel: one thread per column runs the log2(R) outer stages
+//   global to global, then ntt_kernel runs the R inner transforms (forward;
+//   the inverse runs them first): two passes over device memory.  A
+//   thread-block cluster holding the transform in distributed shared memory
+//   (one pass) was tried: at R <= 8 it saved 4-8 %, at R = 16 it ran slower
+//   than the two passes, which keep two inner CTAs a SM (PERF.md).
 // * outer twiddles are factored: the b-row twiddle of outer stage i,
 //   w^(2^i (lo Mi + c)), is w^(2^i c) (column table [L, s, Mi]) times
 //   (w^Mi)^(2^i lo) (row table [L, s, R/2]), applied as two Shoup
@@ -77,8 +68,8 @@
 //   the positioned [L, s, R, Mi] table of the TPU kernel.
 // Not done yet (later work): psi merged into the stage twiddles, warp
 // shuffles for the passes whose partners lie in one warp, E = 32 (three
-// passes at M = 16384), cp.async.bulk (TMA) copies, and a prefetch of the
-// next transform inside the cluster kernel.
+// passes at M = 16384), cp.async.bulk (TMA) copies, and one HBM pass for
+// the split transform.
 //
 // Tables (built once per (primes, M) on the host by ops/cuda_ntt.py from
 // ops/ntt.get_plan's roots), uint32 pairs (value, Shoup constant
@@ -89,27 +80,24 @@
 //                  cyclic transforms.
 //   consts [L, 3]  p, M^-1 mod p, Shoup constant of M^-1.
 //   split:  col [L, s, Mi, 2] = w^(2^i c), row [L, s, R/2, 2] =
-//           w^(2^i Mi lo) (inverse: w^-1), sc [L, R, Mi, 2] twists, the
-//           inner transforms' tw [L, Mi, 2], consts with the full-size M^-1.
+//           w^(2^i Mi lo) (inverse: w^-1), sc [L, R, Mi, 2] twists,
+//           consts with the full-size M^-1.
 //
-// C interface: ringsnark_ntt_launch, ringsnark_ntt_outer_launch and
-// ringsnark_ntt_split_launch return cudaGetLastError() after the launch
+// C interface: ringsnark_ntt_launch and ringsnark_ntt_outer_launch return
+// cudaGetLastError() after the launch
 // (0 on success) or the error of a refused configuration; the Python
 // wrapper raises on anything else.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 // A thread needs up to 128 registers (E = 16 residues, their twiddles and
-// addresses; 64 spill): so 512 threads a SM, as one CTA of 512 (ntt_kernel
-// at M = 32768) or two of 256 (ntt_kernel up to M = 16384 and the cluster
-// kernel, where two CTAs interleave their loads, passes and stores:
-// measured faster than one CTA of 512 with a second buffer).
+// addresses; 64 spill): so 512 threads a SM, as one CTA of 512 (M = 32768)
+// or two of 256 (up to M = 16384, where two CTAs interleave their loads,
+// passes and stores: measured faster than one CTA of 512 with a second
+// buffer).
 constexpr int kMaxThreads = 512;
 
 // An error returned before or by a launch also stays as the runtime's last
@@ -304,14 +292,12 @@ __device__ __forceinline__ void group_pass(const PassArgs& pa, const uint32_t (&
 
 // group_pass of a transform's pass q: the first pass of a forward
 // negacyclic transform twists; the last pass writes to device memory
-// (scaled when inverse: psi^-i M^-1, or M^-1 unless `scale` is off) or,
-// with `keep`, back to shared memory.
+// (scaled when inverse: psi^-i M^-1, or M^-1 unless `scale` is off).
 template <bool kInverse, bool kNegacyclic, int kLogE>
 __device__ __forceinline__ void run_group(const PassArgs& pa, const uint32_t (&sj)[1 << kLogE],
-                                          uint32_t g, bool first, bool last, bool scale,
-                                          bool keep) {
+                                          uint32_t g, bool first, bool last, bool scale) {
   constexpr bool kTw = !kInverse && kNegacyclic;
-  if (!last || keep) {
+  if (!last) {
     if (kTw && first) {
       group_pass<kInverse, kLogE, kTw, kToShared>(pa, sj, g);
     } else {
@@ -430,7 +416,7 @@ __global__ void __launch_bounds__(kThreads, kMaxThreads / kThreads)
       if (valid) {
         for (uint32_t gi = threadIdx.x; gi < groups; gi += blockDim.x) {
           run_group<kInverse, kNegacyclic, kLogE>(pa, sj, gi & ((1u << log_g) - 1u), q == 0,
-                                                  q == npass - 1, scale != 0, false);
+                                                  q == npass - 1, scale != 0);
         }
       }
       if (q != npass - 1) __syncthreads();
@@ -528,7 +514,7 @@ __device__ __forceinline__ void outer_stages(uint32_t (&v)[1 << kLogR],
   }
 }
 
-// Two-pass split (R >= 16): one thread per (row, limb, column c) of the
+// The split's outer pass: one thread per (row, limb, column c) of the
 // [B, L, R, Mi] view, global to global.  Forward: psi twist + outer DIF;
 // inverse: outer DIT + psi^-k M^-1 or M^-1.
 template <int kLogR, bool kInverse, bool kNegacyclic>
@@ -592,163 +578,6 @@ cudaError_t launch_outer_mode(const uint32_t* x, uint32_t* y, const uint2* col,
               : launch_outer<kLogR, false, false>(x, y, col, row, sc, consts, rows, L, log_mi, st);
 }
 
-// ---------------------------------------------------------------------------
-// one-pass split: a cluster holds the transform
-// ---------------------------------------------------------------------------
-
-// A cluster of R CTAs per [R, Mi] transform of the [B, L, R, Mi] batch,
-// kClusterThreads threads each, two CTAs a SM: CTA `rank` holds row `rank`
-// in its shared memory and takes columns [rank * Mi/R, (rank+1) * Mi/R) in
-// the outer stages.  Clusters walk the B * L transforms.
-constexpr int kClusterThreads = kMaxThreads / 2;
-
-template <int kLogR, bool kInverse, bool kNegacyclic>
-__global__ void __launch_bounds__(kClusterThreads, 2)
-    split_cluster_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
-                         const uint2* __restrict__ col, const uint2* __restrict__ row,
-                         const uint2* __restrict__ sc, const uint2* __restrict__ itw,
-                         const uint32_t* __restrict__ consts, uint32_t rows, uint32_t L,
-                         int log_mi) {
-  constexpr int R = 1 << kLogR;
-  constexpr int kLogE = 4;
-  extern __shared__ uint32_t smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const uint32_t rank = cluster.block_rank();
-  const uint32_t Mi = 1u << log_mi;
-  const uint32_t c0 = rank * (Mi / R), c1 = c0 + Mi / R;  // this CTA's columns
-  const uint32_t nt = rows * L;
-  const uint32_t nclusters = gridDim.x / R;
-  const int log_g = log_mi - kLogE;
-  const uint32_t groups = 1u << log_g;
-  const int npass = num_passes(log_mi, kLogE);
-
-  cluster.sync();  // every CTA of the cluster runs before any DSMEM access
-  for (uint32_t tf = blockIdx.x / R; tf < nt; tf += nclusters) {
-    const uint32_t limb = tf % L;
-    const uint32_t p = consts[3 * limb];
-    const size_t base = static_cast<size_t>(tf) * R << log_mi;
-    const uint2* colp = col + (static_cast<size_t>(limb) * kLogR << log_mi);
-    const uint2* rowp = row + limb * kLogR * (R / 2);
-    const uint2* scl = sc + (static_cast<size_t>(limb) * R << log_mi);
-    PassArgs pa;  // the inner passes on this CTA's row: cyclic, unscaled
-    pa.buf = smem;
-    pa.toff = 0;
-    pa.log_g = log_g;
-    pa.tw = itw + (static_cast<size_t>(limb) << log_mi);
-    pa.sc = nullptr;
-    pa.p = p;
-    pa.minv = make_uint2(0, 0);
-
-    if (!kInverse) {
-      // outer: this CTA's columns, device memory -> the owners' shared memory
-      for (uint32_t c = c0 + threadIdx.x; c < c1; c += blockDim.x) {
-        uint32_t v[R];
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          v[r] = x[base + (static_cast<size_t>(r) << log_mi) + c];
-          if (kNegacyclic) v[r] = shoup_mul(v[r], __ldg(scl + (r << log_mi) + c), p);
-        }
-        outer_stages<kLogR, false>(v, colp, rowp, c, log_mi, p);
-#pragma unroll
-        for (int r = 0; r < R; ++r) cluster.map_shared_rank(smem, r)[swz(c)] = v[r];
-      }
-      cluster.sync();
-      // inner: this CTA's row, shared memory -> device memory
-      pa.y = y + base + (static_cast<size_t>(rank) << log_mi);
-      for (int q = 0; q < npass; ++q) {
-        pass_info(q, npass, false, log_mi, kLogE, pa.log_d, pa.e_lo);
-        uint32_t sj[1 << kLogE];
-        pass_offsets<kLogE>(sj, pa.log_d);
-        for (uint32_t g = threadIdx.x; g < groups; g += blockDim.x) {
-          run_group<false, false, kLogE>(pa, sj, g, q == 0, q == npass - 1, false, false);
-        }
-        if (q != npass - 1) __syncthreads();
-      }
-      cluster.sync();  // every CTA's row is out before the next transform lands
-    } else {
-      // inner: this CTA's row, device memory -> shared memory, unscaled
-      const uint32_t* src = x + base + (static_cast<size_t>(rank) << log_mi);
-      for (uint32_t i = threadIdx.x; i < Mi; i += blockDim.x) cp_async4(smem + swz(i), src + i);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-      pa.y = nullptr;
-      for (int q = 0; q < npass; ++q) {
-        pass_info(q, npass, true, log_mi, kLogE, pa.log_d, pa.e_lo);
-        uint32_t sj[1 << kLogE];
-        pass_offsets<kLogE>(sj, pa.log_d);
-        for (uint32_t g = threadIdx.x; g < groups; g += blockDim.x) {
-          run_group<true, false, kLogE>(pa, sj, g, q == 0, q == npass - 1, false, true);
-        }
-        __syncthreads();
-      }
-      cluster.sync();
-      // outer: this CTA's columns, the owners' shared memory -> device memory
-      const uint2 minv = make_uint2(consts[3 * limb + 1], consts[3 * limb + 2]);
-      for (uint32_t c = c0 + threadIdx.x; c < c1; c += blockDim.x) {
-        uint32_t v[R];
-#pragma unroll
-        for (int r = 0; r < R; ++r) v[r] = cluster.map_shared_rank(smem, r)[swz(c)];
-        outer_stages<kLogR, true>(v, colp, rowp, c, log_mi, p);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const uint32_t o = (static_cast<uint32_t>(r) << log_mi) + c;
-          v[r] = kNegacyclic ? shoup_mul(v[r], __ldg(scl + o), p) : shoup_mul(v[r], minv, p);
-          y[base + o] = v[r];
-        }
-      }
-      cluster.sync();  // every CTA is done reading before shared memory is refilled
-    }
-  }
-}
-
-template <int kLogR, bool kInverse, bool kNegacyclic>
-cudaError_t launch_cluster(const uint32_t* x, uint32_t* y, const uint2* col, const uint2* row,
-                           const uint2* sc, const uint2* itw, const uint32_t* consts, int rows,
-                           int L, int log_mi, cudaStream_t stream) {
-  auto kernel = split_cluster_kernel<kLogR, kInverse, kNegacyclic>;
-  const int R = 1 << kLogR;
-  const size_t smem = sizeof(uint32_t) << log_mi;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return refused(err);
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = R;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(R, 1, 1);
-  cfg.blockDim = dim3(kClusterThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int active = 0;
-  if ((err = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg)) != cudaSuccess) {
-    return refused(err);
-  }
-  if (active < 1) return cudaErrorInvalidClusterSize;  // the card cannot place one cluster
-  const long long nt = static_cast<long long>(rows) * L;
-  cfg.gridDim = dim3(static_cast<unsigned int>((nt < active ? nt : active) * R), 1, 1);
-  err = cudaLaunchKernelEx(&cfg, kernel, x, y, col, row, sc, itw, consts,
-                           static_cast<uint32_t>(rows), static_cast<uint32_t>(L), log_mi);
-  if (err != cudaSuccess) return refused(err);
-  return cudaGetLastError();
-}
-
-template <int kLogR>
-cudaError_t launch_cluster_mode(const uint32_t* x, uint32_t* y, const uint2* col,
-                                const uint2* row, const uint2* sc, const uint2* itw,
-                                const uint32_t* consts, int rows, int L, int log_mi, bool inv,
-                                bool nega, cudaStream_t st) {
-#define RINGSNARK_CLUSTER(I, N) \
-  launch_cluster<kLogR, I, N>(x, y, col, row, sc, itw, consts, rows, L, log_mi, st)
-  if (inv) return nega ? RINGSNARK_CLUSTER(true, true) : RINGSNARK_CLUSTER(true, false);
-  return nega ? RINGSNARK_CLUSTER(false, true) : RINGSNARK_CLUSTER(false, false);
-#undef RINGSNARK_CLUSTER
-}
-
 }  // namespace
 
 extern "C" int ringsnark_ntt_launch(const void* x, void* y, const void* tw, const void* sc,
@@ -805,43 +634,6 @@ extern "C" int ringsnark_ntt_outer_launch(const void* x, void* y, const void* co
     case 3: err = launch_outer_mode<3>(xi, yo, co, ro, s, c, rows, L, log_mi, inv, nega, st); break;
     case 4: err = launch_outer_mode<4>(xi, yo, co, ro, s, c, rows, L, log_mi, inv, nega, st); break;
     default: err = launch_outer_mode<5>(xi, yo, co, ro, s, c, rows, L, log_mi, inv, nega, st); break;
-  }
-  return static_cast<int>(err);
-}
-
-extern "C" int ringsnark_ntt_split_launch(const void* x, void* y, const void* col,
-                                          const void* row, const void* sc, const void* itw,
-                                          const void* consts, int rows, int L, int log_r,
-                                          int log_mi, int inverse, int negacyclic,
-                                          void* stream) {
-  // R = 16 is taken, so that the card's refusal of a 16-CTA cluster shows
-  if (log_r < 1 || log_r > 4 || log_mi < 4 || log_mi > 15 || rows < 1 || L < 1 ||
-      static_cast<long long>(rows) * L > 0x7fffffffLL) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const uint32_t* xi = static_cast<const uint32_t*>(x);
-  uint32_t* yo = static_cast<uint32_t*>(y);
-  const uint2* co = static_cast<const uint2*>(col);
-  const uint2* ro = static_cast<const uint2*>(row);
-  const uint2* s = static_cast<const uint2*>(sc);
-  const uint2* it = static_cast<const uint2*>(itw);
-  const uint32_t* c = static_cast<const uint32_t*>(consts);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool inv = inverse != 0, nega = negacyclic != 0;
-  cudaError_t err;
-  switch (log_r) {
-    case 1:
-      err = launch_cluster_mode<1>(xi, yo, co, ro, s, it, c, rows, L, log_mi, inv, nega, st);
-      break;
-    case 2:
-      err = launch_cluster_mode<2>(xi, yo, co, ro, s, it, c, rows, L, log_mi, inv, nega, st);
-      break;
-    case 3:
-      err = launch_cluster_mode<3>(xi, yo, co, ro, s, it, c, rows, L, log_mi, inv, nega, st);
-      break;
-    default:
-      err = launch_cluster_mode<4>(xi, yo, co, ro, s, it, c, rows, L, log_mi, inv, nega, st);
-      break;
   }
   return static_cast<int>(err);
 }

@@ -9,9 +9,9 @@ loaded with ctypes).  Nothing is built or loaded at import time.
 
 ``ntt`` is one launch of the register-radix shared-memory kernel; its
 schedule (``geometry``, ``kernel_passes``, ``swizzle``) lives here as well
-as in the source, so the CPU tests can replay it.  ``ntt_split`` takes the
-route ``split_path(M)`` names: one launch of the cluster kernel for
-R = M / mi <= 8, the outer kernel and the shared-memory kernel from R = 16.
+as in the source, so the CPU tests can replay it.  ``ntt_split`` is two
+passes: the outer kernel (factored twiddles) and the shared-memory kernel
+over the ``[B, L, R, mi]`` view.
 
 The wrappers take only int32 CUDA tensors ``[B, L, M]`` (contiguous) and
 raise on anything else; a failed build or a refused or failed launch
@@ -42,9 +42,8 @@ import torch
 from .ntt import SPLIT_MI, NTTPlan, _mod_powers, get_plan, shoup_np
 from .primes import root_of_unity
 
-__all__ = ["build", "ntt", "ntt_split", "split_path", "geometry", "kernel_passes",
-           "launch_counts", "reset_launch_counts", "mode_name", "MODES", "SPLIT_MODES",
-           "SPLIT_ROUTES", "CTA_ORDERS"]
+__all__ = ["build", "ntt", "ntt_split", "geometry", "kernel_passes", "launch_counts",
+           "reset_launch_counts", "mode_name", "MODES", "SPLIT_MODES", "CTA_ORDERS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "ntt.cu"
@@ -83,15 +82,19 @@ def _find_nvcc() -> str:
 @dataclass(frozen=True)
 class BuildResult:
     path: Path
-    log: str  # nvcc/ptxas output of this build ("" when reused)
+    log: str  # nvcc/ptxas output of the build that made the library
 
 
 def build() -> BuildResult:
-    """Compile ``csrc/ntt.cu`` unless a library of this exact source exists."""
+    """Compile ``csrc/ntt.cu`` unless a library of this exact source exists.
+    The compiler's output is kept beside the library (``.log``) and returned
+    with it either way, so a reused build reports the same registers and
+    spills as a fresh one."""
     src = SOURCE.read_bytes()
     out = BUILD_DIR / f"libringsnark_ntt_{hashlib.sha256(src).hexdigest()[:16]}.so"
-    if out.exists():
-        return BuildResult(out, "")
+    log = out.with_suffix(".log")
+    if out.exists() and log.exists():
+        return BuildResult(out, log.read_text())
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [
@@ -102,16 +105,19 @@ def build() -> BuildResult:
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}")
+    text = res.stdout + res.stderr
+    tmp_log = log.with_name(f"{log.name}.{os.getpid()}.tmp")
+    tmp_log.write_text(text)
     os.replace(tmp, out)
-    return BuildResult(out, res.stdout + res.stderr)
+    os.replace(tmp_log, log)
+    return BuildResult(out, text)
 
 
 @lru_cache(maxsize=None)
 def _lib():
     lib = ctypes.CDLL(str(build().path))
     for name, n_ptr, n_int in (("ringsnark_ntt_launch", 5, 11),
-                               ("ringsnark_ntt_outer_launch", 6, 6),
-                               ("ringsnark_ntt_split_launch", 7, 6)):
+                               ("ringsnark_ntt_outer_launch", 6, 6)):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -263,18 +269,6 @@ def ntt(x: torch.Tensor, plan: NTTPlan, inverse: bool, negacyclic: bool,
 # the split transform M = R * mi
 # ---------------------------------------------------------------------------
 
-# One pass in a thread-block cluster of R CTAs (one row each) up to R = 8,
-# the portable cluster size; from R = 16 two passes, which the card ran
-# faster than a cluster at R = 16 (PERF.md).
-CLUSTER_MAX_R = 8
-
-
-def split_path(M: int, mi: int = SPLIT_MI) -> str:
-    """The route of a split transform: a pure function of (M, mi)."""
-    R = M // mi
-    return "cluster" if R <= CLUSTER_MAX_R and 16 <= mi <= 32768 else "two_pass"
-
-
 @dataclass(frozen=True)
 class SplitKernelTables:
     col: torch.Tensor  # [L, s, Mi, 2] pairs: w^(2^i c) (inverse: w^-(2^i c))
@@ -320,31 +314,18 @@ def _split_check(x: torch.Tensor, plan: NTTPlan, negacyclic: bool, mi: int) -> i
     return R
 
 
-def _cluster_launch(x, y, plan: NTTPlan, inverse: bool, negacyclic: bool, mi: int):
-    """The "cluster" route: one launch, R = M / mi CTAs a transform (the
-    card refuses R = 16, beyond the portable cluster size)."""
+def ntt_split(x: torch.Tensor, plan: NTTPlan, inverse: bool, negacyclic: bool,
+              mi: int = SPLIT_MI) -> torch.Tensor:
+    """The split transform of ``x``: int32 CUDA ``[..., L, M]``, contiguous,
+    M = R * mi with R = 2 .. 32, in two passes.  Forward: the outer kernel
+    (psi twist + outer DIF stages), then the shared-memory kernel over the R
+    rows of size mi; inverse: the shared-memory kernel unscaled, then the
+    outer kernel (DIT stages + the full-size scale).  Counted once, as
+    ``split_<mode>``."""
     R = _split_check(x, plan, negacyclic, mi)
-    st = _split_tables(plan.primes, plan.M, mi, inverse, negacyclic, str(x.device))
-    inner = _tables(plan.primes, mi, inverse, False, str(x.device))
-    rows = x.numel() // (plan.L * plan.M)
-    with torch.cuda.device(x.device):
-        rc = _lib().ringsnark_ntt_split_launch(
-            x.data_ptr(), y.data_ptr(), st.col.data_ptr(), st.row.data_ptr(),
-            st.sc.data_ptr(), inner.tw.data_ptr(), st.consts.data_ptr(), rows, plan.L,
-            R.bit_length() - 1, mi.bit_length() - 1, int(inverse), int(negacyclic),
-            _stream(x),
-        )
-    if rc != 0:
-        raise RuntimeError(f"NTT cluster kernel launch failed ({R} CTAs per cluster): "
-                           f"cudaError {rc}")
-
-
-def _two_pass_launch(x, y, plan: NTTPlan, inverse: bool, negacyclic: bool, mi: int):
-    """The "two_pass" route: forward the outer kernel (psi twist + outer DIF
-    stages), then the shared-memory kernel over the R rows of size mi;
-    inverse the shared-memory kernel unscaled, then the outer kernel (DIT
-    stages + the full-size scale)."""
-    R = _split_check(x, plan, negacyclic, mi)
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
     st = _split_tables(plan.primes, plan.M, mi, inverse, negacyclic, str(x.device))
     rows = x.numel() // (plan.L * plan.M)
     tmp = torch.empty_like(x)
@@ -365,22 +346,5 @@ def _two_pass_launch(x, y, plan: NTTPlan, inverse: bool, negacyclic: bool, mi: i
     else:
         _launch(x, tmp, plan.primes, mi, True, False, rows, S=R, scale=False)
         outer(tmp, y)
-
-
-# the split routes by name: ntt_split takes split_path's; the card tests and
-# bench_torch_ntt.py run the other one too
-SPLIT_ROUTES = {"cluster": _cluster_launch, "two_pass": _two_pass_launch}
-
-
-def ntt_split(x: torch.Tensor, plan: NTTPlan, inverse: bool, negacyclic: bool,
-              mi: int = SPLIT_MI) -> torch.Tensor:
-    """The split transform of ``x``: int32 CUDA ``[..., L, M]``, contiguous,
-    M = R * mi with R = 2 .. 32, on the route ``split_path(M, mi)`` names
-    (``SPLIT_ROUTES``).  Counted once, as ``split_<mode>``."""
-    _split_check(x, plan, negacyclic, mi)
-    y = torch.empty_like(x)
-    if x.numel() == 0:
-        return y
-    SPLIT_ROUTES[split_path(plan.M, mi)](x, y, plan, inverse, negacyclic, mi)
     launch_counts["split_" + mode_name(inverse, negacyclic)] += 1
     return y

@@ -6,8 +6,7 @@ the host with the kernels' own tables (`cuda_ntt._tables`,
 (`cuda_ntt.kernel_passes`) and shared-memory swizzle (`cuda_ntt.swizzle`),
 in uint32 arithmetic (uint64 with a 32-bit mask): the CTA tiles and their
 order, every pass's register groups and twiddle indices, the swizzled
-exchanges, the split's factored outer twiddles and the cluster's partition
-of rows and columns over its CTAs.
+exchanges and the split's factored outer twiddles.
 """
 
 import numpy as np
@@ -39,12 +38,11 @@ def sub(a, b, p):
     return np.where(d >= p, d - p, d)
 
 
-def run_passes(smem, M, tf, inverse, tw, limb, primes, twist=None, scale=None, minv=None,
-               to_global=True):
+def run_passes(smem, M, tf, inverse, tw, limb, primes, twist=None, scale=None, minv=None):
     """`ntt_kernel`'s passes on n tiles of tf transforms held in smem
-    [n, tf * M] (physical words, updated in place).  limb: [n, tf].  With
-    to_global the last pass returns [n, tf, M] (logical order), scaled by
-    `scale` ([L, M, 2]) or `minv` ([L, 2]); else it writes back to smem."""
+    [n, tf * M] (physical words, updated in place).  limb: [n, tf].  The
+    last pass returns [n, tf, M] (logical order), scaled by `scale`
+    ([L, M, 2]) or `minv` ([L, 2])."""
     log_m = M.bit_length() - 1
     log_e = min(4, log_m)
     E, G, log_g = 1 << log_e, M >> log_e, log_m - log_e
@@ -77,7 +75,7 @@ def run_passes(smem, M, tf, inverse, tw, limb, primes, twist=None, scale=None, m
                     v[..., j], v[..., j + jd] = add(a, mm, p), sub(a, mm, p)
                 else:
                     v[..., j], v[..., j + jd] = add(a, b, p), shoup(sub(a, b, p), w, p)
-        if q == len(passes) - 1 and to_global:
+        if q == len(passes) - 1:
             if scale is not None:
                 v = shoup(v, scale[lg[..., None], idx[None]], p)
             elif minv is not None:
@@ -170,35 +168,4 @@ def split_two_pass(x, primes, size, mi, inverse, negacyclic, limb_major=False):
     else:
         mid = ntt_kernel(xr, primes, mi, True, False, R, limb_major, scale=False)
         out = _outer(mid, primes, size, mi, True, negacyclic, st)
-    return out.reshape(x.shape)
-
-
-def split_cluster(x, primes, size, mi, inverse, negacyclic):
-    """`split_cluster_kernel`: per [R, mi] transform, R CTAs, row r in CTA
-    r's shared memory; the outer stages between device memory and the
-    owners' shared memory (DSMEM) on each CTA's mi / R columns, the inner
-    passes local."""
-    rows, L = x.shape[:2]
-    R = size // mi
-    cols = mi // R
-    owned = [rank * cols + t + k * THREADS // 2 for rank in range(R)
-             for t in range(min(THREADS // 2, cols)) for k in range(-(-cols // (THREADS // 2)))]
-    assert sorted(owned) == list(range(mi)), "every column once"
-    st = cuda_ntt._split_tables(tuple(primes), size, mi, inverse, negacyclic, "cpu")
-    inner = host(cuda_ntt._tables(tuple(primes), mi, inverse, False, "cpu").tw)
-    nt = rows * L
-    limb = np.repeat(np.arange(nt) % L, R)[:, None]  # [nt * R, 1]: one row a CTA
-    xr = x.reshape(nt, R, mi).astype(np.uint64)
-    local = cuda_ntt.swizzle(np.arange(mi))
-    smem = np.zeros((nt, R, mi), np.uint64)
-    if not inverse:
-        v = _outer(xr.reshape(rows, L, R, mi), primes, size, mi, False, negacyclic, st)
-        smem[:, :, local] = v.reshape(nt, R, mi)
-        out = run_passes(smem.reshape(nt * R, mi), mi, 1, False, inner, limb, primes)
-        return out.reshape(x.shape)
-    smem[:, :, local] = xr
-    flat = smem.reshape(nt * R, mi)
-    run_passes(flat, mi, 1, True, inner, limb, primes, to_global=False)
-    v = flat.reshape(nt, R, mi)[:, :, local]
-    out = _outer(v.reshape(rows, L, R, mi), primes, size, mi, True, negacyclic, st)
     return out.reshape(x.shape)

@@ -69,32 +69,48 @@ def test_cta_orders_equal_twin(cuda, inverse, negacyclic, order):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("route", sorted(cuda_ntt.SPLIT_ROUTES))
+@pytest.mark.parametrize("M", [256, 4096, 8192, 16384, 32768])
+@pytest.mark.parametrize("order", cuda_ntt.CTA_ORDERS)
+def test_persistent_tiles_equal_twin(cuda, order, M):
+    """More tiles than the card has CTA slots (two a SM up to M = 16384, one
+    at 32768), so every persistent CTA walks three tiles or more: the walk,
+    the prefetch into the second buffer (M <= 8192) and the refill of the
+    one buffer (16384, 32768), in both CTA orders and all four modes, with
+    the last tile part-full where a tile holds several transforms."""
+    geo = cuda_ntt.geometry(M)
+    slots = 2 * torch.cuda.get_device_properties(cuda).multi_processor_count
+    nt = geo.tile_tf * (3 * slots + 1) + geo.tile_tf // 2 + 1
+    primes = tuple(find_ntt_primes(2, 1 << 16))
+    x = _residues(primes, M, -(-nt // 2), cuda, seed=M + 1)
+    assert -(-x.shape[0] * 2 // geo.tile_tf) > 3 * slots
+    for inverse in (False, True):
+        for negacyclic in (False, True):
+            plan = tntt.get_plan(primes, M, negacyclic=negacyclic)
+            got = cuda_ntt.ntt(x, plan, inverse, negacyclic, order=order)
+            assert torch.equal(got, tntt.PLAIN_TWINS[(inverse, negacyclic)](x, plan)), (
+                inverse, negacyclic)
+            if not inverse:
+                back = cuda_ntt.ntt(got, plan, True, negacyclic, order=order)
+                assert torch.equal(back, x), negacyclic
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("negacyclic", [False, True])
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("M", [1 << k for k in range(15, 20)])
-def test_split_kernel_equals_plain(cuda, M, inverse, negacyclic, route):
-    """Both split routes at every M = 2^15 .. 2^19 where they run equal the
-    plain split and the full-size twin and invert each other; the dispatcher
-    sends 32768 < M <= 2^19 to split_path(M)'s route, counted once as
-    split_<mode>.  The cluster route refuses R > 8 and raises."""
+def test_split_kernel_equals_plain(cuda, M, inverse, negacyclic):
+    """The split kernel at every M = 2^15 .. 2^19 equals the plain split and
+    the full-size twin and inverts itself; the dispatcher sends
+    32768 < M <= 2^19 to it, counted once as split_<mode>."""
     primes = tuple(find_ntt_primes(2, 1 << 20))
     plan = tntt.get_plan(primes, M, negacyclic=negacyclic)
     x = _residues(primes, M, 3, cuda, seed=M)
-    run = cuda_ntt.SPLIT_ROUTES[route]
-    y = torch.empty_like(x)
-    if route == "cluster" and M // tntt.SPLIT_MI > cuda_ntt.CLUSTER_MAX_R:
-        with pytest.raises(RuntimeError, match="cluster"):
-            run(x, y, plan, inverse, negacyclic, tntt.SPLIT_MI)
-        return
-    run(x, y, plan, inverse, negacyclic, tntt.SPLIT_MI)
+    y = cuda_ntt.ntt_split(x, plan, inverse, negacyclic)
     torch.cuda.synchronize()
     assert torch.equal(y, tntt.ntt_split_plain(x, plan, inverse, negacyclic))
     assert torch.equal(y, tntt.PLAIN_TWINS[(inverse, negacyclic)](x, plan))
-    back = torch.empty_like(x)
-    run(y, back, plan, not inverse, negacyclic, tntt.SPLIT_MI)
-    assert torch.equal(back, x)
-    if M > tntt.MAX_KERNEL_M and route == cuda_ntt.split_path(M):
+    assert torch.equal(cuda_ntt.ntt_split(y, plan, not inverse, negacyclic), x)
+    if M > tntt.MAX_KERNEL_M:
         mode = cuda_ntt.mode_name(inverse, negacyclic)
         before = dict(cuda_ntt.launch_counts)
         assert torch.equal(DISPATCH[(inverse, negacyclic)](x, plan), y)
@@ -103,20 +119,23 @@ def test_split_kernel_equals_plain(cuda, M, inverse, negacyclic, route):
 
 
 @pytest.mark.gpu
-def test_refused_cluster_launch_raises(cuda):
-    """At M = 2^18 the cluster kernel would need 16 CTAs, beyond the
-    portable cluster size: the card refuses the launch and the wrapper
-    raises; nothing falls back (the route takes two passes there)."""
-    primes = tuple(find_ntt_primes(1, 1 << 19))
-    M = 1 << 18
-    assert cuda_ntt.split_path(M) == "two_pass"
-    plan = tntt.get_plan(primes, M)
-    x = _residues(primes, M, 1, cuda)
-    with pytest.raises(RuntimeError, match="cluster"):
-        cuda_ntt._cluster_launch(x, torch.empty_like(x), plan, False, False, tntt.SPLIT_MI)
-    # the refusal does not leak into the next launch
-    y = cuda_ntt.ntt_split(x, plan, False, False)
-    assert torch.equal(y, tntt.ntt_split_plain(x, plan, False, False))
+def test_refused_launch_raises(cuda, monkeypatch):
+    """A launch the library refuses (here a CTA wider than the kernel's 512
+    threads) raises and counts nothing; nothing falls back, and the refusal
+    does not leak into the next launch."""
+    primes = tuple(find_ntt_primes(1, 1 << 15))
+    plan = tntt.get_plan(primes, 16384)
+    x = _residues(primes, 16384, 2, cuda)
+    geo = cuda_ntt.geometry(16384)
+    before = dict(cuda_ntt.launch_counts)
+    with monkeypatch.context() as m:
+        m.setattr(cuda_ntt, "geometry",
+                  lambda M: cuda_ntt.Geometry(geo.log_e, 1024, geo.tile_tf, geo.nbuf, M))
+        with pytest.raises(RuntimeError, match="launch failed"):
+            cuda_ntt.ntt(x, plan, False, False)
+    assert cuda_ntt.launch_counts == before
+    assert torch.equal(cuda_ntt.ntt(x, plan, False, False),
+                       tntt.PLAIN_TWINS[(False, False)](x, plan))
 
 
 @pytest.mark.gpu

@@ -5,10 +5,9 @@ the CPU, bit for bit:
   interpret mode) in all four modes, and against the full-size plain twin;
 * ``get_split_tables`` against the JAX package's;
 * the CUDA kernels' schedules and tables, through a numpy replay of
-  ``csrc/ntt.cu`` (``tests/ntt_replay.py``): the two-pass route
-  (``outer_kernel`` with factored twiddles, then ``ntt_kernel`` over the
-  ``[B, L, R, Mi]`` view in both CTA orders) and the one-pass cluster
-  route (the kernels themselves run only on the card:
+  ``csrc/ntt.cu`` (``tests/ntt_replay.py``): ``outer_kernel`` with
+  factored twiddles, then ``ntt_kernel`` over the ``[B, L, R, Mi]`` view in
+  both CTA orders (the kernels themselves run only on the card:
   ``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
 """
 
@@ -104,10 +103,9 @@ def test_split_tables_match_jax(primes):
 @pytest.mark.parametrize("order", cuda_ntt.CTA_ORDERS)
 @pytest.mark.parametrize("inverse,negacyclic", MODES, ids=IDS)
 def test_split_kernels_replayed_match_twin(inverse, negacyclic, order):
-    """ntt_split's two paths replayed on the host give the full-size twin's
-    output: two-pass (outer kernel with factored twiddles, then the
-    shared-memory kernel with S = R in this CTA order, unscaled when
-    inverse) and one-pass (the cluster kernel, one row per CTA)."""
+    """ntt_split replayed on the host gives the full-size twin's output:
+    the outer kernel with factored twiddles, then the shared-memory kernel
+    with S = R in this CTA order (inverse: that kernel unscaled first)."""
     size, mi = 1024, 128
     ps = tuple(find_ntt_primes(3, 1 << 13))
     x = _residues(ps, size, 3, seed=11)
@@ -115,26 +113,18 @@ def test_split_kernels_replayed_match_twin(inverse, negacyclic, order):
     want = _u32(tntt.PLAIN_TWINS[(inverse, negacyclic)](_t(x), plan))
     got = ntt_replay.split_two_pass(x, ps, size, mi, inverse, negacyclic, order == "limb")
     assert np.array_equal(got.astype(np.uint32), want)
-    assert cuda_ntt.split_path(size, mi) == "cluster"
-    got = ntt_replay.split_cluster(x, ps, size, mi, inverse, negacyclic)
-    assert np.array_equal(got.astype(np.uint32), want)
 
 
-@pytest.mark.parametrize("size,mi", [(256, 128), (512, 128), (2048, 256), (4096, 128)])
-def test_cluster_partition_replayed_matches_twin(size, mi):
-    """The cluster kernel at R = 2, 4 and 8 (the route up to R = 8) and the
-    two-pass route of R = 32, all four modes."""
+@pytest.mark.parametrize("size,mi", [(256, 128), (512, 128), (2048, 128), (4096, 128)])
+def test_split_ratios_replayed_match_twin(size, mi):
+    """The split at R = 2, 4, 16 and 32 (R = 8 is the test above's): every
+    outer kernel, all four modes."""
     ps = tuple(find_ntt_primes(2, 1 << 13))
     x = _residues(ps, size, 2, seed=size)
-    R = size // mi
-    assert cuda_ntt.split_path(size, mi) == ("cluster" if R <= 8 else "two_pass")
     for inverse, nega in MODES:
         plan = tntt.get_plan(ps, size, negacyclic=nega)
         want = _u32(tntt.PLAIN_TWINS[(inverse, nega)](_t(x), plan))
-        if R <= 8:
-            got = ntt_replay.split_cluster(x, ps, size, mi, inverse, nega)
-        else:
-            got = ntt_replay.split_two_pass(x, ps, size, mi, inverse, nega)
+        got = ntt_replay.split_two_pass(x, ps, size, mi, inverse, nega)
         assert np.array_equal(got.astype(np.uint32), want), (inverse, nega)
 
 
