@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (`ringsnark_tpu_torch`) on one GPU.
 
     python3 chip_smoke.py            # full size: Rq N=8192, L=1, N'=16384; M=2^14 resident,
-                                     # 2^16 seeded and streamed Rinocchio, 2^18 streamed
+                                     # 2^16 seeded and streamed Rinocchio, 2^18 streamed; the
+                                     # four reference circuits at their published shapes, L=2
     python3 chip_smoke.py --small    # the same phases at a small size (debugging)
 
 Phases, each timed on its own line; any failure raises, prints its
@@ -62,6 +63,29 @@ traceback and exits nonzero without the final line:
    `amplify.prove_repeated` with K=2 verifies and rejects a changed public
    input.
 
+10. the circuit frontend at the four reference circuits' published shapes
+   (ring L=2, N'=16384; plaintext check N=2048, logT=32; ct-mul N=8192,
+   logT=16; in-circuit NTT N=4096; logistic regression, 256 features,
+   N=2048, logT=16): each built on a `Protoboard`, `is_satisfied()`, then
+   for Rinocchio and for ringGroth16 with a resident CRS `generator(cs)` ->
+   `prover` cold and warm (identical proofs) -> `verifier` (True; False with
+   one public input changed).  Rinocchio's proof holds F exactly when the
+   circuit has auxiliary wires.  Launch counts are reset before each circuit
+   and read after: both negacyclic modes must have launched.  Prints per
+   circuit and system: constraints, variables, nnz, build, setup, prove
+   (cold, warm) and verify seconds, CRS and peak GiB, proof bits.  After a
+   circuit's counts are read, the shared-memory kernel is held to its plain
+   twin at that circuit's own shapes (ring L=2 at its N for one element and
+   for the outer BGV batch, `encode`'s randomness chunk on the fresh level
+   and mod t, its inner chain level by level at the MAC's chunk, the cyclic
+   modes at its domain size M and 2M at the slot chunk's rows): equal, and
+   inverse(forward(x)) == x.
+11. small frontend cross-check (N=16, N'=512, L=2; logistic regression with
+   4 features and the plaintext check): the card's Rinocchio and ringGroth16
+   proofs from a keypair made on the card equal, bit for bit, the proofs the
+   carried keypair gives on the CPU, and the CPU verifiers accept the card's
+   proofs; the kernel is held to its plain twin at these shapes as well.
+
 The line before the last is a JSON object with the kernels' launch counts
 (per path), errors, times, bounds (`bound_ms`, `bound_by`, `share_of_bound`)
 and `library_ms` (null: no PyTorch call computes an NTT modulo a prime);
@@ -92,6 +116,20 @@ SMALL = dict(L=1, N=256, n_inner=512, log_m=8)
 SMALL_SEEDED = dict(SMALL, log_m=9)
 SMALL_STREAMED = dict(SMALL, log_m=11, slab=256, phase_rows=1 << 10)
 SMALL_RINOCCHIO = dict(SMALL_STREAMED, log_m=9)
+# phase 10: the reference circuits' published shapes (outer N, inner N',
+# logT, features), ring L=2
+REFERENCE_CIRCUITS = {
+    "plaintext_check": dict(N=2048, n_inner=16384, log_t=32, features=32),
+    "ct_mul": dict(N=8192, n_inner=16384, log_t=16, features=32),
+    "incircuit_ntt": dict(N=4096, n_inner=16384, log_t=16, features=32),
+    "logreg": dict(N=2048, n_inner=16384, log_t=16, features=256),
+}
+SMALL_CIRCUITS = {
+    "plaintext_check": dict(N=64, n_inner=512, log_t=32, features=4),
+    "ct_mul": dict(N=256, n_inner=512, log_t=16, features=4),
+    "incircuit_ntt": dict(N=128, n_inner=512, log_t=16, features=4),
+    "logreg": dict(N=64, n_inner=512, log_t=16, features=8),
+}
 REPLACES = "ringsnark_tpu/ops/pallas_ntt.py:170"  # _ntt_kernel_gridfree
 REPLACES_SPLIT = "ringsnark_tpu/ops/pallas_ntt.py:557"  # ntt_split_pallas -> _outer_kernel :458
 SOURCE = "ringsnark_tpu_torch/csrc/ntt.cu"
@@ -161,6 +199,44 @@ def make_params(cfg, device):
     return SnarkParams(ring=ring, enc=ectx)
 
 
+def make_circuit_params(cfg, device):
+    """Ring L=2 and the inner chain for a circuit's largest inner product
+    (`features` is what a circuit without features is sized with)."""
+    from ringsnark_tpu_torch.encoding import EncodingContext
+    from ringsnark_tpu_torch.encoding.noise import plan_inner_chain
+    from ringsnark_tpu_torch.ops.primes import find_ntt_primes
+    from ringsnark_tpu_torch.rings.context import default_context
+    from ringsnark_tpu_torch.snark.api import SnarkParams
+
+    N, n_inner = cfg["N"], cfg["n_inner"]
+    max_terms = max(4 * cfg["features"] + 8, N + 2, cfg["log_t"] + 2)
+    ring = default_context(L=2, N=N, order=max(1 << 14, 2 * n_inner, 4 * N), device=device)
+    L_inner, floor = plan_inner_chain(n_inner, 31, max_terms, dense=N > 1)
+    inner, below = [], 1 << 31
+    while len(inner) < L_inner:
+        c = find_ntt_primes(1, 2 * n_inner, below=below)[0]
+        below = c
+        if c not in ring.primes:
+            inner.append(c)
+    ectx = EncodingContext(ring=ring, n_inner=n_inner, inner_primes=tuple(inner),
+                           floor_limbs=floor)
+    return SnarkParams(ring=ring, enc=ectx)
+
+
+def build_circuit(name, cfg, ring, seed):
+    from ringsnark_tpu_torch import models
+
+    rng = np.random.default_rng(seed)
+    if name == "plaintext_check":
+        return models.build_plaintext_check(ring, rng, log_t=cfg["log_t"])
+    if name == "ct_mul":
+        return models.build_ct_mul(ring, rng, log_t=cfg["log_t"])
+    if name == "incircuit_ntt":
+        return models.build_incircuit_ntt(ring, rng)
+    return models.build_logreg_inference(ring, rng, num_features=cfg["features"],
+                                         log_t=cfg["log_t"])
+
+
 def make_stage(times: dict):
     """stage(name, fn): fn() timed on the host clock between synchronizes,
     into times[name]."""
@@ -187,6 +263,59 @@ def cuda_ms(fn, iters=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def equal_to_plain(label, primes, size, negacyclic, rows, gen, report):
+    """Both modes of the shared-memory kernel on random [rows, L, size]
+    residues == their plain twins, and inverse(forward(x)) == x; the largest
+    difference goes into report[mode]["max_abs_err"].  Returns (x, plan)."""
+    from ringsnark_tpu_torch.ops import cuda_ntt
+    from ringsnark_tpu_torch.ops import ntt as nttm
+
+    plan = nttm.get_plan(tuple(primes), size, negacyclic=negacyclic)
+    x = torch.cat([torch.randint(0, p, (rows, 1, size), generator=gen, dtype=torch.int32,
+                                 device=gen.device) for p in primes], dim=1)
+    for inverse in (False, True):
+        mode = cuda_ntt.mode_name(inverse, negacyclic)
+        got = cuda_ntt.ntt(x, plan, inverse=inverse, negacyclic=negacyclic)
+        want = nttm.PLAIN_TWINS[(inverse, negacyclic)](x, plan)
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        report[mode]["max_abs_err"] = max(report[mode]["max_abs_err"], err)
+        check(torch.equal(got, want), f"{mode} kernel != plain twin at {label}, rows={rows}")
+        print(f"  equal  {mode:15s} {label:28s} rows={rows}", flush=True)
+    back = cuda_ntt.ntt(cuda_ntt.ntt(x, plan, False, negacyclic), plan, True, negacyclic)
+    check(torch.equal(back, x), f"inverse(forward(x)) != x at {label}, rows={rows}")
+    return x, plan
+
+
+def circuit_kernels_vs_plain(params, M, batch, report, seed):
+    """The kernels == their plain twins at the shapes a circuit's path gives
+    them (rows counted per transform of the plan's limbs): the ring's
+    negacyclic transform at N for one element and for the outer BGV helper's
+    batch of `batch` plaintexts; `encode`'s randomness chunk (the fresh
+    level's forward transform over chunk * L rows, the plaintexts' inverse
+    mod t over chunk rows); the MAC's plaintext chunk and modswitch at every
+    inner level; and the witness map's cyclic transforms at the domain size
+    M and 2M (none at M = 1) at the slot chunk's rows."""
+    from ringsnark_tpu_torch.encoding import encoding as enc_mod
+
+    ring, ectx = params.ring, params.enc
+    N, n_inner, Li = ring.N, ectx.n_inner, ectx.L_inner
+    enc_rows = max(8, enc_mod._ENCODE_CHUNK_ELEMS // (ring.L * Li * n_inner))
+    slot_rows = min(1024, N)
+    gen = torch.Generator(device=ring.device).manual_seed(seed)
+    shapes = [(f"ring N={N} L={ring.L}", ring.primes, N, True, rows) for rows in (1, batch)]
+    shapes += [(f"encode N'={n_inner} L'={Li}", ectx.level_primes(0), n_inner, True,
+                enc_rows * ring.L),
+               (f"encode plain t N'={n_inner}", ring.primes, n_inner, True, enc_rows)]
+    shapes += [(f"MAC N'={n_inner} L'={Li - lv}", ectx.level_primes(lv), n_inner, True,
+                enc_mod._chunk_rows(ectx, Li - lv) * ring.L)
+               for lv in range(Li - ectx.floor_limbs + 1)]
+    if M > 1:
+        shapes += [(f"cyclic M={M} L={ring.L}", ring.primes, M, False, slot_rows),
+                   (f"cyclic 2M={2 * M} L={ring.L}", ring.primes, 2 * M, False, slot_rows)]
+    for shape in shapes:
+        equal_to_plain(*shape, gen, report)
 
 
 def kernel_vs_plain(params, cfg):
@@ -220,35 +349,15 @@ def kernel_vs_plain(params, cfg):
     gen = torch.Generator(device=ring.device).manual_seed(1234)
     report = {m: {"max_abs_err": 0, "ms": None, "plain_ms": None, "shape": None,
                   "bound_ms": None} for m in cuda_ntt.MODES}
-
-    def rand(primes, size, rows):
-        cols = [torch.randint(0, p, (rows, 1, size), generator=gen, dtype=torch.int32,
-                              device=ring.device) for p in primes]
-        return torch.cat(cols, dim=1)  # [rows, L, size]
-
     for label, primes, size, nega, rows, timed in shapes:
-        plan = nttm.get_plan(tuple(primes), size, negacyclic=nega)
-        x = rand(primes, size, min(rows, 32))
+        equal_to_plain(label, primes, size, nega, min(rows, 32), gen, report)
+        xb, plan = equal_to_plain(label, primes, size, nega, rows, gen, report)
         for inverse in (False, True):
             mode = cuda_ntt.mode_name(inverse, nega)
-            got = cuda_ntt.ntt(x, plan, inverse=inverse, negacyclic=nega)
-            want = nttm.PLAIN_TWINS[(inverse, nega)](x, plan)
-            err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-            report[mode]["max_abs_err"] = max(report[mode]["max_abs_err"], err)
-            check(torch.equal(got, want), f"{mode} kernel != plain twin at {label}")
-            print(f"  equal  {mode:15s} {label:28s} rows={x.shape[0]}", flush=True)
-        back = cuda_ntt.ntt(cuda_ntt.ntt(x, plan, False, nega), plan, True, nega)
-        check(torch.equal(back, x), f"inverse(forward(x)) != x at {label}")
-        xb = rand(primes, size, rows)
-        for inverse in (False, True):
-            mode = cuda_ntt.mode_name(inverse, nega)
-            check(torch.equal(cuda_ntt.ntt(xb, plan, inverse, nega),
-                              nttm.PLAIN_TWINS[(inverse, nega)](xb, plan)),
-                  f"{mode} kernel != plain twin at {label}, rows={rows}")
             ms = cuda_ms(lambda: cuda_ntt.ntt(xb, plan, inverse, nega))
             pms = cuda_ms(lambda: nttm.PLAIN_TWINS[(inverse, nega)](xb, plan), iters=3)
             bms = bound_ms(xb.numel())
-            print(f"  equal, time {mode:15s} {label:28s} rows={rows}: kernel {ms:.4f} ms, "
+            print(f"  time   {mode:15s} {label:28s} rows={rows}: kernel {ms:.4f} ms, "
                   f"plain {pms:.4f} ms, bound {bms:.4f} ms ({100 * bms / ms:.1f} %)", flush=True)
             if mode in timed:
                 report[mode].update(ms=ms, plain_ms=pms, bound_ms=bms,
@@ -621,6 +730,136 @@ def small_streamed_cross_check():
               "Rinocchio), repeatable, CPU verifiers accept; amplify K=2 verifies", flush=True)
 
 
+def _proof_elements(proof):
+    names = ("A", "B", "C") if not hasattr(proof, "A_prime") else (
+        "A", "A_prime", "B", "B_prime", "C", "C_prime", "D", "D_prime", "F")
+    return [getattr(proof, n) for n in names]
+
+
+def _crs_bytes(pk) -> int:
+    """Device bytes of a resident CRS: c0 and c1 of every encoding of the key."""
+    from ringsnark_tpu_torch.encoding import Encoding
+
+    return sum((e.c0.numel() + e.c1.numel()) * e.c0.element_size()
+               for e in vars(pk).values() if isinstance(e, Encoding))
+
+
+def frontend_path(circuits, kernel_report):
+    """Phase 10: Protoboard -> generator -> prover x2 -> verifier (+ tampered),
+    both proof systems with a resident CRS, for every circuit; after each
+    circuit's launch counts are read, the kernels are held to their plain
+    twins at that circuit's shapes (into `kernel_report`)."""
+    from ringsnark_tpu_torch.ops import cuda_ntt
+    from ringsnark_tpu_torch.snark import groth16, rinocchio
+    from ringsnark_tpu_torch.utils import prng
+
+    total = {m: 0 for m in cuda_ntt.launch_counts}
+    report = {}
+    for name, cfg in circuits.items():
+        params = make_circuit_params(cfg, "cuda")
+        ring, ectx = params.ring, params.enc
+        print(f"  {name}: ring N={ring.N} L={ring.L} primes={ring.primes}, N'={ectx.n_inner} "
+              f"L'={ectx.L_inner} floor={ectx.floor_limbs}, logT={cfg['log_t']}, "
+              f"features={cfg['features']}", flush=True)
+        times = {}
+        stage = make_stage(times)
+        cuda_ntt.reset_launch_counts()
+        pb = stage("build", lambda: build_circuit(name, cfg, ring, 0))
+        check(stage("is_satisfied", pb.is_satisfied) is True, f"{name}: witness invalid")
+        cs = pb.get_constraint_system()
+        primary, aux = pb.primary_input(), pb.auxiliary_input()
+        bad = [primary[0] + 1] + primary[1:]
+        entry = {"config": cfg, "constraints": cs.num_constraints(),
+                 "variables": cs.num_variables(), "inputs": cs.num_inputs(),
+                 "build_s": times["build"], "is_satisfied_s": times["is_satisfied"]}
+        for sname, system in (("rinocchio", rinocchio), ("groth16", groth16)):
+            print(f"  {name}/{sname}:", flush=True)
+            st = {}
+            stage = make_stage(st)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            kp = stage("setup", lambda: system.generator(cs, params, np.random.default_rng(1),
+                                                         prng.key(1)))
+            prove = lambda: system.prover(kp.pk, primary, aux, np.random.default_rng(7))  # noqa: E731
+            proof = stage("prove_cold", prove)
+            proof2 = stage("prove_warm", prove)
+            ok = stage("verify", lambda: system.verifier(kp.vk, primary, proof))
+            rejected = not stage("verify_tampered", lambda: system.verifier(kp.vk, bad, proof))
+            peak = torch.cuda.max_memory_allocated()
+            crs = _crs_bytes(kp.pk)
+            entry["nnz"] = sum(int(r.numel()) for r in kp.pk.compiled.rows)
+            entry["domain"] = kp.pk.domain.m
+            entry[sname] = {"stage_s": st, "crs_gib": crs / 2**30,
+                            "peak_allocated_gib": peak / 2**30,
+                            "proof_bits": proof.size_in_bits()}
+            print(f"    {cs.num_constraints()} constraints, {cs.num_variables()} variables, "
+                  f"nnz {entry['nnz']}, domain {kp.pk.domain.m}; CRS {crs / 2**30:.3f} GiB; "
+                  f"peak allocated {peak / 2**30:.3f} GiB; proof {proof.size_in_bits()} bits",
+                  flush=True)
+            check(ok is True, f"{name}/{sname}: verifier rejected an honest proof")
+            check(rejected, f"{name}/{sname}: verifier accepted a changed public input")
+            check(all(a == b for a, b in zip(_proof_elements(proof), _proof_elements(proof2))),
+                  f"{name}/{sname}: cold and warm proofs differ")
+            for e in _proof_elements(proof):
+                check(e is None or tuple(e.c0.shape) == (ring.L, ectx.floor_limbs, ectx.n_inner),
+                      f"{name}/{sname}: proof element shape")
+            if sname == "rinocchio":
+                check((proof.F is not None) == (len(aux) > 0),
+                      f"{name}: F must be present exactly with auxiliary wires")
+            del kp, proof, proof2, prove
+        counts = dict(cuda_ntt.launch_counts)
+        print(f"  {name}: launches {counts}", flush=True)
+        for mode in ("negacyclic_fwd", "negacyclic_inv"):
+            check(counts[mode] > 0, f"kernel mode {mode} never launched for {name}")
+        entry["launches"] = counts
+        for m, c in counts.items():
+            total[m] += c
+        circuit_kernels_vs_plain(params, entry["domain"], cfg["features"], kernel_report, 1000)
+        report[name] = entry
+        del pb, cs, primary, aux, bad
+        torch.cuda.empty_cache()
+    return total, report
+
+
+def small_frontend_cross_check(kernel_report):
+    """Phase 11: the card's frontend proofs == the CPU's from the carried
+    keypair; the kernels == their plain twins at these small shapes too."""
+    from ringsnark_tpu_torch.snark import groth16, rinocchio
+    from ringsnark_tpu_torch.utils import interop, prng
+
+    systems = (
+        ("rinocchio", rinocchio, interop.rinocchio_keypair_to_numpy,
+         interop.rinocchio_keypair_from_numpy),
+        ("groth16", groth16, interop.keypair_to_numpy, interop.keypair_from_numpy),
+    )
+    for name, cfg in (("logreg", dict(N=16, n_inner=512, log_t=16, features=4)),
+                      ("plaintext_check", dict(N=16, n_inner=512, log_t=32, features=4))):
+        p_gpu, p_cpu = make_circuit_params(cfg, "cuda"), make_circuit_params(cfg, "cpu")
+        pb, pb_c = build_circuit(name, cfg, p_gpu.ring, 20), build_circuit(name, cfg, p_cpu.ring, 20)
+        check(pb.is_satisfied() and pb_c.is_satisfied(), f"small {name}: witness invalid")
+        for sname, system, to_np, from_np in systems:
+            kp = system.generator(pb.get_constraint_system(), p_gpu, np.random.default_rng(21),
+                                  prng.key(22))
+            proof = system.prover(kp.pk, pb.primary_input(), pb.auxiliary_input(),
+                                  np.random.default_rng(23))
+            kp_c = from_np(p_cpu, to_np(kp))
+            proof_c = system.prover(kp_c.pk, pb_c.primary_input(), pb_c.auxiliary_input(),
+                                    np.random.default_rng(23))
+            got = interop.proof_to_numpy(proof)
+            for g, c in zip(got, interop.proof_to_numpy(proof_c)):
+                check((g is None and c is None) or (
+                    g[2] == c[2] and np.array_equal(g[0], c[0]) and np.array_equal(g[1], c[1])),
+                    f"small {name}/{sname}: card proof != CPU proof")
+            check(system.verifier(kp_c.vk, pb_c.primary_input(),
+                                  interop.proof_from_numpy(p_cpu, got)),
+                  f"small {name}/{sname}: CPU verifier rejected the card's proof")
+            check(system.verifier(kp.vk, pb.primary_input(), proof),
+                  f"small {name}/{sname}: card verifier rejected its own proof")
+        circuit_kernels_vs_plain(p_gpu, kp.pk.domain.m, cfg["features"], kernel_report, 1100)
+        print(f"  small {name} (N={cfg['N']}, N'={cfg['n_inner']}, L=2): card proofs == CPU "
+              "proofs (Rinocchio, ringGroth16), CPU verifiers accept", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--small", action="store_true", help="small main-path size, for debugging")
@@ -692,8 +931,18 @@ def main() -> int:
     small_streamed_cross_check()
     phase(9, "small streamed cross-check", t0)
 
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    counts10, frontend = frontend_path(SMALL_CIRCUITS if args.small else REFERENCE_CIRCUITS,
+                                       report)
+    phase(10, "circuit frontend, reference circuits", t0)
+
+    t0 = time.perf_counter()
+    small_frontend_cross_check(report)
+    phase(11, "small frontend cross-check", t0)
+
     by_path = {m: {"resident": counts[m], "seeded": counts5[m], "streamed": counts7[m],
-                   "streamed_rinocchio": counts8[m]} for m in counts}
+                   "streamed_rinocchio": counts8[m], "frontend": counts10[m]} for m in counts}
 
     def bounds(r):  # no PyTorch call computes an NTT modulo a prime: library_ms is null
         return {"bound_ms": r["bound_ms"], "bound_by": "bytes",
@@ -724,6 +973,7 @@ def main() -> int:
                             "sections": events7, "peak_allocated_gib": peak7 / 2**30},
                "streamed_rinocchio": {"config": cfg8, "stage_s": times8, "record_s": rec8,
                                       "peak_allocated_gib": peak8 / 2**30},
+               "frontend": frontend,
                "cta_order": orders}
     print(json.dumps(summary), flush=True)
     print(card, flush=True)  # as nvidia-smi prints it: name, power limit

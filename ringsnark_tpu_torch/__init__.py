@@ -1,9 +1,11 @@
-"""ringsnark-tpu on PyTorch and CUDA: the ringGroth16 prove/verify path.
+"""ringsnark-tpu on PyTorch and CUDA: circuits, ringGroth16 and Rinocchio.
 
 A port of the JAX package `ringsnark_tpu` (which stays the reference) to
 PyTorch, with the NTT as a hand-written CUDA kernel for Hopper (`sm_90a`,
 `csrc/ntt.cu`).  Sub-packages and modules carry the JAX package's names so
-each counterpart is found under the same path.
+each counterpart is found under the same path: a circuit is written on a
+`gadgets.Protoboard` (or taken from `models`), compiled, and proved and
+verified with `snark.groth16` or `snark.rinocchio`.
 
 Conventions:
 

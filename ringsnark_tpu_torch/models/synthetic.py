@@ -1,10 +1,10 @@
 """Synthetic large-scale R1CS instances built directly as arrays.
 
-Port of ``build_synthetic_square_chain`` from
-``ringsnark_tpu/models/synthetic.py``: the squaring chain
+Port of ``ringsnark_tpu/models/synthetic.py``: the squaring chain
 x_{i+1} * x_{i+1} = x_{i+2}, whose num_variables = M + 1 keeps the groth16
-CRS at ~3(M+1) encodings.  The same numpy draws as the JAX package, so one
-seed gives one circuit in both.
+CRS at ~3(M+1) encodings, and the chain of independent multiplication gates
+x_{3i} * x_{3i+1} = x_{3i+2}.  The same numpy draws as the JAX package, so
+one seed gives one circuit in both.
 """
 
 from __future__ import annotations
@@ -17,11 +17,53 @@ from ..relations.r1cs import CompiledR1CS
 from ..rings.context import RingContext
 from ..rings.elem import RingElem
 
-__all__ = ["build_synthetic_square_chain"]
+__all__ = ["build_synthetic_mul_chain", "build_synthetic_square_chain"]
 
 # Assignments larger than this are computed on the device, in row chunks of
 # about this many bytes.
 _HOST_BYTES = 64 << 20
+
+
+def build_synthetic_mul_chain(
+    ctx: RingContext,
+    num_constraints: int,
+    rng: np.random.Generator,
+    num_public_gates: int = 1,
+):
+    """Returns (compiled_r1cs, primary RingElem batch, auxiliary RingElem batch).
+
+    Variables (1-based): gate i uses a_i = x_{3i+1}, b_i = x_{3i+2},
+    c_i = x_{3i+3}.  Primary variables must be an index prefix, so public
+    gates come first and all their wires are public.
+    """
+    m = num_constraints
+    nv = 3 * m
+    rows = torch.arange(m, dtype=torch.int64, device=ctx.device)
+    ones = torch.ones((m, ctx.L, 1), dtype=torch.int32, device=ctx.device)
+
+    # assignment: random a, b; c = a*b  (slot-form arrays [m, L, n])
+    n = ctx.N
+    a_vals, b_vals = (
+        ctx.tensor(np.stack(
+            [rng.integers(0, p, (m, n), dtype=np.uint64) for p in ctx.primes], axis=1
+        ))
+        for _ in range(2)
+    )
+    # interleave into the variable order x_1..x_{3m}
+    assign = torch.stack([a_vals, b_vals, mul_mod(a_vals, b_vals, ctx.p)], dim=1)
+    assign = assign.reshape(nv, ctx.L, n)
+
+    primary_size = 3 * num_public_gates
+    comp = CompiledR1CS(
+        ctx=ctx,
+        num_constraints=m,
+        num_variables=nv,
+        primary_input_size=primary_size,
+        rows=(rows, rows, rows),
+        cols=(3 * rows + 1, 3 * rows + 2, 3 * rows + 3),
+        coeffs=(ones, ones, ones),
+    )
+    return comp, RingElem(ctx, assign[:primary_size]), RingElem(ctx, assign[primary_size:])
 
 
 def _device_square_chain(ctx: RingContext, x0: np.ndarray, nv: int) -> torch.Tensor:

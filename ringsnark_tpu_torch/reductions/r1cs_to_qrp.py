@@ -103,25 +103,17 @@ def _pa_batches(ctx, primary, auxiliary):
 def _assignment_batches(ctx, primary, auxiliary):
     """(full, io, mid) assignment batches, each [1+nv, L, n]:
     io = [1, primary, 0...], mid = [0, 0..., auxiliary] (the constant counted
-    once, on the io side).  Inputs are lists of RingElem or RingElem batches."""
-    one = RingElem.one(ctx)
-    if isinstance(primary, RingElem) or isinstance(auxiliary, RingElem):
-        p_res, a_res = _pa_batches(ctx, primary, auxiliary)
-        n = max(p_res.shape[-1], a_res.shape[-1], 1)
-        p_res = p_res.expand(*p_res.shape[:-1], n)
-        a_res = a_res.expand(*a_res.shape[:-1], n)
-        one_r = one.res.expand(1, ctx.L, n)
-        full = torch.cat([one_r, p_res, a_res], dim=0)
-        io = torch.cat([one_r, p_res, torch.zeros_like(a_res)], dim=0)
-        mid = torch.cat([torch.zeros_like(one_r), torch.zeros_like(p_res), a_res], dim=0)
-        return RingElem(ctx, full), RingElem(ctx, io), RingElem(ctx, mid)
-    zero = RingElem.zero(ctx)
-    full = RingElem.stack([one] + list(primary) + list(auxiliary))
-    io = RingElem.stack([one] + list(primary) + [zero] * len(auxiliary))
-    mid = RingElem.stack([zero] * (1 + len(primary)) + list(auxiliary))
-    # one slot width for all three (mid with no aux wires is all scalars)
-    n = max(b.res.shape[-1] for b in (full, io, mid))
-    return tuple(RingElem(ctx, b.res.expand(*b.res.shape[:-1], n)) for b in (full, io, mid))
+    once, on the io side), at one slot width n.  Inputs are lists of RingElem
+    or RingElem batches; each side is stacked once."""
+    p_res, a_res = _pa_batches(ctx, primary, auxiliary)
+    n = max(p_res.shape[-1], a_res.shape[-1], 1)
+    p_res = p_res.expand(*p_res.shape[:-1], n)
+    a_res = a_res.expand(*a_res.shape[:-1], n)
+    one_r = RingElem.one(ctx).res.expand(1, ctx.L, n)
+    full = torch.cat([one_r, p_res, a_res], dim=0)
+    io = torch.cat([one_r, p_res, torch.zeros_like(a_res)], dim=0)
+    mid = torch.cat([torch.zeros_like(one_r), torch.zeros_like(p_res), a_res], dim=0)
+    return RingElem(ctx, full), RingElem(ctx, io), RingElem(ctx, mid)
 
 
 def _interp(domain: RootsDomain, evals_bln):
@@ -193,7 +185,7 @@ def _witness_map_kernel(comp, z_full, z_io, z_mid, d1r, d2r, d3r, domain, output
       "mid" -> (a_mid, b_mid, c_mid, H)
 
     Only the legs an output needs are run (C of the full assignment never
-    is; the io legs only for "all")."""
+    is; the io legs only for "all", so "mid" takes z_io = None)."""
     assert outputs in ("all", "mid"), outputs
     ctx, M, p = comp.ctx, domain.m, comp.ctx.p
 
@@ -236,8 +228,8 @@ def witness_map_kernel_chunked(comp, z_full, z_io, z_mid, d1r, d2r, d3r, domain,
         sl = slice(lo, lo + slot_chunk)
         ds = (d if d.shape[-1] == 1 else d[..., sl] for d in (d1r, d2r, d3r))
         pieces = _witness_map_kernel(
-            _comp_slot_slice(comp, lo, slot_chunk), z_full[..., sl], z_io[..., sl],
-            z_mid[..., sl], *ds, domain, outputs)
+            _comp_slot_slice(comp, lo, slot_chunk), z_full[..., sl],
+            None if z_io is None else z_io[..., sl], z_mid[..., sl], *ds, domain, outputs)
         if out is None:
             out = [pc if i == z_idx else
                    torch.empty((*pc.shape[:-1], n), dtype=pc.dtype, device=pc.device)

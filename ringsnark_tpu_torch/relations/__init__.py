@@ -1,4 +1,6 @@
-"""Statement data structures: the compiled R1CS and the QRP evaluation container."""
+"""Statement data structures: formal variables and linear combinations, R1CS
+constraint systems and their compiled form, and the QRP evaluation container."""
 
-from .r1cs import CompiledR1CS  # noqa: F401
+from .variable import Variable, LinearTerm, LinearCombination, ONE_INDEX  # noqa: F401
+from .r1cs import R1CSConstraint, R1CSConstraintSystem, CompiledR1CS  # noqa: F401
 from .qrp import QRPInstanceEvaluation  # noqa: F401

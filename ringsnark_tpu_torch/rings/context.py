@@ -7,6 +7,7 @@ made there.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from functools import cached_property, lru_cache
 
@@ -47,6 +48,10 @@ class RingContext:
     @property
     def L(self) -> int:
         return len(self.primes)
+
+    @property
+    def q(self) -> int:
+        return math.prod(self.primes)
 
     @cached_property
     def p(self) -> torch.Tensor:

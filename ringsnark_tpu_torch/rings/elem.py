@@ -8,6 +8,8 @@ slot form (int64 products, see ops/modops.py).
 
 from __future__ import annotations
 
+from typing import Iterable
+
 import numpy as np
 import torch
 
@@ -42,6 +44,19 @@ class RingElem:
         return cls.scalar(ctx, 1)
 
     @classmethod
+    def from_slots(cls, ctx: RingContext, slots) -> "RingElem":
+        """Build from slot values [..., L, n], n in {1, N}: a numpy array of
+        unsigned 32-bit values or an int32 tensor holding them.  Values are
+        reduced mod each limb's prime (the JAX package stores them as given,
+        its uint32 arithmetic reducing at the first multiply; int32 residues
+        must be canonical), so a value up to 2^32 - 1 may be passed."""
+        if not isinstance(slots, torch.Tensor):
+            slots = ctx.tensor(slots)
+        assert slots.shape[-2] == ctx.L and slots.shape[-1] in (1, ctx.N)
+        wide = slots.to(device=ctx.device, dtype=torch.int64) & 0xFFFFFFFF
+        return cls(ctx, torch.remainder(wide, ctx.p).to(torch.int32))
+
+    @classmethod
     def from_coeffs(cls, ctx: RingContext, coeffs) -> "RingElem":
         """Build from coefficient form [..., L, N] (applies forward NTT)."""
         coeffs = coeffs if isinstance(coeffs, torch.Tensor) else ctx.tensor(coeffs)
@@ -49,6 +64,17 @@ class RingElem:
         if ctx.N == 1:
             return cls(ctx, coeffs)
         return cls(ctx, negacyclic_ntt_rev(coeffs, ctx.ntt_plan))
+
+    @classmethod
+    def from_int_coeffs(cls, ctx: RingContext, int_coeffs: Iterable[int]) -> "RingElem":
+        """Build from a list of integer coefficients (reduced on the host,
+        one upload, one forward NTT)."""
+        cs = [int(c) for c in int_coeffs]
+        assert len(cs) <= ctx.N
+        arr = np.zeros((ctx.L, ctx.N), dtype=np.uint32)
+        for l, p in enumerate(ctx.primes):
+            arr[l, : len(cs)] = [c % p for c in cs]
+        return cls.from_coeffs(ctx, arr)
 
     # ---- sampling (host-side numpy RNG, the same calls in the same order
     # as the JAX package, so the same seed gives the same secrets) ---------
@@ -89,6 +115,14 @@ class RingElem:
         return cls.scalar(ctx, int(rng.integers(2, ctx.primes[0])))
 
     # ---- shape / variant queries ------------------------------------------
+
+    @property
+    def is_scalar(self) -> bool:
+        return self.res.shape[-1] == 1
+
+    @property
+    def is_poly(self) -> bool:
+        return self.res.shape[-1] != 1
 
     @property
     def batch_shape(self) -> tuple:
@@ -159,6 +193,9 @@ class RingElem:
     def is_zero(self) -> bool:
         return not bool(self.res.any())
 
+    def is_invertible(self) -> bool:
+        return bool(self.res.all())
+
     def __eq__(self, other):
         if isinstance(other, (int, np.integer)):
             other = RingElem.scalar(self.ctx, int(other))
@@ -168,6 +205,9 @@ class RingElem:
             return False
         a, b = torch.broadcast_tensors(self.res, other.res)
         return bool(torch.equal(a, b))
+
+    def __hash__(self):
+        return hash((self.ctx, self.numpy().tobytes()))
 
     # ---- conversions -------------------------------------------------------
 

@@ -1,6 +1,6 @@
 """Proof systems: ringGroth16 over rings (resident, seeded and streamed CRS)
-and Rinocchio (its keys, verifier and streamed prover), with soundness
-amplification by repetition."""
+and Rinocchio (resident and streamed CRS), the tensor cores of both provers
+(`pipeline`), and soundness amplification by repetition."""
 
 from .api import KeyPair, SnarkParams  # noqa: F401
 from . import groth16, seeded, rinocchio, streamed, amplify  # noqa: F401

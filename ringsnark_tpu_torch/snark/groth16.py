@@ -24,17 +24,17 @@ import torch
 from ..encoding import Encoding, encode, decode, keygen
 from ..ops.modops import dot_mod
 from ..reductions.r1cs_to_qrp import (
+    _interp,
     _pa_batches,
-    prover_witness_map_chunked,
     r1cs_to_qrp_instance_map_with_evaluation,
 )
-from ..relations.r1cs import CompiledR1CS
+from ..relations.r1cs import CompiledR1CS, R1CSConstraintSystem
 from ..rings.elem import RingElem
 from ..utils.domain import RootsDomain
 from ..utils import prng
-from ..utils.poly_arr import ring_batch_scale
+from ..utils.poly_arr import eval_coeffs_at, ring_batch_scale
 from .api import KeyPair, SnarkParams
-from .pipeline import groth16_ip_core, groth16_proof_levels
+from .pipeline import groth16_core, groth16_proof_levels
 
 __all__ = ["ProvingKey", "VerificationKey", "ProcessedVerificationKey", "Proof",
            "generator", "prover", "verifier", "verifier_process", "online_verifier"]
@@ -53,6 +53,8 @@ class ProvingKey:
     gamma_io: Encoding  # [primary+1] E((beta A_k + alpha B_k + C_k)/gamma)
     delta_mid: Optional[Encoding]  # [aux] same with /delta
     delta_ts: Encoding  # [M+1] E(Z(s) s^i / delta)
+    pk_enc: Any = None
+    constraint_system: Optional[R1CSConstraintSystem] = None  # None on the array path
 
     def size_in_bits(self) -> int:
         return sum(e.size_in_bits() for e in (self.alpha, self.beta, self.s_pows,
@@ -86,21 +88,33 @@ class Proof:
         return self.A.size_in_bits() + self.B.size_in_bits() + self.C.size_in_bits()
 
 
+def _compiled_and_system(cs, ctx):
+    """(compiled, constraint system or None) of a generator's `cs` argument."""
+    if isinstance(cs, CompiledR1CS):
+        return cs, None
+    return cs.compile(ctx), cs
+
+
 def generator(
-    comp: CompiledR1CS,
+    cs: R1CSConstraintSystem | CompiledR1CS,
     params: SnarkParams,
     rng: np.random.Generator,
     key,
 ) -> KeyPair:
-    """Trusted setup (`groth16.tcc:5-67`) over a compiled R1CS."""
+    """Trusted setup (`groth16.tcc:5-67`).
+
+    `cs` may be an R1CSConstraintSystem (frontend path) or a CompiledR1CS
+    (array path for benchmark-scale synthetic instances).
+    """
     ctx = params.ring
+    comp, cs_obj = _compiled_and_system(cs, ctx)
     primary_size = comp.primary_input_size
     n_aux = comp.num_variables - primary_size
     domain = RootsDomain(ctx, max(comp.num_constraints, 1))
     s = RingElem.random_exceptional_element(ctx, rng, domain)
     qrp = r1cs_to_qrp_instance_map_with_evaluation(comp, s, domain)
 
-    _, sk_enc = keygen(params.enc, rng)
+    pk_enc, sk_enc = keygen(params.enc, rng)
 
     alpha = RingElem.random_invertible_element(ctx, rng)
     beta = RingElem.random_invertible_element(ctx, rng)
@@ -133,20 +147,24 @@ def generator(
     pk = ProvingKey(
         compiled=comp, domain=domain, params=params,
         alpha=alpha_enc, beta=beta_enc, s_pows=s_pows, gamma_io=gamma_io,
-        delta_mid=delta_mid, delta_ts=delta_ts,
+        delta_mid=delta_mid, delta_ts=delta_ts, pk_enc=pk_enc,
+        constraint_system=cs_obj,
     )
     vk = VerificationKey(pk=pk, s=s, alpha=alpha, beta=beta, gamma=gamma,
                          delta=delta, sk_enc=sk_enc)
     return KeyPair(pk=pk, vk=vk)
 
 
-def prover(pk: ProvingKey, primary_input, auxiliary_input) -> Proof:
-    """Prove (`groth16.tcc:69-115`), non-ZK: the prover-mode witness map
-    (a_full, b_full, H), then the four encoding inner products."""
+def prover(pk: ProvingKey, primary_input, auxiliary_input,
+           rng: np.random.Generator | None = None) -> Proof:
+    """Prove (`groth16.tcc:69-115`), non-ZK: `pipeline.groth16_core` (the
+    prover-mode witness map, then the four encoding inner products) on the
+    key's and the assignment's tensors.  `rng` is
+    unused (d1 = d2 = d3 = 0, as in the reference); it keeps the signature
+    of `rinocchio.prover`."""
     ectx = pk.params.enc
     ums = pk.params.use_modswitch
     p_res, a_res = _pa_batches(pk.params.ring, primary_input, auxiliary_input)
-    a_full, b_full, H = prover_witness_map_chunked(pk.compiled, p_res, a_res, pk.domain)
     crs = {
         "s_pows": (pk.s_pows.c0, pk.s_pows.c1),
         "delta_ts": (pk.delta_ts.c0, pk.delta_ts.c1),
@@ -154,8 +172,7 @@ def prover(pk: ProvingKey, primary_input, auxiliary_input) -> Proof:
         "alpha": (pk.alpha.c0, pk.alpha.c1),
         "beta": (pk.beta.c0, pk.beta.c1),
     }
-    aux_arr = a_res if a_res.shape[0] > 0 else None
-    A, B, C = groth16_ip_core(crs, a_full, b_full, H, aux_arr, pk.domain.m, ectx, ums)
+    A, B, C = groth16_core(pk.compiled, crs, p_res, a_res, pk.domain, ectx, ums)
     la, lb, lc = groth16_proof_levels(ectx, ums)
     return Proof(
         A=Encoding(ectx, A[0], A[1], la),
@@ -188,6 +205,29 @@ def _io_terms_at_s(pvk_qrp, ctx, n_io: int, primary_input):
         z_io.res,
     )
     return RingElem(ctx, v), RingElem(ctx, w), RingElem(ctx, y)
+
+
+def _io_terms_via_interpolation(pk, primary_input, s: RingElem):
+    """Reference-shaped io route (evaluate the constraints on the padded
+    primary, interpolate, evaluate at s — `groth16.tcc:140-158`).  Kept as
+    the cross-check of `_io_terms_at_s`; O(M log M * n)."""
+    ctx = pk.params.ring
+    domain = pk.domain
+    z_io = _padded_primary_with_one(pk, primary_input)
+    evals = pk.compiled.eval_matrices(z_io.res, num_rows=domain.m)
+    return tuple(eval_coeffs_at(RingElem(ctx, _interp(domain, e)), s) for e in evals)
+
+
+def _padded_primary_with_one(pk, primary_input) -> RingElem:
+    """[1, primary..., 0...] assignment column (zeros for aux wires)."""
+    ctx = pk.params.ring
+    n_aux = pk.compiled.num_variables - pk.compiled.primary_input_size
+    if isinstance(primary_input, RingElem):
+        io = _io_assignment_with_one(ctx, primary_input).res
+        zeros = torch.zeros((n_aux, *io.shape[1:]), dtype=torch.int32, device=io.device)
+        return RingElem(ctx, torch.cat([io, zeros], dim=0))
+    return RingElem.stack(
+        [RingElem.one(ctx)] + list(primary_input) + [RingElem.zero(ctx)] * n_aux)
 
 
 @dataclass

@@ -38,13 +38,13 @@ from ..reductions.r1cs_to_qrp import (
     prover_witness_map_chunked,
     r1cs_to_qrp_instance_map_with_evaluation,
 )
-from ..relations.r1cs import CompiledR1CS
+from ..relations.r1cs import CompiledR1CS, R1CSConstraintSystem
 from ..rings.elem import RingElem
 from ..utils import prng
 from ..utils.domain import RootsDomain
 from ..utils.poly_arr import ring_batch_scale
 from .api import KeyPair, SnarkParams
-from .groth16 import Proof, VerificationKey
+from .groth16 import Proof, VerificationKey, _compiled_and_system
 
 __all__ = [
     "SeededEncoding",
@@ -183,6 +183,8 @@ class SeededProvingKey:
     gamma_io: Encoding
     delta_mid: Optional[SeededEncoding]
     delta_ts: SeededEncoding
+    pk_enc: Any = None
+    constraint_system: Optional[R1CSConstraintSystem] = None  # None on the array path
 
     def size_in_bits(self) -> int:
         return sum(e.size_in_bits() for e in (self.alpha, self.beta, self.gamma_io, self.s_pows,
@@ -200,18 +202,21 @@ class SeededProvingKey:
         return total
 
 
-def generator_seeded(comp: CompiledR1CS, params: SnarkParams, rng: np.random.Generator,
-                     key: prng.Key, slab: int = DEFAULT_SLAB) -> KeyPair:
+def generator_seeded(cs: R1CSConstraintSystem | CompiledR1CS, params: SnarkParams,
+                     rng: np.random.Generator, key: prng.Key,
+                     slab: int = DEFAULT_SLAB) -> KeyPair:
     """Trusted setup with seeded CRS batches (`groth16.tcc:5-67`), drawing
-    from `rng` and `key` exactly as the JAX package's `generator_seeded`."""
+    from `rng` and `key` exactly as the JAX package's `generator_seeded`.
+    `cs` is an R1CSConstraintSystem or a CompiledR1CS."""
     ctx = params.ring
+    comp, cs_obj = _compiled_and_system(cs, ctx)
     primary_size = comp.primary_input_size
     n_aux = comp.num_variables - primary_size
     domain = RootsDomain(ctx, max(comp.num_constraints, 1))
     s = RingElem.random_exceptional_element(ctx, rng, domain)
     qrp = r1cs_to_qrp_instance_map_with_evaluation(comp, s, domain)
 
-    _, sk_enc = keygen(params.enc, rng)
+    pk_enc, sk_enc = keygen(params.enc, rng)
     alpha = RingElem.random_invertible_element(ctx, rng)
     beta = RingElem.random_invertible_element(ctx, rng)
     gamma = RingElem.random_invertible_element(ctx, rng)
@@ -240,7 +245,7 @@ def generator_seeded(comp: CompiledR1CS, params: SnarkParams, rng: np.random.Gen
     pk = SeededProvingKey(
         compiled=comp, domain=domain, params=params,
         alpha=alpha_enc, beta=beta_enc, s_pows=s_pows, gamma_io=gamma_io,
-        delta_mid=delta_mid, delta_ts=delta_ts,
+        delta_mid=delta_mid, delta_ts=delta_ts, pk_enc=pk_enc, constraint_system=cs_obj,
     )
     vk = VerificationKey(pk=pk, s=s, alpha=alpha, beta=beta, gamma=gamma,
                          delta=delta, sk_enc=sk_enc)

@@ -39,7 +39,7 @@ import torch
 
 from ..encoding import Encoding, bgv, encode, keygen
 from ..encoding.context import EncodingContext, SecretKey
-from ..ops.modops import add_mod, mul_mod, sub_mod
+from ..ops.modops import add_mod, mul_mod
 from ..reductions.r1cs_to_qrp import (
     _assignment_batches,
     eval_instance_arrays,
@@ -56,6 +56,7 @@ from . import rinocchio
 from . import seeded as sd
 from .api import SnarkParams
 from .groth16 import Proof, VerificationKey
+from .pipeline import zk_shifted
 
 __all__ = [
     "limb_ring",
@@ -487,15 +488,6 @@ def stream_prove(
 # ---------------------------------------------------------------------------
 
 
-def _shifted_rows(coeffs, dr, ctx):
-    """[a_0 - d, a_1, ..., a_{M-1}, d]: the d*Z fold (Z = X^M - 1) that puts
-    the ZK shift inside the inner product's coefficient vector (the
-    reference's own TODO, `rinocchio.tcc:166`)."""
-    head = sub_mod(coeffs[0], dr, ctx.p)[None]
-    tail = dr[None].expand(1, *coeffs.shape[1:])
-    return torch.cat([head, coeffs[1:], tail], dim=0)
-
-
 def stream_prove_rinocchio(
     comp: CompiledR1CS,
     params: SnarkParams,
@@ -552,7 +544,7 @@ def stream_prove_rinocchio(
         comp, full.res, io.res, mid.res, d1.res, d2.res, d3.res, domain, outputs="mid")
     del full, io, mid
     if use_zk:
-        vecs = [_shifted_rows(v, d.res, ctx) for v, d in ((a_mid, d1), (b_mid, d2), (c_mid, d3))]
+        vecs = [zk_shifted(v, d.res, ctx.p) for v, d in ((a_mid, d1), (b_mid, d2), (c_mid, d3))]
     else:
         vecs = [a_mid, b_mid, c_mid]
     del a_mid, b_mid, c_mid

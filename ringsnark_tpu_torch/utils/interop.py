@@ -13,6 +13,11 @@ never imports jax: the JAX side does its own ``np.asarray``.
   Rinocchio vk: ``compiled``, ``domain_size``, ``vk`` with ``{"s",
   "alpha", "beta", "r_v", "r_w", "r_y"}`` and ``sk`` (its pk is a CRS-less
   stub);
+* ``rinocchio_keypair_to_numpy`` / ``rinocchio_keypair_from_numpy`` carry a
+  resident Rinocchio keypair: the vk dict above plus ``crs``, the twelve
+  encodings of its ``ProvingKey`` as ``(c0, c1)`` at level 0 (None for one
+  that a circuit without auxiliary wires lacks; the six shift encodings
+  without a batch axis);
 * ``proof_to_numpy`` / ``proof_from_numpy`` turn a ringGroth16 ``Proof``
   (3 elements) or a Rinocchio one (9, ``F`` may be None) into
   ``(c0, c1, level)`` triples (None for a missing element) and back;
@@ -57,12 +62,15 @@ from .domain import RootsDomain
 __all__ = [
     "compiled_from_numpy", "keypair_from_numpy", "keypair_to_numpy",
     "rinocchio_vk_from_numpy", "rinocchio_vk_to_numpy",
+    "rinocchio_keypair_from_numpy", "rinocchio_keypair_to_numpy",
     "proof_to_numpy", "proof_from_numpy", "key_from_numpy", "key_to_numpy",
 ]
 
 _CRS = ("alpha", "beta", "s_pows", "gamma_io", "delta_mid", "delta_ts")
 _VK = ("s", "alpha", "beta", "gamma", "delta")
 _RIN_VK = ("s", "alpha", "beta", "r_v", "r_w", "r_y")
+_RIN_CRS = ("s_pows", "alpha_s_pows", "beta_prods", "beta_rv_ts", "beta_rw_ts", "beta_ry_ts",
+            "alpha_rv_ts", "alpha_rw_ts", "alpha_ry_ts", "rv_vs", "rw_ws", "ry_ys")
 _RIN_PROOF = ("A", "A_prime", "B", "B_prime", "C", "C_prime", "D", "D_prime", "F")
 
 
@@ -150,18 +158,32 @@ def keypair_to_numpy(kp: KeyPair) -> dict:
 
 
 def rinocchio_vk_from_numpy(params: SnarkParams, arrays: dict) -> rinocchio.VerificationKey:
+    """The vk of `arrays`; its pk holds the encodings of ``arrays["crs"]``
+    where there is one (a resident keypair), else none (a streamed vk)."""
     ring = params.ring
     comp = compiled_from_numpy(ring, arrays["compiled"])
     domain = RootsDomain(ring, int(arrays["domain_size"]))
     assert domain.m == int(arrays["domain_size"])
-    stub = {f: None for f in ("s_pows", "alpha_s_pows", "beta_prods", "beta_rv_ts",
-                              "beta_rw_ts", "beta_ry_ts", "alpha_rv_ts", "alpha_rw_ts",
-                              "alpha_ry_ts", "rv_vs", "rw_ws", "ry_ys")}
+    crs = arrays.get("crs") or {}
+    encs = {f: None if crs.get(f) is None else
+            Encoding(params.enc, ring.tensor(crs[f][0]), ring.tensor(crs[f][1]), 0)
+            for f in _RIN_CRS}
     pk = rinocchio.ProvingKey(constraint_system=None, compiled=comp, domain=domain,
-                              params=params, **stub)
+                              params=params, **encs)
     vk = {k: RingElem(ring, ring.tensor(arrays["vk"][k])) for k in _RIN_VK}
     return rinocchio.VerificationKey(pk=pk, sk_enc=_sk_from_numpy(params.enc, arrays["sk"]),
                                      **vk)
+
+
+def rinocchio_keypair_from_numpy(params: SnarkParams, arrays: dict) -> KeyPair:
+    vk = rinocchio_vk_from_numpy(params, arrays)
+    return KeyPair(pk=vk.pk, vk=vk)
+
+
+def rinocchio_keypair_to_numpy(kp: KeyPair) -> dict:
+    encs = ((f, getattr(kp.pk, f)) for f in _RIN_CRS)
+    return dict(rinocchio_vk_to_numpy(kp.vk),
+                crs={f: None if e is None else (_host(e.c0), _host(e.c1)) for f, e in encs})
 
 
 def rinocchio_vk_to_numpy(vk: rinocchio.VerificationKey) -> dict:

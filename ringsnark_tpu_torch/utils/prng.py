@@ -13,8 +13,9 @@ gives the same ciphertexts in both packages:
 * ``fold_in(key, data)``: ``threefry2x32(key, (0, data))``;
 * ``bits(key, shape)``: element j (flat, row-major) is ``y0 ^ y1`` of
   ``threefry2x32(key, (j >> 32, j & 0xFFFFFFFF))``;
-* ``randint(key, shape, maxval)``: uint32 ``randint`` on ``[0, maxval)``:
-  two ``bits`` draws from ``split(key)`` combined mod the span as JAX does.
+* ``randint(key, shape, maxval, minval=0)``: 32-bit ``randint`` on
+  ``[minval, maxval)``, unsigned or signed: two ``bits`` draws from
+  ``split(key)`` combined mod the span as JAX does, then ``minval`` added.
 
 A key is a pair of Python ints below 2^32 (its ``key_data``).  Key
 derivation runs on the host in Python ints; ``bits`` and ``randint`` run as
@@ -104,22 +105,25 @@ def bits(k: Key, shape, device, rows=None, axis: int = 0) -> torch.Tensor:
     return y0 ^ y1
 
 
-def randint(k: Key, shape, maxval: int, device, rows=None, axis: int = 0) -> torch.Tensor:
-    """``jax.random.randint(k, shape, 0, maxval, dtype=uint32)`` as int64.
+def randint(k: Key, shape, maxval: int, device, rows=None, axis: int = 0,
+            minval: int = 0) -> torch.Tensor:
+    """``jax.random.randint(k, shape, minval, maxval)`` with a 32-bit dtype
+    (uint32 for ``minval >= 0``, int32 below), as int64 values.
 
     JAX draws two 32-bit words per value, from the two halves of
-    ``split(k)``, and reduces ``hi * 2^32 + lo`` mod the span with uint32
-    arithmetic (products and sums wrap at 2^32); this does the same."""
-    span = int(maxval)
-    if not 0 < span <= 1 << 31:
-        raise ValueError(f"maxval {maxval} is not in (0, 2^31]")
+    ``split(k)``, and reduces ``hi * 2^32 + lo`` mod the span
+    ``maxval - minval`` with uint32 arithmetic (products and sums wrap at
+    2^32), then adds ``minval``; this does the same."""
+    span = int(maxval) - int(minval)
+    if not 0 < span <= 1 << 31 or not -(1 << 31) <= minval or maxval > 1 << 32:
+        raise ValueError(f"[{minval}, {maxval}) is not a 32-bit range of span (0, 2^31]")
     k_hi, k_lo = split(k)
     # "2^32 mod span" as JAX forms it, in uint32: (2^16 mod span)^2 wraps to
     # 0 for spans above 2^16, so there the high word drops out entirely and
     # is not drawn (every inner prime Q_j is such a span)
     mult = (((1 << 16) % span) ** 2 & _MASK) % span
-    if mult == 0:
-        return torch.remainder(bits(k_lo, shape, device, rows, axis), span)
-    off = (torch.remainder(bits(k_hi, shape, device, rows, axis), span) * mult) & _MASK
-    off = (off + torch.remainder(bits(k_lo, shape, device, rows, axis), span)) & _MASK
-    return torch.remainder(off, span)
+    off = torch.remainder(bits(k_lo, shape, device, rows, axis), span)
+    if mult:
+        hi = (torch.remainder(bits(k_hi, shape, device, rows, axis), span) * mult) & _MASK
+        off = torch.remainder((hi + off) & _MASK, span)
+    return off + int(minval) if minval else off

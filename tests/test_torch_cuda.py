@@ -1,4 +1,5 @@
-"""The Hopper NTT kernels of ringsnark_tpu_torch on the card.
+"""The Hopper NTT kernels of ringsnark_tpu_torch on the card, and the paths
+that run them (streamed provers, the circuit frontend) against the CPU.
 
 These tests need a CUDA device (a CUDA kernel has no CPU mode) and skip
 without one.  This file imports no jax, so it also runs on a machine with
@@ -204,3 +205,99 @@ def test_streamed_proofs_on_card_equal_cpu(cuda, L):
         for g, w in zip(got, want):
             assert g[2] == w[2] and np.array_equal(g[0], w[0])
             assert np.array_equal(g[1], w[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 2, 4, 8])
+def test_tiny_domains_on_card_equal_cpu(cuda, M):
+    """The witness map's cyclic transforms at the sizes of the smallest
+    circuits (ct-mul has M = 4, the in-circuit NTT M = 1): interpolation,
+    evaluation and the H product on the card equal the plain versions on the
+    CPU.  Size 1 is the identity and launches nothing; from 2 on the kernel
+    runs (the size-2M product from M = 2)."""
+    from ringsnark_tpu_torch.reductions.r1cs_to_qrp import _h_main
+    from ringsnark_tpu_torch.rings.context import default_context
+    from ringsnark_tpu_torch.utils.domain import RootsDomain
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ring = default_context(L=2, N=16, order=1 << 12, device=dev)
+        dom = RootsDomain(ring, M)
+        assert dom.m == M
+        x = _residues(ring.primes, M, 5, "cpu", seed=M).to(dev)
+        before = dict(cuda_ntt.launch_counts)
+        coeffs = dom.interpolate_arr(x)
+        back = dom.evaluate_arr(coeffs)
+        a = coeffs.permute(2, 1, 0).contiguous()  # [M, L, n]
+        h = _h_main(ring, a, a.flip(0).contiguous(), M)
+        if dev == "cuda":
+            ran = 0 if M == 1 else 1
+            assert cuda_ntt.launch_counts["cyclic_inv"] == before["cyclic_inv"] + 2 * ran
+            assert cuda_ntt.launch_counts["cyclic_fwd"] == before["cyclic_fwd"] + 3 * ran
+        assert torch.equal(back.cpu(), x.cpu())
+        out[dev] = (coeffs.cpu(), h.cpu())
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("circuit", ["logreg", "ct_mul", "incircuit_ntt"])
+def test_frontend_proofs_on_card_equal_cpu(cuda, circuit):
+    """A circuit built on a Protoboard at N = 16, L = 2: Rinocchio and
+    ringGroth16 from a resident CRS made on the card give, bit for bit, the
+    proofs the carried keypair gives on the CPU; both verify, and a changed
+    public input is rejected.  ct-mul and the in-circuit NTT have no
+    auxiliary wires (F is None) and domains of size 4 and 1."""
+    import numpy as np
+
+    from ringsnark_tpu_torch import models
+    from ringsnark_tpu_torch.encoding import EncodingContext
+    from ringsnark_tpu_torch.rings.context import default_context
+    from ringsnark_tpu_torch.snark import groth16, rinocchio
+    from ringsnark_tpu_torch.snark.api import SnarkParams
+    from ringsnark_tpu_torch.utils import interop, prng
+
+    def params(device):
+        ring = default_context(L=2, N=16, order=1 << 12, device=device)
+        inner = [q for q in find_ntt_primes(5, 256) if q not in ring.primes][:3]
+        return SnarkParams(ring=ring, enc=EncodingContext(ring=ring, n_inner=128,
+                                                          inner_primes=tuple(inner)))
+
+    def build(ring):
+        rng = np.random.default_rng(7)
+        if circuit == "logreg":
+            return models.build_logreg_inference(ring, rng, num_features=4, log_t=8)
+        if circuit == "ct_mul":
+            return models.build_ct_mul(ring, rng, log_t=8)
+        return models.build_incircuit_ntt(ring, rng)
+
+    p_gpu, p_cpu = params("cuda"), params("cpu")
+    pb, pb_c = build(p_gpu.ring), build(p_cpu.ring)
+    assert pb.is_satisfied() and pb_c.is_satisfied()
+    assert torch.equal(pb.full_assignment_batch().res.cpu(), pb_c.full_assignment_batch().res)
+    for system, to_np, from_np in (
+            (rinocchio, interop.rinocchio_keypair_to_numpy, interop.rinocchio_keypair_from_numpy),
+            (groth16, interop.keypair_to_numpy, interop.keypair_from_numpy)):
+        before = dict(cuda_ntt.launch_counts)
+        kp = system.generator(pb.get_constraint_system(), p_gpu, np.random.default_rng(8),
+                              prng.key(9))
+        proof = system.prover(kp.pk, pb.primary_input(), pb.auxiliary_input(),
+                              np.random.default_rng(10))
+        assert cuda_ntt.launch_counts["negacyclic_fwd"] > before["negacyclic_fwd"]
+        assert kp.pk.s_pows.c0.is_cuda and proof.A.c0.is_cuda
+        kp_c = from_np(p_cpu, to_np(kp))
+        proof_c = system.prover(kp_c.pk, pb_c.primary_input(), pb_c.auxiliary_input(),
+                                np.random.default_rng(10))
+        got, want = interop.proof_to_numpy(proof), interop.proof_to_numpy(proof_c)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None)
+            if g is not None:
+                assert g[2] == w[2] and np.array_equal(g[0], w[0]) and np.array_equal(g[1], w[1])
+        if system is rinocchio:
+            assert (proof.F is None) == (circuit != "logreg")
+        prim = pb.primary_input()
+        assert system.verifier(kp.vk, prim, proof)
+        assert not system.verifier(kp.vk, [prim[0] + 1] + prim[1:], proof)
+        assert system.verifier(kp_c.vk, pb_c.primary_input(),
+                               interop.proof_from_numpy(p_cpu, got))

@@ -1,5 +1,6 @@
 """ringsnark_tpu_torch's threefry PRNG against jax.random, on the CPU, bit
-for bit: key, split, fold_in, bits and uint32 randint on odd shapes, and
+for bit: key, split, fold_in, bits and 32-bit randint (unsigned, and signed
+with a `minval`) on odd shapes, and
 draws made by row range equal to the slices of the whole draw (the property
 the chunked encode and the seeded MAC rely on)."""
 
@@ -51,6 +52,21 @@ def test_randint(shape, maxval):
     assert np.array_equal(prng.randint(tk, shape, maxval, "cpu").numpy(), want.astype(np.int64))
 
 
+@pytest.mark.parametrize("signed", [False, True], ids=["unsigned", "signed"])
+@pytest.mark.parametrize("span", [13, 1 << 16, 2147352577])
+def test_randint_with_minval(span, signed):
+    """A span of 13 draws the high word (the multiplier 2^32 mod 13 is not
+    zero); JAX reduces the unsigned span and adds `minval` afterwards.  The
+    outer BGV's error draw is the signed span 13: [-6, 7)."""
+    jk, tk = _key(6)
+    lo = -(span // 2) if signed else 3
+    dtype = jnp.int32 if signed else jnp.uint32
+    want = np.asarray(jax.random.randint(jk, (2, 1, 19), lo, lo + span, dtype=dtype))
+    got = prng.randint(tk, (2, 1, 19), lo + span, "cpu", minval=lo).numpy()
+    assert np.array_equal(got, want.astype(np.int64))
+    assert got.min() >= lo and got.max() < lo + span
+
+
 @pytest.mark.parametrize("axis,rows", [(0, (1, 3)), (1, (2, 5)), (2, (0, 7)), (2, (6, 7)),
                                        (1, (3, 3))])
 def test_row_range_equals_slice_of_whole_draw(axis, rows):
@@ -70,6 +86,10 @@ def test_bad_arguments_raise():
         prng.key(-1)
     with pytest.raises(ValueError):
         prng.randint(prng.key(0), (2,), (1 << 31) + 1, "cpu")
+    with pytest.raises(ValueError):
+        prng.randint(prng.key(0), (2,), 5, "cpu", minval=5)
+    with pytest.raises(ValueError):
+        prng.randint(prng.key(0), (2,), 0, "cpu", minval=-(1 << 31) - 1)
 
 
 def test_contexts_and_draws_default_to_the_card():
