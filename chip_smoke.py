@@ -29,6 +29,11 @@ traceback and exits nonzero without the final line:
    inverse(forward(x)) == x; kernel and plain versions timed at every
    shape, beside the bound and share.  Then the two CTA orders of the
    shared-memory kernel, timed at the seeded MAC's encoding shape.
+2c. the split route past 2^19 (inner size 32768; the outer stages in two
+   passes from 2^21) through the dispatcher, all four modes at M = 2^20,
+   2^21 and 2^22 against the full-size plain twin (equal, max abs err 0,
+   inverse(forward(x)) == x); the cyclic modes timed at 2^20 and 2^21 on a
+   512 MiB batch beside the bound and the plain twin.
 3. the resident main path (M=2^14) through the package API: ringGroth16
    `generator` -> `prover` (cold, then warm: the two proofs must be
    identical) -> `verifier` (True), and `verifier` with one public input
@@ -85,6 +90,23 @@ traceback and exits nonzero without the final line:
    proofs from a keypair made on the card equal, bit for bit, the proofs the
    carried keypair gives on the CPU, and the CPU verifiers accept the card's
    proofs; the kernel is held to its plain twin at these shapes as well.
+12. keys on disk (`utils/serialization.py`), logistic regression at its
+   published shape (256 features, N=2048, logT=16, ring L=2, N'=16384),
+   resident Rinocchio (CRS 8.0 GiB) then ringGroth16 (6.0 GiB), one at a
+   time: generate, prove from memory, `save_vk` (pk and constraint system
+   with it) into `keys_out/` after checking the free disk space, drop the
+   keypair, `load_vk` onto the card, prove from the loaded pk (equal bit for
+   bit to the proof from memory), `save_proof` / `load_proof`, verify with
+   the loaded vk (True; False with a changed public input), delete the
+   files.  The Rinocchio pk is also written with `np.savez_compressed` (the
+   JAX package's writer) and loaded from it.  Then phase 7's north-star vk
+   (a CRS-less stub) is saved, loaded, and verifies phase 7's proof.  Prints
+   per system the save, load and prove seconds, file and peak GiB, and the
+   compressed/uncompressed comparison.
+12b. small keys cross-check (logistic regression with 4 features, N=16,
+   N'=512): a vk and a proof saved on the card load on the CPU; the CPU's
+   proof from the loaded key equals the card's bit for bit, and the CPU
+   verifier accepts the card's proof from its file.
 
 The line before the last is a JSON object with the kernels' launch counts
 (per path), errors, times, bounds (`bound_ms`, `bound_by`, `share_of_bound`)
@@ -97,9 +119,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -449,6 +474,72 @@ def split_vs_plain(params, params_streamed, cfg, small: bool):
     return report, orders
 
 
+LARGE_SPLIT_LOG_M = (20, 21, 22)  # phase 2c: the sizes past the one-pass split of 2^19
+LARGE_SPLIT_TIMED_BYTES = 1 << 29  # the timed batch: 512 MiB of residues
+
+
+def large_split_vs_plain(split_report):
+    """Phase 2c: the split route past 2^19 (inner size 32768; two outer
+    passes from 2^21), through the dispatcher, in all four modes against the
+    full-size plain twin at 2^20, 2^21 and 2^22 (equal, inverse(forward(x))
+    == x); the cyclic modes timed at 2^20 and 2^21 on a 512 MiB batch, with
+    the bound and the plain twin's time there (into split_report[mode]
+    ["large"])."""
+    from ringsnark_tpu_torch.ops import cuda_ntt
+    from ringsnark_tpu_torch.ops import ntt as nttm
+    from ringsnark_tpu_torch.ops.primes import find_ntt_primes
+
+    primes = tuple(find_ntt_primes(2, 1 << (max(LARGE_SPLIT_LOG_M) + 1)))
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    dispatch = {(False, False): nttm.cyclic_ntt_rev, (True, False): nttm.cyclic_intt_nat,
+                (False, True): nttm.negacyclic_ntt_rev, (True, True): nttm.negacyclic_intt_nat}
+
+    def residues(rows, M):
+        return torch.cat([torch.randint(0, p, (rows, 1, M), generator=gen, dtype=torch.int32,
+                                        device="cuda") for p in primes], dim=1)
+
+    for log_m in LARGE_SPLIT_LOG_M:
+        M = 1 << log_m
+        mi = nttm.split_mi(M)
+        passes = len(cuda_ntt.outer_passes(log_m - mi.bit_length() + 1, False))
+        x = residues(2, M)
+        for nega in (False, True):
+            plan = nttm.get_plan(primes, M, negacyclic=nega)
+            for inverse in (False, True):
+                mode = "split_" + cuda_ntt.mode_name(inverse, nega)
+                before = cuda_ntt.launch_counts[mode]
+                got = dispatch[(inverse, nega)](x, plan)
+                check(cuda_ntt.launch_counts[mode] == before + 1, f"{mode} not routed at 2^{log_m}")
+                want = nttm.PLAIN_TWINS[(inverse, nega)](x, plan)
+                err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+                split_report[mode]["max_abs_err"] = max(split_report[mode]["max_abs_err"], err)
+                check(torch.equal(got, want), f"{mode} kernel != plain twin at M=2^{log_m}")
+                back = dispatch[(not inverse, nega)](got, plan)
+                check(torch.equal(back, x), f"{mode}: inverse(forward(x)) != x at M=2^{log_m}")
+                print(f"  equal  {mode:21s} M=2^{log_m} rows=2 L=2 (inner {mi}, {passes} "
+                      "outer pass(es))", flush=True)
+                del got, want, back
+        del x
+        if log_m > 21:
+            continue
+        rows = LARGE_SPLIT_TIMED_BYTES // (4 * len(primes) * M)
+        xb = residues(rows, M)
+        plan = nttm.get_plan(primes, M)
+        for inverse in (False, True):
+            mode = "split_" + cuda_ntt.mode_name(inverse, False)
+            ms = cuda_ms(lambda: dispatch[(inverse, False)](xb, plan))
+            pms = cuda_ms(lambda: nttm.PLAIN_TWINS[(inverse, False)](xb, plan), iters=1)
+            bms = bound_ms(xb.numel())
+            split_report[mode].setdefault("large", {})[f"M=2^{log_m}"] = dict(
+                ms=ms, plain_ms=pms, bound_ms=bms, share_of_bound=bms / ms,
+                shape=f"M=2^{log_m}, L={len(primes)}, rows={rows}")
+            print(f"  time   {mode:21s} M=2^{log_m} rows={rows} L={len(primes)}: kernel "
+                  f"{ms:.4f} ms, plain twin {pms:.4f} ms, bound {bms:.4f} ms "
+                  f"({100 * bms / ms:.1f} %)", flush=True)
+        del xb
+        torch.cuda.empty_cache()
+
+
 def main_path(params, cfg):
     """Phase 3: generator -> prover x2 -> verifier (+ tampered)."""
     from ringsnark_tpu_torch.models.synthetic import build_synthetic_square_chain
@@ -641,7 +732,7 @@ def streamed_path(params, cfg):
         check(tuple(e.c0.shape) == (ring.L, ectx.floor_limbs, ectx.n_inner),
               f"proof element shape {tuple(e.c0.shape)}")
     _launch_check(counts, M, "streamed")
-    return counts, times, totals, rec.events, peak
+    return counts, times, totals, rec.events, peak, (proof, vk, primary)
 
 
 def rinocchio_path(params, cfg):
@@ -860,6 +951,196 @@ def small_frontend_cross_check(kernel_report):
               "proofs (Rinocchio, ringGroth16), CPU verifiers accept", flush=True)
 
 
+KEYS_DIR = Path(__file__).resolve().parent / "keys_out"  # listed in .gitignore
+DISK_MARGIN = 2 << 30
+
+
+def check_disk(need_bytes: int, what: str):
+    """Refuse to write `need_bytes` into KEYS_DIR unless that much and a
+    margin are free there."""
+    free = shutil.disk_usage(KEYS_DIR).free
+    if free < need_bytes + DISK_MARGIN:
+        raise RuntimeError(f"{what}: {free / 2**30:.2f} GiB free in {KEYS_DIR}, need "
+                           f"{need_bytes / 2**30:.2f} GiB and a margin of "
+                           f"{DISK_MARGIN / 2**30:.0f} GiB")
+
+
+def timed(times: dict, name: str, fn):
+    """fn() timed with `profiling.timer` (synchronizing the card at both
+    ends), into times[name]."""
+    from ringsnark_tpu_torch.utils import profiling
+
+    with profiling.timer(name, "cuda") as rec:
+        out = fn()
+    times[name] = rec.seconds
+    print(f"  {name}: {rec.seconds:.3f} s", flush=True)
+    return out
+
+
+def _file_bytes(*paths) -> int:
+    return sum(os.path.getsize(p) for p in paths)
+
+
+def _proofs_equal(a, b) -> bool:
+    return all((x is None and y is None) or (x is not None and y is not None and x == y)
+               for x, y in zip(_proof_elements(a), _proof_elements(b)))
+
+
+def keys_on_disk(cfg, north_star):
+    """Phase 12: logistic regression at its published shape, resident
+    Rinocchio then ringGroth16: generate, prove from memory, save_vk (the pk
+    and its constraint system with it), drop the keypair, load_vk onto the
+    card, prove from the loaded pk (== the proof from memory, bit for bit),
+    save_proof / load_proof, verify with the loaded vk (True; False with a
+    changed public input), delete the files.  The Rinocchio pk is also
+    written with np.savez_compressed (the JAX package's writer) and loaded
+    from that.  Then phase 7's north-star vk (a CRS-less stub) is saved and
+    loaded, and verifies phase 7's proof."""
+    from ringsnark_tpu_torch.encoding import Encoding
+    from ringsnark_tpu_torch.snark import groth16, rinocchio
+    from ringsnark_tpu_torch.utils import prng
+    from ringsnark_tpu_torch.utils import serialization as ser
+
+    KEYS_DIR.mkdir(exist_ok=True)
+    params = make_circuit_params(cfg, "cuda")
+    pb = build_circuit("logreg", cfg, params.ring, 0)
+    cs = pb.get_constraint_system()
+    primary, aux = pb.primary_input(), pb.auxiliary_input()
+    bad = [primary[0] + 1] + primary[1:]
+    report = {}
+    for sname, system, load_pk in (("rinocchio", rinocchio, ser.load_rinocchio_pk),
+                                   ("groth16", groth16, ser.load_groth16_pk)):
+        print(f"  logreg/{sname}:", flush=True)
+        t = {}
+        paths = {k: str(KEYS_DIR / f"{sname}_{k}") for k in
+                 ("vk.npz", "pk.npz", "cs.json", "proof.npz", "pk_compressed.npz")}
+        kp = timed(t, "setup", lambda: system.generator(cs, params, np.random.default_rng(1),
+                                                        prng.key(1)))
+        proof_mem = timed(t, "prove_from_memory", lambda: system.prover(
+            kp.pk, primary, aux, np.random.default_rng(7)))
+        crs = _crs_bytes(kp.pk)
+        check_disk(crs, f"logreg/{sname} keys")
+        timed(t, "save_vk", lambda: ser.save_vk(paths["vk.npz"], kp.vk, paths["pk.npz"],
+                                                 paths["cs.json"]))
+        file_bytes = _file_bytes(paths["vk.npz"], paths["pk.npz"], paths["cs.json"])
+        del kp
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        vk = timed(t, "load_vk", lambda: ser.load_vk(paths["vk.npz"]))
+        load_peak = torch.cuda.max_memory_allocated()
+        check(vk.pk.s_pows.c0.is_cuda and vk.sk_enc.s_ntt.is_cuda, "load_vk left the card")
+        check(_crs_bytes(vk.pk) == crs, f"logreg/{sname}: the loaded CRS has another size")
+        proof = timed(t, "prove_from_loaded", lambda: system.prover(
+            vk.pk, primary, aux, np.random.default_rng(7)))
+        check(_proofs_equal(proof, proof_mem),
+              f"logreg/{sname}: proof from the loaded key != proof from the key in memory")
+        check_disk(proof.size_in_bits() // 8, f"logreg/{sname} proof")
+        timed(t, "save_proof", lambda: ser.save_proof(paths["proof.npz"], proof, params.enc))
+        proof_bytes = _file_bytes(paths["proof.npz"])
+        loaded = timed(t, "load_proof", lambda: ser.load_proof(paths["proof.npz"], system.Proof))
+        check(_proofs_equal(loaded, proof), f"logreg/{sname}: load_proof changed the proof")
+        check(timed(t, "verify_loaded", lambda: system.verifier(vk, primary, loaded)) is True,
+              f"logreg/{sname}: the loaded vk rejected the loaded proof")
+        check(not system.verifier(vk, bad, loaded),
+              f"logreg/{sname}: the loaded vk accepted a changed public input")
+        entry = {"stage_s": t, "crs_gib": crs / 2**30, "files_gib": file_bytes / 2**30,
+                 "proof_file_mib": proof_bytes / 2**20, "load_peak_allocated_gib": load_peak / 2**30}
+        if sname == "rinocchio":
+            # the JAX package's writer (deflate), on the same arrays, and the
+            # port's loader on its file
+            with np.load(paths["pk.npz"]) as data:
+                store = {k: data[k] for k in data.files}
+            check_disk(file_bytes, "the compressed Rinocchio pk")
+            timed(t, "save_pk_compressed", lambda: np.savez_compressed(
+                paths["pk_compressed.npz"], **store))
+            del store
+            cbytes = _file_bytes(paths["pk_compressed.npz"])
+            pkc = timed(t, "load_pk_compressed", lambda: load_pk(paths["pk_compressed.npz"]))
+            check(all(e == getattr(pkc, k) for k, e in vars(vk.pk).items()
+                      if isinstance(e, Encoding)), "the compressed pk loads other encodings")
+            del pkc
+            timed(t, "load_pk_uncompressed", lambda: load_pk(paths["pk.npz"]))
+            entry["compressed"] = {"pk_gib": cbytes / 2**30,
+                                   "pk_uncompressed_gib": _file_bytes(paths["pk.npz"]) / 2**30,
+                                   "save_s": t["save_pk_compressed"],
+                                   "load_s": t["load_pk_compressed"],
+                                   "uncompressed_load_pk_s": t["load_pk_uncompressed"]}
+        for p in paths.values():
+            if os.path.exists(p):
+                os.remove(p)
+        print(f"    CRS {crs / 2**30:.3f} GiB; files {file_bytes / 2**30:.3f} GiB (vk + pk + cs); "
+              f"proof file {proof_bytes / 2**20:.1f} MiB; load peak allocated "
+              f"{load_peak / 2**30:.3f} GiB; proof from the loaded key == proof from memory"
+              + (f"; compressed pk {entry['compressed']['pk_gib']:.3f} GiB"
+                 if "compressed" in entry else ""), flush=True)
+        report[sname] = entry
+        del vk, proof, proof_mem, loaded
+        torch.cuda.empty_cache()
+
+    # phase 7's north-star vk: a CRS-less stub (gamma_io and the compiled arrays)
+    proof7, vk7, primary7 = north_star
+    t = {}
+    paths = [str(KEYS_DIR / f"north_star_{k}") for k in ("vk.npz", "pk.npz", "cs.json")]
+    check_disk(vk7.pk.gamma_io.c0.numel() * 8 + (64 << 20), "the north-star vk")
+    timed(t, "save_vk", lambda: ser.save_vk(paths[0], vk7, paths[1], paths[2]))
+    file_bytes = _file_bytes(*paths[:2])
+    vk = timed(t, "load_vk", lambda: ser.load_vk(paths[0]))
+    check(vk.pk.s_pows is None and vk.pk.gamma_io == vk7.pk.gamma_io,
+          "the north-star stub did not load as it was saved")
+    check(timed(t, "verify", lambda: groth16.verifier(vk, primary7, proof7)) is True,
+          "the reloaded north-star vk rejected phase 7's proof")
+    check(not groth16.verifier(vk, primary7 + 1, proof7),
+          "the reloaded north-star vk accepted a changed public input")
+    for p in paths[:2]:
+        os.remove(p)
+    print(f"  north-star vk (M=2^18 stub): files {file_bytes / 2**20:.1f} MiB; the reloaded vk "
+          "verifies phase 7's proof", flush=True)
+    report["north_star_vk"] = {"stage_s": t, "files_mib": file_bytes / 2**20}
+    return report
+
+
+def small_keys_cross_check():
+    """Phase 12b: a key and a proof saved by the port on the card load in the
+    port on the CPU; the CPU's proof from the loaded key equals the card's
+    bit for bit, and the CPU verifier accepts the card's proof, loaded from
+    its file."""
+    from ringsnark_tpu_torch.snark import groth16, rinocchio
+    from ringsnark_tpu_torch.utils import prng
+    from ringsnark_tpu_torch.utils import serialization as ser
+
+    KEYS_DIR.mkdir(exist_ok=True)
+    cfg = dict(N=16, n_inner=512, log_t=16, features=4)
+    p_gpu, p_cpu = make_circuit_params(cfg, "cuda"), make_circuit_params(cfg, "cpu")
+    pb, pb_c = build_circuit("logreg", cfg, p_gpu.ring, 30), build_circuit("logreg", cfg,
+                                                                          p_cpu.ring, 30)
+    for sname, system in (("rinocchio", rinocchio), ("groth16", groth16)):
+        paths = [str(KEYS_DIR / f"small_{sname}_{k}") for k in
+                 ("vk.npz", "pk.npz", "cs.json", "proof.npz")]
+        check_disk(1 << 26, "the small keys")
+        kp = system.generator(pb.get_constraint_system(), p_gpu, np.random.default_rng(31),
+                              prng.key(32))
+        proof = system.prover(kp.pk, pb.primary_input(), pb.auxiliary_input(),
+                              np.random.default_rng(33))
+        ser.save_vk(paths[0], kp.vk, paths[1], paths[2])
+        ser.save_proof(paths[3], proof, p_gpu.enc)
+        vk_c = ser.load_vk(paths[0], device="cpu")
+        check(vk_c.pk.s_pows.c0.device.type == "cpu", "load_vk(device='cpu') left the CPU")
+        proof_c = system.prover(vk_c.pk, pb_c.primary_input(), pb_c.auxiliary_input(),
+                                np.random.default_rng(33))
+        loaded = ser.load_proof(paths[3], system.Proof, device="cpu")
+        check(all((a is None and b is None) or torch.equal(a.c0.cpu(), b.c0)
+                  and torch.equal(a.c1.cpu(), b.c1) and a.level == b.level
+                  for a, b in zip(_proof_elements(proof), _proof_elements(proof_c))),
+              f"small {sname}: the CPU proof from the loaded key != the card's proof")
+        check(system.verifier(vk_c, pb_c.primary_input(), loaded),
+              f"small {sname}: the CPU verifier rejected the card's proof from its file")
+        for p in paths:
+            os.remove(p)
+    print(f"  small logreg (N={cfg['N']}, N'={cfg['n_inner']}, L=2): keys and proofs saved on "
+          "the card load on the CPU; CPU proofs == card proofs (Rinocchio, ringGroth16)",
+          flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--small", action="store_true", help="small main-path size, for debugging")
@@ -901,6 +1182,10 @@ def main() -> int:
     phase("2b", "split kernel vs plain, CTA orders", t0)
 
     t0 = time.perf_counter()
+    large_split_vs_plain(split_report)
+    phase("2c", "split kernel past 2^19 vs plain", t0)
+
+    t0 = time.perf_counter()
     counts, times, crs_bytes, peak = main_path(params, cfg)
     phase(3, "main path", t0)
 
@@ -919,7 +1204,7 @@ def main() -> int:
 
     torch.cuda.empty_cache()  # phase 5's seeded CRS is gone with its keypair
     t0 = time.perf_counter()
-    counts7, times7, rec7, events7, peak7 = streamed_path(params7, cfg7)
+    counts7, times7, rec7, events7, peak7, north_star = streamed_path(params7, cfg7)
     phase(7, "streamed main path", t0)
 
     torch.cuda.empty_cache()
@@ -940,6 +1225,17 @@ def main() -> int:
     t0 = time.perf_counter()
     small_frontend_cross_check(report)
     phase(11, "small frontend cross-check", t0)
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    keys = keys_on_disk((SMALL_CIRCUITS if args.small else REFERENCE_CIRCUITS)["logreg"],
+                        north_star)
+    del north_star
+    phase(12, "keys on disk: logreg Rinocchio and ringGroth16, the north-star vk", t0)
+
+    t0 = time.perf_counter()
+    small_keys_cross_check()
+    phase("12b", "small keys cross-check, card to CPU", t0)
 
     by_path = {m: {"resident": counts[m], "seeded": counts5[m], "streamed": counts7[m],
                    "streamed_rinocchio": counts8[m], "frontend": counts10[m]} for m in counts}
@@ -962,7 +1258,8 @@ def main() -> int:
          "ms": split_report[m]["ms"], "plain_ms": split_report[m]["plain_ms"],
          **bounds(split_report[m]),
          "full_twin_ms": split_report[m]["full_twin_ms"], "shape": split_report[m]["shape"],
-         "streamed_shape": split_report[m]["streamed"]}
+         "streamed_shape": split_report[m]["streamed"],
+         "large_shapes": split_report[m].get("large")}
         for m in cuda_ntt.SPLIT_MODES
     ]
     summary = {"resident": {"config": cfg, "stage_s": times, "crs_gib": crs_bytes / 2**30,
@@ -974,6 +1271,7 @@ def main() -> int:
                "streamed_rinocchio": {"config": cfg8, "stage_s": times8, "record_s": rec8,
                                       "peak_allocated_gib": peak8 / 2**30},
                "frontend": frontend,
+               "keys_on_disk": keys,
                "cta_order": orders}
     print(json.dumps(summary), flush=True)
     print(card, flush=True)  # as nvidia-smi prints it: name, power limit

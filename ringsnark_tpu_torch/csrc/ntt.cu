@@ -57,7 +57,11 @@
 //   128 contiguous bytes.
 // * outer_kernel: one thread per column runs the log2(R) outer stages
 //   global to global, then ntt_kernel runs the R inner transforms (forward;
-//   the inverse runs them first): two passes over device memory.  A
+//   the inverse runs them first): two passes over device memory.  Past
+//   R = 32 (M > 2^20 at Mi = 32768) a thread would hold more than 32
+//   residues and spill, so the outer stages run in passes of at most five
+//   (a stage offset i0 into the same factored tables), one more pass over
+//   device memory each; there is no upper limit on R.  A
 //   thread-block cluster holding the transform in distributed shared memory
 //   (one pass) was tried: at R <= 8 it saved 4-8 %, at R = 16 it ran slower
 //   than the two passes, which keep two inner CTAs a SM (PERF.md).
@@ -79,7 +83,7 @@
 //   sc [L, M, 2]   psi^i (forward) or psi^-i * M^-1 (inverse); unused for
 //                  cyclic transforms.
 //   consts [L, 3]  p, M^-1 mod p, Shoup constant of M^-1.
-//   split:  col [L, s, Mi, 2] = w^(2^i c), row [L, s, R/2, 2] =
+//   split (s = log2 R):  col [L, s, Mi, 2] = w^(2^i c), row [L, s, R/2, 2] =
 //           w^(2^i Mi lo) (inverse: w^-1), sc [L, R, Mi, 2] twists,
 //           consts with the full-size M^-1.
 //
@@ -479,103 +483,127 @@ cudaError_t launch_e(const uint32_t* x, uint32_t* y, const uint2* tw, const uint
 // the split transform's outer stages (factored twiddles)
 // ---------------------------------------------------------------------------
 
-// All log2(R) outer stages on the R residues v[r] = x[r, c] of column c.
-// col: [s, Mi] pairs of the limb; row: [s, R/2] pairs of the limb.
-template <int kLogR, bool kInverse>
-__device__ __forceinline__ void outer_stages(uint32_t (&v)[1 << kLogR],
+// One pass of outer stages i0 .. i0 + K - 1 (K = 2^kLogK) on the K residues
+// v[m] of a thread: rows r(m) = (hi << (log_r - i0)) | (m << log_lo) | lo
+// of column c, log_lo = log_r - i0 - K.  Stage i pairs rows at distance
+// d = R >> (i + 1), which is m-distance dl = K >> (i - i0 + 1); the b-row
+// twiddle of stage i is w^(2^i (lo_i Mi + c)) with lo_i = r mod d =
+// ((m mod dl) << log_lo) | lo, as col[i, c] times row[i, lo_i].
+// col: [log_r, Mi] pairs of the limb; row: [log_r, R/2] pairs of the limb.
+template <int kLogK, bool kInverse>
+__device__ __forceinline__ void outer_stages(uint32_t (&v)[1 << kLogK],
                                              const uint2* __restrict__ col,
                                              const uint2* __restrict__ row, uint32_t c,
-                                             int log_mi, uint32_t p) {
-  constexpr int R = 1 << kLogR;
+                                             int log_mi, int log_r, int i0, uint32_t lo,
+                                             int log_lo, uint32_t p) {
+  constexpr int K = 1 << kLogK;
 #pragma unroll
-  for (int k = 0; k < kLogR; ++k) {
-    const int i = kInverse ? kLogR - 1 - k : k;  // DIT runs the stages in reverse
-    const int d = R >> (i + 1);
+  for (int k = 0; k < kLogK; ++k) {
+    const int e = kInverse ? kLogK - 1 - k : k;  // DIT runs the stages in reverse
+    const int i = i0 + e;
+    const int dl = K >> (e + 1);
     const uint2 wc = __ldg(col + (static_cast<size_t>(i) << log_mi) + c);
+    const uint2* rw = row + (static_cast<size_t>(i) << (log_r - 1));
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if ((r & (2 * d - 1)) < d) {
-        const int lo = r & (d - 1);
-        const uint32_t a = v[r];
+    for (int m = 0; m < K; ++m) {
+      if ((m & (2 * dl - 1)) < dl) {
+        const uint32_t lo_i = (static_cast<uint32_t>(m & (dl - 1)) << log_lo) | lo;
+        const uint32_t a = v[m];
         if (kInverse) {
-          uint32_t m = shoup_mul(v[r + d], wc, p);
-          if (lo) m = shoup_mul(m, __ldg(row + i * (R / 2) + lo), p);
-          v[r] = add_mod(a, m, p);
-          v[r + d] = sub_mod(a, m, p);
+          uint32_t mm = shoup_mul(v[m + dl], wc, p);
+          if (lo_i) mm = shoup_mul(mm, __ldg(rw + lo_i), p);
+          v[m] = add_mod(a, mm, p);
+          v[m + dl] = sub_mod(a, mm, p);
         } else {
-          const uint32_t b = v[r + d];
-          v[r] = add_mod(a, b, p);
+          const uint32_t b = v[m + dl];
+          v[m] = add_mod(a, b, p);
           uint32_t t = shoup_mul(sub_mod(a, b, p), wc, p);
-          if (lo) t = shoup_mul(t, __ldg(row + i * (R / 2) + lo), p);
-          v[r + d] = t;
+          if (lo_i) t = shoup_mul(t, __ldg(rw + lo_i), p);
+          v[m + dl] = t;
         }
       }
     }
   }
 }
 
-// The split's outer pass: one thread per (row, limb, column c) of the
-// [B, L, R, Mi] view, global to global.  Forward: psi twist + outer DIF;
-// inverse: outer DIT + psi^-k M^-1 or M^-1.
-template <int kLogR, bool kInverse, bool kNegacyclic>
+// One pass of the split's outer stages, i0 .. i0 + K - 1 of log_r: one
+// thread per (row, limb, hi, lo, column c) of the [B, L, R, Mi] view, global
+// to global.  The first forward pass (i0 = 0) twists by psi; the last
+// inverse pass (i0 = 0, the stages run in reverse) scales by psi^-k M^-1 or
+// M^-1.  With K = R it is the whole outer transform in one pass.
+template <int kLogK, bool kInverse, bool kNegacyclic>
 __global__ void outer_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
                              const uint2* __restrict__ col, const uint2* __restrict__ row,
                              const uint2* __restrict__ sc,
                              const uint32_t* __restrict__ consts, size_t columns, int L,
-                             int log_mi) {
-  constexpr int R = 1 << kLogR;
+                             int log_mi, int log_r, int i0) {
+  constexpr int K = 1 << kLogK;
   const size_t t = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= columns) return;
   const size_t Mi = static_cast<size_t>(1) << log_mi;
   const uint32_t c = static_cast<uint32_t>(t & (Mi - 1));
-  const size_t bl = t >> log_mi;  // row * L + limb
+  const size_t u = t >> log_mi;
+  const int log_j = log_r - kLogK;  // (hi, lo) pairs of a column: R / K
+  const uint32_t j = static_cast<uint32_t>(u & ((static_cast<size_t>(1) << log_j) - 1));
+  const size_t bl = u >> log_j;  // row * L + limb
   const int limb = static_cast<int>(bl % L);
-  const size_t base = bl * R * Mi + c;
-  const uint2* scl = sc + (static_cast<size_t>(limb) * R << log_mi) + c;
+  const int log_lo = log_j - i0;
+  const uint32_t lo = j & ((1u << log_lo) - 1u);
+  const uint32_t r0 = ((j >> log_lo) << (log_r - i0)) | lo;  // r(0); r(m) = r0 + (m << log_lo)
+  const size_t base = ((bl << log_r) << log_mi) + c;
+  const uint2* scl = sc + ((static_cast<size_t>(limb) << log_r) << log_mi) + c;
   const uint32_t p = consts[3 * limb];
+  const bool edge = i0 == 0;  // the twist (forward) or the scale (inverse) belongs here
 
-  uint32_t v[R];
+  uint32_t v[K];
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    v[r] = x[base + r * Mi];
-    if (!kInverse && kNegacyclic) v[r] = shoup_mul(v[r], __ldg(scl + r * Mi), p);
+  for (int m = 0; m < K; ++m) {
+    const size_t r = r0 + (static_cast<uint32_t>(m) << log_lo);
+    v[m] = x[base + (r << log_mi)];
+    if (!kInverse && kNegacyclic && edge) v[m] = shoup_mul(v[m], __ldg(scl + (r << log_mi)), p);
   }
-  outer_stages<kLogR, kInverse>(v, col + (static_cast<size_t>(limb) * kLogR << log_mi),
-                                row + limb * kLogR * (R / 2), c, log_mi, p);
-  if (kInverse) {
+  outer_stages<kLogK, kInverse>(v, col + ((static_cast<size_t>(limb) * log_r) << log_mi),
+                                row + ((static_cast<size_t>(limb) * log_r) << (log_r - 1)), c,
+                                log_mi, log_r, i0, lo, log_lo, p);
+  if (kInverse && edge) {
     const uint2 minv = make_uint2(consts[3 * limb + 1], consts[3 * limb + 2]);
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      v[r] = kNegacyclic ? shoup_mul(v[r], __ldg(scl + r * Mi), p) : shoup_mul(v[r], minv, p);
+    for (int m = 0; m < K; ++m) {
+      const size_t r = r0 + (static_cast<uint32_t>(m) << log_lo);
+      v[m] = kNegacyclic ? shoup_mul(v[m], __ldg(scl + (r << log_mi)), p)
+                         : shoup_mul(v[m], minv, p);
     }
   }
 #pragma unroll
-  for (int r = 0; r < R; ++r) y[base + r * Mi] = v[r];
+  for (int m = 0; m < K; ++m) {
+    const size_t r = r0 + (static_cast<uint32_t>(m) << log_lo);
+    y[base + (r << log_mi)] = v[m];
+  }
 }
 
-template <int kLogR, bool kInverse, bool kNegacyclic>
+template <int kLogK, bool kInverse, bool kNegacyclic>
 cudaError_t launch_outer(const uint32_t* x, uint32_t* y, const uint2* col, const uint2* row,
                          const uint2* sc, const uint32_t* consts, int rows, int L, int log_mi,
-                         cudaStream_t stream) {
-  const size_t columns = static_cast<size_t>(rows) * static_cast<size_t>(L) << log_mi;
+                         int log_r, int i0, cudaStream_t stream) {
+  const size_t columns = (static_cast<size_t>(rows) * static_cast<size_t>(L)
+                          << (log_r - kLogK)) << log_mi;
   const int threads = 256;
   const unsigned int blocks = static_cast<unsigned int>((columns + threads - 1) / threads);
-  outer_kernel<kLogR, kInverse, kNegacyclic><<<blocks, threads, 0, stream>>>(
-      x, y, col, row, sc, consts, columns, L, log_mi);
+  outer_kernel<kLogK, kInverse, kNegacyclic><<<blocks, threads, 0, stream>>>(
+      x, y, col, row, sc, consts, columns, L, log_mi, log_r, i0);
   return cudaGetLastError();
 }
 
-template <int kLogR>
+template <int kLogK>
 cudaError_t launch_outer_mode(const uint32_t* x, uint32_t* y, const uint2* col,
                               const uint2* row, const uint2* sc, const uint32_t* consts,
-                              int rows, int L, int log_mi, bool inv, bool nega,
-                              cudaStream_t st) {
-  if (inv) {
-    return nega ? launch_outer<kLogR, true, true>(x, y, col, row, sc, consts, rows, L, log_mi, st)
-                : launch_outer<kLogR, true, false>(x, y, col, row, sc, consts, rows, L, log_mi, st);
-  }
-  return nega ? launch_outer<kLogR, false, true>(x, y, col, row, sc, consts, rows, L, log_mi, st)
-              : launch_outer<kLogR, false, false>(x, y, col, row, sc, consts, rows, L, log_mi, st);
+                              int rows, int L, int log_mi, int log_r, int i0, bool inv,
+                              bool nega, cudaStream_t st) {
+#define RINGSNARK_OUTER(I, N)                                                              \
+  launch_outer<kLogK, I, N>(x, y, col, row, sc, consts, rows, L, log_mi, log_r, i0, st)
+  if (inv) return nega ? RINGSNARK_OUTER(true, true) : RINGSNARK_OUTER(true, false);
+  return nega ? RINGSNARK_OUTER(false, true) : RINGSNARK_OUTER(false, false);
+#undef RINGSNARK_OUTER
 }
 
 }  // namespace
@@ -611,12 +639,17 @@ extern "C" int ringsnark_ntt_launch(const void* x, void* y, const void* tw, cons
   return static_cast<int>(err);
 }
 
+// One pass of the outer stages i0 .. i0 + 2^log_k - 1 of the log_r outer
+// stages (log_k <= 5: at most 32 residues a thread, no spill); ops/cuda_ntt
+// runs a split of R > 32 as several passes.
 extern "C" int ringsnark_ntt_outer_launch(const void* x, void* y, const void* col,
                                           const void* row, const void* sc, const void* consts,
                                           int rows, int L, int log_r, int log_mi, int inverse,
-                                          int negacyclic, void* stream) {
-  if (log_r < 1 || log_r > 5 || log_mi < 1 || log_mi > 20 || rows < 1 || L < 1 ||
-      ((static_cast<long long>(rows) * L) << log_mi) / 256 > 0x7fffffffLL) {
+                                          int negacyclic, int i0, int log_k, void* stream) {
+  if (log_r < 1 || log_r > 16 || log_k < 1 || log_k > 5 || i0 < 0 || i0 + log_k > log_r ||
+      log_mi < 1 || log_mi > 20 || rows < 1 || L < 1 ||
+      (((static_cast<long long>(rows) * L) << (log_r - log_k)) << log_mi) / 256 >
+          0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const uint32_t* xi = static_cast<const uint32_t*>(x);
@@ -628,12 +661,15 @@ extern "C" int ringsnark_ntt_outer_launch(const void* x, void* y, const void* co
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool inv = inverse != 0, nega = negacyclic != 0;
   cudaError_t err;
-  switch (log_r) {
-    case 1: err = launch_outer_mode<1>(xi, yo, co, ro, s, c, rows, L, log_mi, inv, nega, st); break;
-    case 2: err = launch_outer_mode<2>(xi, yo, co, ro, s, c, rows, L, log_mi, inv, nega, st); break;
-    case 3: err = launch_outer_mode<3>(xi, yo, co, ro, s, c, rows, L, log_mi, inv, nega, st); break;
-    case 4: err = launch_outer_mode<4>(xi, yo, co, ro, s, c, rows, L, log_mi, inv, nega, st); break;
-    default: err = launch_outer_mode<5>(xi, yo, co, ro, s, c, rows, L, log_mi, inv, nega, st); break;
+#define RINGSNARK_OUTER_K(K) \
+  launch_outer_mode<K>(xi, yo, co, ro, s, c, rows, L, log_mi, log_r, i0, inv, nega, st)
+  switch (log_k) {
+    case 1: err = RINGSNARK_OUTER_K(1); break;
+    case 2: err = RINGSNARK_OUTER_K(2); break;
+    case 3: err = RINGSNARK_OUTER_K(3); break;
+    case 4: err = RINGSNARK_OUTER_K(4); break;
+    default: err = RINGSNARK_OUTER_K(5); break;
   }
+#undef RINGSNARK_OUTER_K
   return static_cast<int>(err);
 }

@@ -29,6 +29,7 @@ __all__ = [
     "sample_a_e",
     "encrypt",
     "decrypt_to_slots",
+    "decrypt_to_slots_exact",
     "ct_add",
     "ct_mul_plain",
     "modswitch",
@@ -314,3 +315,32 @@ def _decrypt_device(ctx: EncodingContext, s_ntt, c0, c1, level: int):
                             dtype=_I64, device=dev)
     m = torch.remainder(m * inv_corr[:, None], t[:, None]).to(_I32)
     return _ntt.negacyclic_ntt_rev(m, ctx.plain_plan), budget
+
+
+def decrypt_to_slots_exact(ctx: EncodingContext, sk: SecretKey, ct, level: int):
+    """Big-integer oracle of `decrypt_to_slots`, on the host: c(s) composed
+    by CRT in Python integers and centred, the budget floor(log2((Q/2) /
+    |c(s)|_inf)) in exact integers, the message c(s) mod t with the
+    modswitch correction undone.  Returns the same (slots, budget) tensors,
+    on the ciphertext's device; exact by construction, so it checks the
+    float64 CRT of the device decode."""
+    primes = ctx.level_primes(level)
+    coeffs = _ct_s_coeffs(ctx, sk.s_ntt, ct[0], ct[1], level)
+    dev = coeffs.device
+    coeffs = coeffs.cpu().numpy()  # [*, L, L', N'] residues
+    Q = math.prod(primes)
+    comp = np.zeros(coeffs.shape[:-2] + coeffs.shape[-1:], dtype=object)
+    for j, qj in enumerate(primes):
+        Mj = Q // qj
+        comp += coeffs[..., j, :].astype(object) * (Mj * pow(Mj, -1, qj))
+    comp %= Q
+    centered = np.where(comp > Q // 2, comp - Q, comp)
+    absmax = np.abs(centered).max(axis=-1)  # [*, L], Python ints
+    budget = np.array([((Q // 2) // max(int(x), 1)).bit_length() - 1 for x in absmax.flat],
+                      dtype=np.int64).reshape(absmax.shape)
+    t = ctx.t_np.astype(object)[:, None]  # [L, 1]
+    inv_corr = np.array([pow(int(c), -1, int(ti)) for c, ti in
+                         zip(ctx.correction_factor(level), ctx.ring.primes)], dtype=object)
+    m = (centered % t) * inv_corr[:, None] % t  # [*, L, N'] in [0, t)
+    m = torch.from_numpy(m.astype(np.int64).astype(np.int32)).to(dev)
+    return _ntt.negacyclic_ntt_rev(m, ctx.plain_plan), torch.from_numpy(budget).to(dev)

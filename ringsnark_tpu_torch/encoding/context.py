@@ -8,6 +8,7 @@ ciphertext primes Q_j form the modswitch chain.  Tensors live on
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from functools import cached_property, lru_cache
 
@@ -94,9 +95,18 @@ class EncodingContext:
     def L_inner(self) -> int:
         return len(self.inner_primes)
 
+    @property
+    def num_levels(self) -> int:
+        """Usable modswitch levels: level k keeps inner_primes[: L_inner-k]."""
+        return self.L_inner
+
     def level_primes(self, level: int) -> tuple[int, ...]:
         assert 0 <= level < self.L_inner
         return self.inner_primes[: self.L_inner - level]
+
+    def Q_total(self, level: int = 0) -> int:
+        """The ciphertext modulus at `level`: the product of its primes."""
+        return math.prod(self.level_primes(level))
 
     def inner_plan(self, level: int = 0) -> _ntt.NTTPlan:
         """Negacyclic plan over the remaining inner primes at `level`."""

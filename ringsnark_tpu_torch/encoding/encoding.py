@@ -61,6 +61,10 @@ class Encoding:
     def __getitem__(self, idx):
         return Encoding(self.ctx, self.c0[idx], self.c1[idx], self.level)
 
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
     def is_zero_ct(self) -> bool:
         """Transparent-zero check (host)."""
         return not (bool(self.c0.any()) or bool(self.c1.any()))
@@ -88,6 +92,14 @@ class Encoding:
         c0, c1 = bgv.modswitch(self.ctx, (self.c0, self.c1), self.level)
         return Encoding(self.ctx, c0, c1, self.level + 1)
 
+    def sum_batch(self) -> "Encoding":
+        """Sum over the leading batch axis, in int64 (exact: every term is
+        < 2^31 and a batch has < 2^32 rows), reduced once."""
+        Q = self.ctx.inner_consts(self.level)
+        c0, c1 = (torch.remainder(c.to(torch.int64).sum(0), Q).to(torch.int32)
+                  for c in (self.c0, self.c1))
+        return Encoding(self.ctx, c0, c1, self.level)
+
     def __eq__(self, other):
         if not isinstance(other, Encoding):
             return NotImplemented
@@ -99,6 +111,14 @@ class Encoding:
 
     def size_in_bits(self) -> int:
         return self.ctx.size_in_bits(math.prod(self.batch_shape), self.level)
+
+    @classmethod
+    def zero(cls, ctx: EncodingContext, batch_shape=(), level: int = 0) -> "Encoding":
+        """The transparent-zero encoding (a valid encryption of 0 with zero
+        noise), on the context's device."""
+        shape = (*batch_shape, ctx.L, ctx.L_inner - level, ctx.n_inner)
+        z = torch.zeros(shape, dtype=torch.int32, device=ctx.device)
+        return cls(ctx, z, z, level)
 
 
 def encode(ctx: EncodingContext, sk: SecretKey, rs: RingElem, key) -> Encoding:

@@ -8,9 +8,10 @@ four modes, ``ntt``) and the split large-M path `ntt_split_pallas` with its
 loaded with ctypes).  Nothing is built or loaded at import time.
 
 ``ntt`` is one launch of the register-radix shared-memory kernel; its
-schedule (``geometry``, ``kernel_passes``, ``swizzle``) lives here as well
-as in the source, so the CPU tests can replay it.  ``ntt_split`` is two
-passes: the outer kernel (factored twiddles) and the shared-memory kernel
+schedule (``geometry``, ``kernel_passes``, ``swizzle``, ``outer_passes``)
+lives here as well as in the source, so the CPU tests can replay it.
+``ntt_split`` is the outer kernel (factored twiddles; one pass up to
+R = 32, passes of at most five stages above) and the shared-memory kernel
 over the ``[B, L, R, mi]`` view.
 
 The wrappers take only int32 CUDA tensors ``[B, L, M]`` (contiguous) and
@@ -39,11 +40,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .ntt import SPLIT_MI, NTTPlan, _mod_powers, get_plan, shoup_np
+from .ntt import NTTPlan, _mod_powers, get_plan, shoup_np, split_mi
 from .primes import root_of_unity
 
-__all__ = ["build", "ntt", "ntt_split", "geometry", "kernel_passes", "launch_counts",
-           "reset_launch_counts", "mode_name", "MODES", "SPLIT_MODES", "CTA_ORDERS"]
+__all__ = ["build", "ntt", "ntt_split", "geometry", "kernel_passes", "outer_passes",
+           "launch_counts", "reset_launch_counts", "mode_name", "MODES", "SPLIT_MODES",
+           "CTA_ORDERS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "ntt.cu"
@@ -117,7 +119,7 @@ def build() -> BuildResult:
 def _lib():
     lib = ctypes.CDLL(str(build().path))
     for name, n_ptr, n_int in (("ringsnark_ntt_launch", 5, 11),
-                               ("ringsnark_ntt_outer_launch", 6, 6)):
+                               ("ringsnark_ntt_outer_launch", 6, 8)):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -303,48 +305,73 @@ def _split_tables(primes: tuple, M: int, Mi: int, inverse: bool, negacyclic: boo
                              _words(consts, device))
 
 
+MAX_OUTER_STAGES = 5  # stages of one outer pass: 32 residues a thread
+
+
+def outer_passes(log_r: int, inverse: bool) -> list:
+    """The outer kernel's passes over the log_r outer stages, in execution
+    order, as (i0, k): stages i0 .. i0 + k - 1, k <= MAX_OUTER_STAGES, as
+    even as possible (one pass up to R = 32).  The forward transform runs
+    them from stage 0 up, the inverse from the last pass down."""
+    n = -(-log_r // MAX_OUTER_STAGES)
+    ks = [log_r // n + (j < log_r % n) for j in range(n)]
+    passes = [(sum(ks[:j]), k) for j, k in enumerate(ks)]
+    return passes[::-1] if inverse else passes
+
+
 def _split_check(x: torch.Tensor, plan: NTTPlan, negacyclic: bool, mi: int) -> int:
     L, M = plan.L, plan.M
     _check(x, plan, negacyclic, "ntt_split")
     R = M // mi
-    if (tuple(x.shape[-2:]) != (L, M) or M % mi or R < 2 or R > 32 or R & (R - 1)
+    if (tuple(x.shape[-2:]) != (L, M) or M % mi or R < 2 or R & (R - 1)
             or mi > 32768 or mi & (mi - 1)):
         raise ValueError(f"shape {tuple(x.shape)} does not fit a split of M={M} into "
-                         f"R x {mi} with R = 2 .. 32")
+                         f"R x {mi} with R a power of two >= 2")
     return R
 
 
 def ntt_split(x: torch.Tensor, plan: NTTPlan, inverse: bool, negacyclic: bool,
-              mi: int = SPLIT_MI) -> torch.Tensor:
+              mi: int | None = None) -> torch.Tensor:
     """The split transform of ``x``: int32 CUDA ``[..., L, M]``, contiguous,
-    M = R * mi with R = 2 .. 32, in two passes.  Forward: the outer kernel
-    (psi twist + outer DIF stages), then the shared-memory kernel over the R
-    rows of size mi; inverse: the shared-memory kernel unscaled, then the
-    outer kernel (DIT stages + the full-size scale).  Counted once, as
+    M = R * mi (mi defaults to ``split_mi(M)``), R a power of two >= 2.
+    Forward: the outer kernel's passes (psi twist + outer DIF stages, one
+    pass up to R = 32), then the shared-memory kernel over the R rows of
+    size mi; inverse: the shared-memory kernel unscaled, then the outer
+    passes (DIT stages + the full-size scale).  Counted once, as
     ``split_<mode>``."""
+    mi = split_mi(plan.M) if mi is None else mi
     R = _split_check(x, plan, negacyclic, mi)
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
     st = _split_tables(plan.primes, plan.M, mi, inverse, negacyclic, str(x.device))
     rows = x.numel() // (plan.L * plan.M)
-    tmp = torch.empty_like(x)
+    log_r = R.bit_length() - 1
 
-    def outer(src, dst):
-        with torch.cuda.device(x.device):
-            rc = _lib().ringsnark_ntt_outer_launch(
-                src.data_ptr(), dst.data_ptr(), st.col.data_ptr(), st.row.data_ptr(),
-                st.sc.data_ptr(), st.consts.data_ptr(), rows, plan.L, R.bit_length() - 1,
-                mi.bit_length() - 1, int(inverse), int(negacyclic), _stream(x),
-            )
-        if rc != 0:
-            raise RuntimeError(f"NTT outer kernel launch failed: cudaError {rc}")
+    def outer(i0, k):
+        def run(src, dst):
+            with torch.cuda.device(x.device):
+                rc = _lib().ringsnark_ntt_outer_launch(
+                    src.data_ptr(), dst.data_ptr(), st.col.data_ptr(), st.row.data_ptr(),
+                    st.sc.data_ptr(), st.consts.data_ptr(), rows, plan.L, log_r,
+                    mi.bit_length() - 1, int(inverse), int(negacyclic), i0, k, _stream(x),
+                )
+            if rc != 0:
+                raise RuntimeError(f"NTT outer kernel launch failed: cudaError {rc}")
+        return run
 
-    if not inverse:
-        outer(x, tmp)
-        _launch(tmp, y, plan.primes, mi, False, False, rows, S=R)
-    else:
-        _launch(x, tmp, plan.primes, mi, True, False, rows, S=R, scale=False)
-        outer(tmp, y)
+    def inner(src, dst):
+        _launch(src, dst, plan.primes, mi, inverse, False, rows, S=R, scale=False)
+
+    outers = [outer(i0, k) for i0, k in outer_passes(log_r, inverse)]
+    steps = [inner] + outers if inverse else outers + [inner]
+    # each step reads one buffer and writes another: the last writes y, the
+    # others alternate between two scratch buffers
+    scratch = [torch.empty_like(x) for _ in range(min(2, len(steps) - 1))]
+    src = x
+    for n, step in enumerate(steps):
+        dst = y if n == len(steps) - 1 else scratch[n % 2]
+        step(src, dst)
+        src = dst
     launch_counts["split_" + mode_name(inverse, negacyclic)] += 1
     return y

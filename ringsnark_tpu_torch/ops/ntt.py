@@ -23,9 +23,9 @@ for bit.
 
 Dispatch: a CUDA tensor goes to the hand-written kernels
 (``ops/cuda_ntt.py``): the shared-memory kernel up to ``MAX_KERNEL_M``, the
-split kernel above it (M a multiple of ``SPLIT_MI`` up to ``MAX_SPLIT_M``).
+split kernel above it at any power of two (inner size ``split_mi(M)``).
 A CPU tensor goes to the plain PyTorch twin (``*_plain`` below).  A CUDA
-tensor never reaches a twin: other sizes raise ``NotImplementedError``.
+tensor never reaches a twin.
 """
 
 from __future__ import annotations
@@ -54,8 +54,8 @@ __all__ = [
     "get_split_tables",
     "ntt_split_plain",
     "MAX_KERNEL_M",
-    "MAX_SPLIT_M",
     "SPLIT_MI",
+    "split_mi",
     "PLAIN_TWINS",
 ]
 
@@ -405,7 +405,7 @@ def ntt_split_plain(x, plan: NTTPlan, inverse: bool, negacyclic: bool, mi: int =
     stages in int64 on the ``[..., L, R, Mi]`` view, and the plain twins'
     stages for the R inner cyclic transforms of size Mi (unscaled).  Equal
     to the full-size transform of the same mode, bit for bit."""
-    mi = SPLIT_MI if mi is None else mi
+    mi = split_mi(plan.M) if mi is None else mi
     M, L = plan.M, plan.L
     assert tuple(x.shape[-2:]) == (L, M), (tuple(x.shape), L, M)
     assert not negacyclic or plan.negacyclic, "negacyclic transform with a cyclic plan"
@@ -459,11 +459,16 @@ def ntt_split_plain(x, plan: NTTPlan, inverse: bool, negacyclic: bool, mi: int =
 
 # Largest transform the shared-memory kernel holds (128 KiB of residues).
 MAX_KERNEL_M = 32768
-# The split route: M = R * SPLIT_MI (the JAX package's ``_SPLIT_MI``) with
-# R = 2 .. 32, i.e. M = 2^15 .. 2^19; MAX_KERNEL_M itself stays on the
-# shared-memory kernel.
+# The split route for M > MAX_KERNEL_M: M = R * mi with mi = SPLIT_MI (the
+# JAX package's ``_SPLIT_MI``) up to R = 32, i.e. M = 2^15 .. 2^19, where the
+# outer stages take one pass; above, mi = MAX_KERNEL_M, so 2^20 still takes
+# one outer pass and every larger size one more pass per five stages.
 SPLIT_MI = 16384
-MAX_SPLIT_M = 1 << 19
+
+
+def split_mi(M: int) -> int:
+    """The inner size of the split transform of size M > MAX_KERNEL_M."""
+    return SPLIT_MI if M <= 32 * SPLIT_MI else MAX_KERNEL_M
 
 # (inverse, negacyclic) -> plain twin
 PLAIN_TWINS = {
@@ -483,12 +488,7 @@ def _dispatch(x, plan: NTTPlan, inverse: bool, negacyclic: bool):
 
     if plan.M <= MAX_KERNEL_M:
         return cuda_ntt.ntt(x.contiguous(), plan, inverse=inverse, negacyclic=negacyclic)
-    if plan.M <= MAX_SPLIT_M and plan.M % SPLIT_MI == 0:
-        return cuda_ntt.ntt_split(x.contiguous(), plan, inverse=inverse, negacyclic=negacyclic)
-    raise NotImplementedError(
-        f"NTT of size {plan.M}: the CUDA kernels take M <= {MAX_KERNEL_M}, or a "
-        f"multiple of {SPLIT_MI} up to {MAX_SPLIT_M} (split kernel)"
-    )
+    return cuda_ntt.ntt_split(x.contiguous(), plan, inverse=inverse, negacyclic=negacyclic)
 
 
 def cyclic_ntt_rev(x, plan: NTTPlan):

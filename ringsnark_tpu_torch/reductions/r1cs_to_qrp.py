@@ -1,8 +1,9 @@
-"""R1CS -> QRP reduction: evaluated instance map and the prover's witness map.
+"""R1CS -> QRP reduction: instance maps and witness maps.
 
-Port of ``ringsnark_tpu/reductions/r1cs_to_qrp.py`` (the parts on the
-ringGroth16 prove/verify path):
+Port of ``ringsnark_tpu/reductions/r1cs_to_qrp.py``:
 
+* ``r1cs_to_qrp_instance_map``: the constraint coefficients scattered into
+  Lagrange-basis maps (host, the reference's form);
 * ``r1cs_to_qrp_instance_map_with_evaluation`` / ``eval_instance_arrays``:
   the QRP basis polynomials at t by a transposed SpMV over the Lagrange
   values;
@@ -11,7 +12,11 @@ ringGroth16 prove/verify path):
   cyclic NTT product whose upper half is H — assembled per slot chunk;
 * ``witness_map_kernel_chunked``: the ZK witness map (modes ``"mid"`` and
   ``"all"``) over the full/io/mid assignment batches of
-  ``_assignment_batches``, with the patch (d2·A + d1·B − d3) + d1·d2·Z.
+  ``_assignment_batches``, with the patch (d2·A + d1·B − d3) + d1·d2·Z;
+  ``r1cs_to_qrp_witness_map`` wraps its ``"all"`` mode in a ``QRPWitness``;
+* ``r1cs_to_qrp_witness_map_generic``: the reference's control flow with
+  list-based polynomials (``utils/poly.py``) on any domain and element type
+  (``IntegerDomain``, ``OracleElem``), for cross-checks.
 
 The io/mid split of the repo counts the constant column once, on the io
 side (not the C++ reference's double count); the prover-mode map needs only
@@ -24,15 +29,19 @@ import torch
 
 from ..ops import ntt as _ntt
 from ..ops.modops import add_mod, mul_mod, neg_mod, sub_mod
-from ..relations.qrp import QRPInstanceEvaluation
-from ..relations.r1cs import CompiledR1CS, spmv
+from ..relations.qrp import QRPInstance, QRPInstanceEvaluation, QRPWitness
+from ..relations.r1cs import CompiledR1CS, R1CSConstraintSystem, spmv
 from ..rings.elem import RingElem
+from ..utils import poly as _poly
 from ..utils.domain import RootsDomain
 
 __all__ = [
     "mod_powers_device",
+    "r1cs_to_qrp_instance_map",
     "r1cs_to_qrp_instance_map_with_evaluation",
     "eval_instance_arrays",
+    "r1cs_to_qrp_witness_map",
+    "r1cs_to_qrp_witness_map_generic",
     "prover_witness_map_chunked",
     "witness_map_kernel_chunked",
 ]
@@ -50,6 +59,21 @@ def mod_powers_device(t_res, count: int, ctx):
 # ---------------------------------------------------------------------------
 # instance map with evaluation
 # ---------------------------------------------------------------------------
+
+
+def r1cs_to_qrp_instance_map(cs: R1CSConstraintSystem, domain) -> QRPInstance:
+    """Scatter constraint coefficients into Lagrange-basis maps
+    (`r1cs_to_qrp.tcc:26-58`)."""
+    nv = cs.num_variables()
+    A = [dict() for _ in range(nv + 1)]
+    B = [dict() for _ in range(nv + 1)]
+    C = [dict() for _ in range(nv + 1)]
+    for i, cons in enumerate(cs.constraints):
+        for M, lc in ((A, cons.a), (B, cons.b), (C, cons.c)):
+            for term in lc.terms:
+                d = M[term.index]
+                d[i] = d[i] + term.coeff if i in d else term.coeff
+    return QRPInstance(domain, nv, domain.m, cs.num_inputs(), A, B, C)
 
 
 def r1cs_to_qrp_instance_map_with_evaluation(
@@ -209,6 +233,34 @@ def _witness_map_kernel(comp, z_full, z_io, z_mid, d1r, d2r, d3r, domain, output
     return (*legs(z_io), *mids, Z, H)
 
 
+def r1cs_to_qrp_witness_map(comp: CompiledR1CS, primary, auxiliary, d1: RingElem,
+                            d2: RingElem, d3: RingElem, domain: RootsDomain) -> QRPWitness:
+    """The witness map on tensors (`r1cs_to_qrp.tcc:148-259` semantics): the
+    io and mid coefficient vectors, Z and H with the ZK patch, as a
+    ``QRPWitness`` of RingElem batches.  `primary`/`auxiliary` are lists of
+    RingElem or RingElem batches."""
+    ctx = comp.ctx
+    full, io, mid = _assignment_batches(ctx, primary, auxiliary)
+    outs = witness_map_kernel_chunked(comp, full.res, io.res, mid.res, d1.res, d2.res,
+                                      d3.res, domain, outputs="all")
+    a_io, b_io, c_io, a_mid, b_mid, c_mid, Z, H = (RingElem(ctx, x) for x in outs)
+    return QRPWitness(
+        num_variables=comp.num_variables,
+        degree=domain.m,
+        num_inputs=comp.primary_input_size,
+        d1=d1, d2=d2, d3=d3,
+        coefficients_for_ABCs=RingElem(ctx, full.res[1:]),
+        coefficients_for_A_io=a_io,
+        coefficients_for_B_io=b_io,
+        coefficients_for_C_io=c_io,
+        coefficients_for_A_mid=a_mid,
+        coefficients_for_B_mid=b_mid,
+        coefficients_for_C_mid=c_mid,
+        coefficients_for_Z=Z,
+        coefficients_for_H=H,
+    )
+
+
 def witness_map_kernel_chunked(comp, z_full, z_io, z_mid, d1r, d2r, d3r, domain,
                                slot_chunk: int = 1024, outputs: str = "all"):
     """`_witness_map_kernel` over chunks of `slot_chunk` slots (slots never
@@ -278,3 +330,63 @@ def prover_witness_map_chunked(comp, p_res, a_res, domain, slot_chunk: int = 102
         for o, pc in zip(out, pieces):
             o[..., sl] = pc
     return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# witness map — generic host path (reference control flow, any ring/domain)
+# ---------------------------------------------------------------------------
+
+
+def r1cs_to_qrp_witness_map_generic(cs: R1CSConstraintSystem, primary: list, auxiliary: list,
+                                    d1, d2, d3, domain) -> QRPWitness:
+    """List-based witness map after `r1cs_to_qrp.tcc:148-259` (with the
+    constant column counted once, on the io side)."""
+    one = type(d1).one(d1.ctx)
+    zero = one - one
+    m = domain.m
+    xs = [domain.get_domain_element(i) for i in range(m)]
+    full = list(primary) + list(auxiliary)
+
+    def eval_rows(assignment, const):
+        rows = {"a": [], "b": [], "c": []}
+        for cons in cs.constraints:
+            for key, lc in (("a", cons.a), ("b", cons.b), ("c", cons.c)):
+                rows[key].append(lc.evaluate(assignment, const))
+        for key in rows:
+            rows[key] += [zero] * (m - len(rows[key]))
+        return rows
+
+    ev_mid = eval_rows([zero] * len(primary) + list(auxiliary), zero)  # no constant in mid
+    ev_io = eval_rows(list(primary) + [zero] * len(auxiliary), one)
+    ev_full = eval_rows(full, one)
+
+    a_mid, b_mid, c_mid = (_poly.interpolate(xs, ev_mid[k]) for k in "abc")
+    a_io, b_io, c_io = (_poly.interpolate(xs, ev_io[k]) for k in "abc")
+    aA, aB, aC = (_poly.interpolate(xs, ev_full[k]) for k in "abc")
+
+    H = [zero] * (m + 1)
+    for i in range(m):
+        H[i] = d2 * aA[i] + d1 * aB[i]
+    H[0] = H[0] - d3
+    H = domain.add_poly_Z(d1 * d2, H)
+
+    diff = _poly.add(_poly.multiply(aA, aB), [-c for c in aC])
+    H_tmp = domain.divide_by_Z(diff)
+    for i in range(min(len(H), len(H_tmp))):
+        H[i] = H[i] + H_tmp[i]
+
+    return QRPWitness(
+        num_variables=cs.num_variables(),
+        degree=m,
+        num_inputs=cs.num_inputs(),
+        d1=d1, d2=d2, d3=d3,
+        coefficients_for_ABCs=full,
+        coefficients_for_A_io=a_io,
+        coefficients_for_B_io=b_io,
+        coefficients_for_C_io=c_io,
+        coefficients_for_A_mid=a_mid,
+        coefficients_for_B_mid=b_mid,
+        coefficients_for_C_mid=c_mid,
+        coefficients_for_Z=domain.vanishing_polynomial(),
+        coefficients_for_H=H,
+    )

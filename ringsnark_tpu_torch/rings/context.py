@@ -76,6 +76,18 @@ class RingContext:
         a = np.ascontiguousarray(np.asarray(arr).astype(np.uint32))
         return torch.from_numpy(a.view(np.int32)).to(self.device)
 
+    def canonical(self, t: torch.Tensor) -> torch.Tensor:
+        """Unsigned 32-bit words [..., L, n] (as int32 or wider) reduced mod
+        each limb's prime, as int32 on the device: the sign bit of an int32
+        word is the word's bit 31, not a sign."""
+        return canonical_residues(t.to(self.device), self.p)
+
+
+def canonical_residues(t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """t: words of [..., K, n] (int32 read as unsigned 32 bits, or wider),
+    p: int64 [K, 1] primes on t's device -> int32 residues in [0, p)."""
+    return torch.remainder(t.to(torch.int64) & 0xFFFFFFFF, p).to(torch.int32)
+
 
 def _canon_device(device) -> str:
     d = torch.device(device)

@@ -53,14 +53,16 @@ class RingElem:
         if not isinstance(slots, torch.Tensor):
             slots = ctx.tensor(slots)
         assert slots.shape[-2] == ctx.L and slots.shape[-1] in (1, ctx.N)
-        wide = slots.to(device=ctx.device, dtype=torch.int64) & 0xFFFFFFFF
-        return cls(ctx, torch.remainder(wide, ctx.p).to(torch.int32))
+        return cls(ctx, ctx.canonical(slots))
 
     @classmethod
     def from_coeffs(cls, ctx: RingContext, coeffs) -> "RingElem":
-        """Build from coefficient form [..., L, N] (applies forward NTT)."""
+        """Build from coefficient form [..., L, N] (applies forward NTT).
+        Like `from_slots`, the words (up to 2^32 - 1) are reduced mod each
+        limb's prime first: the JAX package's first uint32 Barrett multiply
+        reduces them, and the kernels take canonical residues."""
         coeffs = coeffs if isinstance(coeffs, torch.Tensor) else ctx.tensor(coeffs)
-        coeffs = coeffs.to(device=ctx.device, dtype=torch.int32)
+        coeffs = ctx.canonical(coeffs)
         if ctx.N == 1:
             return cls(ctx, coeffs)
         return cls(ctx, negacyclic_ntt_rev(coeffs, ctx.ntt_plan))

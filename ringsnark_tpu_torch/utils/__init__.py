@@ -1,1 +1,2 @@
-"""Evaluation domains, array-path polynomial helpers, and JAX-package interop."""
+"""Evaluation domains, polynomial helpers (list-based and array-path),
+serialization, profiling, the threefry PRNG, and JAX-package interop."""

@@ -1,7 +1,9 @@
 """Carrying keys and proofs across between this package and the JAX package.
 
 Everything crosses as numpy arrays (residues as uint32), so this module
-never imports jax: the JAX side does its own ``np.asarray``.
+never imports jax: the JAX side does its own ``np.asarray``.  Residues that
+come in are masked to 32 bits and reduced mod their primes before they
+become int32 (``residues``): the JAX package may hold unreduced words.
 
 * ``keypair_from_numpy(params, arrays)`` builds a port ``KeyPair`` from the
   arrays of a ringGroth16 keypair, resident or seeded, or from those of a
@@ -51,6 +53,7 @@ import torch
 from ..encoding.context import SecretKey
 from ..encoding.encoding import Encoding
 from ..relations.r1cs import CompiledR1CS
+from ..rings.context import canonical_residues
 from ..rings.elem import RingElem
 from ..snark import rinocchio
 from ..snark.api import KeyPair, SnarkParams
@@ -78,6 +81,18 @@ def _host(t) -> np.ndarray:
     return t.cpu().numpy().view(np.uint32)
 
 
+def residues(arr, p: torch.Tensor) -> torch.Tensor:
+    """A uint32 residue array [..., K, n] from outside, canonical mod the
+    primes p (int64 [K, 1] on the target device), as int32 there."""
+    a = np.ascontiguousarray(np.asarray(arr).astype(np.uint32))
+    return canonical_residues(torch.from_numpy(a.view(np.int32)).to(p.device), p)
+
+
+def _enc(ectx, c0, c1, level: int = 0) -> Encoding:
+    Q = ectx.inner_consts(level)
+    return Encoding(ectx, residues(c0, Q), residues(c1, Q), level)
+
+
 def compiled_from_numpy(ring, c: dict) -> CompiledR1CS:
     """A CompiledR1CS over `ring` from the ``compiled`` dict (see above)."""
 
@@ -91,7 +106,7 @@ def compiled_from_numpy(ring, c: dict) -> CompiledR1CS:
         primary_input_size=int(c["primary_input_size"]),
         rows=tuple(idx(a) for a in c["rows"]),
         cols=tuple(idx(a) for a in c["cols"]),
-        coeffs=tuple(ring.tensor(a) for a in c["coeffs"]),
+        coeffs=tuple(residues(a, ring.p) for a in c["coeffs"]),
     )
 
 
@@ -106,22 +121,23 @@ def keypair_from_numpy(params: SnarkParams, arrays: dict) -> KeyPair:
             return None
         if isinstance(entry, dict):
             batch = int(entry["batch"])
-            return SeededEncoding(ectx, ring.tensor(np.asarray(entry["c0"])[:batch]),
+            return SeededEncoding(ectx, residues(np.asarray(entry["c0"])[:batch],
+                                                 ectx.inner_consts(0)),
                                   key_from_numpy(entry["key"]), int(entry["slab"]), batch)
-        return Encoding(ectx, ring.tensor(entry[0]), ring.tensor(entry[1]), 0)
+        return _enc(ectx, *entry)
 
     crs = {k: enc(arrays["crs"][k]) for k in _CRS}
     # seeded, or the CRS-less key of a streamed proof (no s_pows at all)
     seeded = not isinstance(crs["s_pows"], Encoding)
     pk = (SeededProvingKey if seeded else ProvingKey)(
         compiled=comp, domain=domain, params=params, **crs)
-    vk = {k: RingElem(ring, ring.tensor(arrays["vk"][k])) for k in _VK}
+    vk = {k: RingElem(ring, residues(arrays["vk"][k], ring.p)) for k in _VK}
     return KeyPair(pk=pk, vk=VerificationKey(pk=pk, sk_enc=_sk_from_numpy(ectx, arrays["sk"]),
                                              **vk))
 
 
 def _sk_from_numpy(ectx, sk: dict) -> SecretKey:
-    return SecretKey(ctx=ectx, s_ntt=ectx.ring.tensor(sk["s_ntt"]),
+    return SecretKey(ctx=ectx, s_ntt=residues(sk["s_ntt"], ectx.inner_consts(0)),
                      s_coeffs=np.asarray(sk["s_coeffs"], dtype=np.int8))
 
 
@@ -165,12 +181,10 @@ def rinocchio_vk_from_numpy(params: SnarkParams, arrays: dict) -> rinocchio.Veri
     domain = RootsDomain(ring, int(arrays["domain_size"]))
     assert domain.m == int(arrays["domain_size"])
     crs = arrays.get("crs") or {}
-    encs = {f: None if crs.get(f) is None else
-            Encoding(params.enc, ring.tensor(crs[f][0]), ring.tensor(crs[f][1]), 0)
-            for f in _RIN_CRS}
+    encs = {f: None if crs.get(f) is None else _enc(params.enc, *crs[f]) for f in _RIN_CRS}
     pk = rinocchio.ProvingKey(constraint_system=None, compiled=comp, domain=domain,
                               params=params, **encs)
-    vk = {k: RingElem(ring, ring.tensor(arrays["vk"][k])) for k in _RIN_VK}
+    vk = {k: RingElem(ring, residues(arrays["vk"][k], ring.p)) for k in _RIN_VK}
     return rinocchio.VerificationKey(pk=pk, sk_enc=_sk_from_numpy(params.enc, arrays["sk"]),
                                      **vk)
 
@@ -205,10 +219,7 @@ def proof_to_numpy(proof):
 
 def proof_from_numpy(params: SnarkParams, triples):
     """A ringGroth16 Proof from 3 triples, a Rinocchio Proof from 9."""
-    ring = params.ring
-    encs = [None if t is None else
-            Encoding(params.enc, ring.tensor(t[0]), ring.tensor(t[1]), int(t[2]))
-            for t in triples]
+    encs = [None if t is None else _enc(params.enc, t[0], t[1], int(t[2])) for t in triples]
     if len(encs) == 3:
         return Proof(*encs)
     return rinocchio.Proof(**dict(zip(_RIN_PROOF, encs)))

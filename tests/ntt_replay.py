@@ -124,48 +124,65 @@ def ntt_kernel(x, primes, M, inverse, negacyclic, S=1, limb_major=False, scale=T
     return y.reshape(x.shape)
 
 
-def _outer(v, primes, size, mi, inverse, negacyclic, st):
-    """`outer_stages` (factored twiddles) on v [..., L, R, mi], plus the psi
-    twist before (forward) or the scale after (inverse)."""
-    R, s = size // mi, (size // mi).bit_length() - 1
+def outer_pass(v, primes, log_r, i0, k, inverse, negacyclic, st):
+    """One `outer_kernel` pass, stages i0 .. i0 + k - 1 (factored twiddles),
+    on v [rows, L, R, mi], indexed as the kernel's threads index it: thread
+    (hi, lo) of a column holds rows r(m) = (hi << (log_r - i0)) | (m <<
+    log_lo) | lo.  The pass at i0 = 0 twists by psi first (forward) or scales
+    last (inverse)."""
     col, row, sc, consts = host(st.col), host(st.row), host(st.sc), host(st.consts)
-    p = np.asarray(primes, np.uint64)[:, None]  # [L, 1] against v[..., r, :]
-    v = [v[..., r, :] for r in range(R)]
-    if negacyclic and not inverse:
-        v = [shoup(v[r], sc[:, r], p) for r in range(R)]
-    for i in (range(s - 1, -1, -1) if inverse else range(s)):
-        d = R >> (i + 1)
-        wc = col[:, i]  # [L, mi, 2]
-        for r in range(R):
-            if (r & (2 * d - 1)) >= d:
+    R, K = 1 << log_r, 1 << k
+    log_lo = log_r - k - i0
+    j = np.arange(R // K)
+    lo = j & ((1 << log_lo) - 1)
+    rows_m = (((j >> log_lo) << (log_r - i0)) | lo)[:, None] + (np.arange(K) << log_lo)
+    assert np.array_equal(np.sort(rows_m.ravel()), np.arange(R)), "a pass covers every row"
+    p = np.asarray(primes, np.uint64)[:, None, None]  # [L, 1, 1] against [rows, L, J, mi]
+    v = [v[:, :, rows_m[:, m], :] for m in range(K)]
+    edge = i0 == 0
+    if negacyclic and not inverse and edge:
+        v = [shoup(v[m], sc[:, rows_m[:, m]], p) for m in range(K)]
+    for kk in range(k):
+        e = k - 1 - kk if inverse else kk
+        i, dl = i0 + e, K >> (e + 1)
+        wc = col[:, i][:, None]  # [L, 1, mi, 2]
+        for m in range(K):
+            if (m & (2 * dl - 1)) >= dl:
                 continue
-            lo = r & (d - 1)
-            wr = row[:, i, lo][:, None, :]
-            a = v[r]
+            lo_i = ((m & (dl - 1)) << log_lo) | lo  # [J]
+            wr = row[:, i, lo_i][:, :, None]  # [L, J, 1, 2]
+            nz = (lo_i != 0)[:, None]
+            a = v[m]
             if inverse:
-                m = shoup(v[r + d], wc, p)
-                m = shoup(m, wr, p) if lo else m
-                v[r], v[r + d] = add(a, m, p), sub(a, m, p)
+                mm = shoup(v[m + dl], wc, p)
+                mm = np.where(nz, shoup(mm, wr, p), mm)
+                v[m], v[m + dl] = add(a, mm, p), sub(a, mm, p)
             else:
-                t = shoup(sub(a, v[r + d], p), wc, p)
-                v[r], v[r + d] = add(a, v[r + d], p), (shoup(t, wr, p) if lo else t)
-    if inverse:
-        v = [shoup(v[r], sc[:, r], p) if negacyclic else shoup(v[r], consts[:, None, 1:3], p)
-             for r in range(R)]
-    return np.stack(v, axis=-2)
+                t = shoup(sub(a, v[m + dl], p), wc, p)
+                v[m], v[m + dl] = add(a, v[m + dl], p), np.where(nz, shoup(t, wr, p), t)
+    if inverse and edge:
+        v = [shoup(v[m], sc[:, rows_m[:, m]], p) if negacyclic
+             else shoup(v[m], consts[:, None, None, 1:3], p) for m in range(K)]
+    n, L, _, mi = v[0].shape
+    out = np.empty((n, L, R, mi), np.uint64)
+    for m in range(K):
+        out[:, :, rows_m[:, m], :] = v[m]
+    return out
 
 
-def split_two_pass(x, primes, size, mi, inverse, negacyclic, limb_major=False):
-    """`ntt_split` on its two-pass path: outer kernel + `ntt_kernel` with
-    S = R (inverse: unscaled inner, then the outer kernel)."""
+def ntt_split(x, primes, size, mi, inverse, negacyclic, limb_major=False):
+    """`ntt_split`: the outer kernel's passes (`cuda_ntt.outer_passes`) and
+    `ntt_kernel` with S = R (inverse: unscaled inner first, then the outer
+    passes)."""
     rows, L = x.shape[:2]
     R = size // mi
+    log_r = R.bit_length() - 1
     st = cuda_ntt._split_tables(tuple(primes), size, mi, inverse, negacyclic, "cpu")
-    xr = x.reshape(rows, L, R, mi).astype(np.uint64)
+    v = x.reshape(rows, L, R, mi).astype(np.uint64)
+    if inverse:
+        v = ntt_kernel(v, primes, mi, True, False, R, limb_major, scale=False)
+    for i0, k in cuda_ntt.outer_passes(log_r, inverse):
+        v = outer_pass(v, primes, log_r, i0, k, inverse, negacyclic, st)
     if not inverse:
-        mid = _outer(xr, primes, size, mi, False, negacyclic, st)
-        out = ntt_kernel(mid, primes, mi, False, False, R, limb_major)
-    else:
-        mid = ntt_kernel(xr, primes, mi, True, False, R, limb_major, scale=False)
-        out = _outer(mid, primes, size, mi, True, negacyclic, st)
-    return out.reshape(x.shape)
+        v = ntt_kernel(v, primes, mi, False, False, R, limb_major)
+    return v.reshape(x.shape)

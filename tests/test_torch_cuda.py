@@ -98,12 +98,13 @@ def test_persistent_tiles_equal_twin(cuda, order, M):
 @pytest.mark.gpu
 @pytest.mark.parametrize("negacyclic", [False, True])
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("M", [1 << k for k in range(15, 20)])
+@pytest.mark.parametrize("M", [1 << k for k in range(15, 23)])
 def test_split_kernel_equals_plain(cuda, M, inverse, negacyclic):
-    """The split kernel at every M = 2^15 .. 2^19 equals the plain split and
-    the full-size twin and inverts itself; the dispatcher sends
-    32768 < M <= 2^19 to it, counted once as split_<mode>."""
-    primes = tuple(find_ntt_primes(2, 1 << 20))
+    """The split kernel at every M = 2^15 .. 2^22 equals the plain split and
+    the full-size twin and inverts itself (inner size 16384 up to 2^19,
+    32768 above; 2^21 and 2^22 run the outer stages in two passes); the
+    dispatcher sends every M > 32768 to it, counted once as split_<mode>."""
+    primes = tuple(find_ntt_primes(2, 1 << 23))
     plan = tntt.get_plan(primes, M, negacyclic=negacyclic)
     x = _residues(primes, M, 3, cuda, seed=M)
     y = cuda_ntt.ntt_split(x, plan, inverse, negacyclic)
@@ -143,8 +144,10 @@ def test_refused_launch_raises(cuda, monkeypatch):
 def test_split_sizes_and_bad_inputs_raise(cuda):
     primes = tuple(find_ntt_primes(1, 1 << 21))
     big = tntt.get_plan(primes, 1 << 20)
-    with pytest.raises(NotImplementedError, match="split kernel"):
-        tntt.cyclic_ntt_rev(_residues(primes, 1 << 20, 1, cuda), big)
+    xb = _residues(primes, 1 << 20, 1, cuda)
+    before = cuda_ntt.launch_counts["split_cyclic_fwd"]
+    assert torch.equal(tntt.cyclic_ntt_rev(xb, big), tntt.PLAIN_TWINS[(False, False)](xb, big))
+    assert cuda_ntt.launch_counts["split_cyclic_fwd"] == before + 1
     mid = tntt.get_plan(primes, 65536)
     x16 = _residues(primes, 65536, 1, cuda)
     with pytest.raises(ValueError, match="does not fit a split"):
@@ -163,6 +166,23 @@ def test_split_sizes_and_bad_inputs_raise(cuda):
         cuda_ntt.ntt(x[..., :128].contiguous(), plan, False, True)
     with pytest.raises(ValueError, match="CTA order"):
         cuda_ntt.ntt(x, plan, False, True, order="column")
+
+
+@pytest.mark.gpu
+def test_from_coeffs_unreduced_words_card_equals_cpu(cuda):
+    """Coefficient words in [0, 2^32), canonical or not, give one element
+    on the card and on the CPU (both reduce them before the transform)."""
+    import numpy as np
+
+    from ringsnark_tpu_torch.rings.context import default_context
+    from ringsnark_tpu_torch.rings.elem import RingElem
+
+    rng = np.random.default_rng(3)
+    words = rng.integers(0, 1 << 32, (3, 2, 64), dtype=np.uint64).astype(np.uint32)
+    words[0, :, :4] = [0xFFFFFFFF, 1 << 31, 0, 1]
+    got = {dev: RingElem.from_coeffs(default_context(L=2, N=64, order=1 << 12, device=dev),
+                                     words).res.cpu() for dev in ("cuda", "cpu")}
+    assert torch.equal(got["cuda"], got["cpu"])
 
 
 def _small_params(L, device):

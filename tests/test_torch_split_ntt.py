@@ -72,9 +72,9 @@ def test_split_plain_matches_jax_split_and_full_twin(primes, jax_split, inverse,
     assert np.array_equal(_u32(back), x)
 
 
-@pytest.mark.parametrize("size,mi", [(64, 8), (4096, 256), (2048, 64)])
+@pytest.mark.parametrize("size,mi", [(64, 8), (4096, 256), (2048, 64), (4096, 32)])
 def test_split_plain_equals_full_twin_other_ratios(size, mi):
-    """R = 8, 16, 32: the outer stages beyond the R = 4 of the JAX check."""
+    """R = 8, 16, 32, 128: the outer stages beyond the R = 4 of the JAX check."""
     ps = tuple(find_ntt_primes(3, 1 << 13))
     x = _t(_residues(ps, size, 2, seed=size))
     for inverse, nega in MODES:
@@ -111,7 +111,7 @@ def test_split_kernels_replayed_match_twin(inverse, negacyclic, order):
     x = _residues(ps, size, 3, seed=11)
     plan = tntt.get_plan(ps, size, negacyclic=negacyclic)
     want = _u32(tntt.PLAIN_TWINS[(inverse, negacyclic)](_t(x), plan))
-    got = ntt_replay.split_two_pass(x, ps, size, mi, inverse, negacyclic, order == "limb")
+    got = ntt_replay.ntt_split(x, ps, size, mi, inverse, negacyclic, order == "limb")
     assert np.array_equal(got.astype(np.uint32), want)
 
 
@@ -124,7 +124,7 @@ def test_split_ratios_replayed_match_twin(size, mi):
     for inverse, nega in MODES:
         plan = tntt.get_plan(ps, size, negacyclic=nega)
         want = _u32(tntt.PLAIN_TWINS[(inverse, nega)](_t(x), plan))
-        got = ntt_replay.split_two_pass(x, ps, size, mi, inverse, nega)
+        got = ntt_replay.ntt_split(x, ps, size, mi, inverse, nega)
         assert np.array_equal(got.astype(np.uint32), want), (inverse, nega)
 
 
@@ -161,11 +161,44 @@ def test_limb_major_cta_order_replayed_matches_twin(inverse, negacyclic):
     assert np.array_equal(got.astype(np.uint32), want)
 
 
+@pytest.mark.parametrize("size,mi", [(8192, 128), (4096, 16), (16384, 8)])
+def test_split_passes_replayed_match_twin(size, mi):
+    """R = 64, 256 and 2048: the outer stages in two and three passes of at
+    most five (3 + 3, 4 + 4, 4 + 4 + 3), all four modes, in both CTA
+    orders of the inner kernel; the plain split equals the twin there too."""
+    ps = tuple(find_ntt_primes(2, 1 << 15))
+    x = _residues(ps, size, 2, seed=size + mi)
+    log_r = (size // mi).bit_length() - 1
+    assert len(cuda_ntt.outer_passes(log_r, False)) == (2 if log_r < 11 else 3)
+    for n, (inverse, nega) in enumerate(MODES):
+        plan = tntt.get_plan(ps, size, negacyclic=nega)
+        want = tntt.PLAIN_TWINS[(inverse, nega)](_t(x), plan)
+        got = ntt_replay.ntt_split(x, ps, size, mi, inverse, nega, limb_major=n % 2 == 1)
+        assert np.array_equal(got.astype(np.uint32), _u32(want)), (inverse, nega)
+        assert torch.equal(tntt.ntt_split_plain(_t(x), plan, inverse, nega, mi=mi), want)
+
+
+def test_outer_passes_cover_the_stages_in_order():
+    """Passes of at most five stages, as even as possible, covering stages
+    0 .. log_r - 1 once each, in order (the inverse in reverse); one pass up
+    to R = 32 (the kernel's earlier single pass)."""
+    for log_r in range(1, 17):
+        fwd = cuda_ntt.outer_passes(log_r, False)
+        assert fwd == cuda_ntt.outer_passes(log_r, True)[::-1]
+        assert [i for i0, k in fwd for i in range(i0, i0 + k)] == list(range(log_r))
+        assert all(1 <= k <= 5 for _, k in fwd)
+        assert max(k for _, k in fwd) - min(k for _, k in fwd) <= 1
+        assert len(fwd) == -(-log_r // 5)
+    assert cuda_ntt.outer_passes(6, False) == [(0, 3), (3, 3)]
+
+
 def test_split_route_refuses_what_it_cannot_take():
-    """The dispatcher's routing is decided before any launch: a CUDA tensor
-    above 2^19 has no route.  (The launches themselves are tested on the card.)"""
+    """The dispatcher's routing is decided before any launch: every power of
+    two above 2^15 takes the split (inner size 16384 up to 2^19, 32768
+    above), and a tensor on no supported device has no route.  (The
+    launches themselves are tested on the card.)"""
     assert tntt.MAX_KERNEL_M == 32768 and tntt.SPLIT_MI == 16384
-    assert tntt.MAX_SPLIT_M == 1 << 19
+    assert [tntt.split_mi(1 << k) for k in range(16, 24)] == [16384] * 4 + [32768] * 4
     plan = tntt.get_plan(tuple(find_ntt_primes(1, 1 << 21)), 1 << 20)
     x = torch.empty((1, 1, 1 << 20), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no NTT route"):
