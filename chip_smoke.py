@@ -98,11 +98,12 @@ traceback and exits nonzero without the final line:
    keypair, `load_vk` onto the card, prove from the loaded pk (equal bit for
    bit to the proof from memory), `save_proof` / `load_proof`, verify with
    the loaded vk (True; False with a changed public input), delete the
-   files.  The Rinocchio pk is also written with `np.savez_compressed` (the
-   JAX package's writer) and loaded from it.  Then phase 7's north-star vk
-   (a CRS-less stub) is saved, loaded, and verifies phase 7's proof.  Prints
-   per system the save, load and prove seconds, file and peak GiB, and the
-   compressed/uncompressed comparison.
+   files.  1.0 GiB of the Rinocchio pk (`s_pows` c0) is also written with
+   `np.savez_compressed` (the JAX package's writer) beside `np.savez` (the
+   port's) and read back.  Then phase 7's north-star vk (a CRS-less stub) is
+   saved, loaded, and verifies phase 7's proof.  Prints per system the save,
+   load and prove seconds, file and peak GiB, the stored/compressed
+   comparison, and the phase's launch counts (path `keys`).
 12b. small keys cross-check (logistic regression with 4 features, N=16,
    N'=512): a vk and a proof saved on the card load on the CPU; the CPU's
    proof from the loaded key equals the card's bit for bit, and the CPU
@@ -537,7 +538,12 @@ def large_split_vs_plain(split_report):
                   f"{ms:.4f} ms, plain twin {pms:.4f} ms, bound {bms:.4f} ms "
                   f"({100 * bms / ms:.1f} %)", flush=True)
         del xb
-        torch.cuda.empty_cache()
+    # the device tables cached for these sizes would stay on the card
+    # through every later phase and raise each one's peak
+    for cached in (nttm._twin_tables, nttm._split_twin_tables, cuda_ntt._tables,
+                   cuda_ntt._split_tables):
+        cached.cache_clear()
+    torch.cuda.empty_cache()
 
 
 def main_path(params, cfg):
@@ -732,7 +738,8 @@ def streamed_path(params, cfg):
         check(tuple(e.c0.shape) == (ring.L, ectx.floor_limbs, ectx.n_inner),
               f"proof element shape {tuple(e.c0.shape)}")
     _launch_check(counts, M, "streamed")
-    return counts, times, totals, rec.events, peak, (proof, vk, primary)
+    # primary is a view into the (M+1)-row assignment (8 GiB at M=2^18): keep a copy
+    return counts, times, totals, rec.events, peak, (proof, vk, type(primary)(primary.ctx, primary.res.clone()))
 
 
 def rinocchio_path(params, cfg):
@@ -992,28 +999,29 @@ def keys_on_disk(cfg, north_star):
     and its constraint system with it), drop the keypair, load_vk onto the
     card, prove from the loaded pk (== the proof from memory, bit for bit),
     save_proof / load_proof, verify with the loaded vk (True; False with a
-    changed public input), delete the files.  The Rinocchio pk is also
-    written with np.savez_compressed (the JAX package's writer) and loaded
-    from that.  Then phase 7's north-star vk (a CRS-less stub) is saved and
-    loaded, and verifies phase 7's proof."""
-    from ringsnark_tpu_torch.encoding import Encoding
+    changed public input), delete the files.  Part of the Rinocchio pk is
+    also written with np.savez_compressed (the JAX package's writer), beside
+    np.savez (the port's).  Then phase 7's north-star vk (a CRS-less stub) is
+    saved and loaded, and verifies phase 7's proof.  Returns the launch
+    counts of the whole phase (set to 0 at its start) and the report."""
+    from ringsnark_tpu_torch.ops import cuda_ntt
     from ringsnark_tpu_torch.snark import groth16, rinocchio
     from ringsnark_tpu_torch.utils import prng
     from ringsnark_tpu_torch.utils import serialization as ser
 
     KEYS_DIR.mkdir(exist_ok=True)
+    cuda_ntt.reset_launch_counts()
     params = make_circuit_params(cfg, "cuda")
     pb = build_circuit("logreg", cfg, params.ring, 0)
     cs = pb.get_constraint_system()
     primary, aux = pb.primary_input(), pb.auxiliary_input()
     bad = [primary[0] + 1] + primary[1:]
     report = {}
-    for sname, system, load_pk in (("rinocchio", rinocchio, ser.load_rinocchio_pk),
-                                   ("groth16", groth16, ser.load_groth16_pk)):
+    for sname, system in (("rinocchio", rinocchio), ("groth16", groth16)):
         print(f"  logreg/{sname}:", flush=True)
         t = {}
         paths = {k: str(KEYS_DIR / f"{sname}_{k}") for k in
-                 ("vk.npz", "pk.npz", "cs.json", "proof.npz", "pk_compressed.npz")}
+                 ("vk.npz", "pk.npz", "cs.json", "proof.npz")}
         kp = timed(t, "setup", lambda: system.generator(cs, params, np.random.default_rng(1),
                                                         prng.key(1)))
         proof_mem = timed(t, "prove_from_memory", lambda: system.prover(
@@ -1026,6 +1034,7 @@ def keys_on_disk(cfg, north_star):
         del kp
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # what earlier phases still hold
         vk = timed(t, "load_vk", lambda: ser.load_vk(paths["vk.npz"]))
         load_peak = torch.cuda.max_memory_allocated()
         check(vk.pk.s_pows.c0.is_cuda and vk.sk_enc.s_ntt.is_cuda, "load_vk left the card")
@@ -1044,35 +1053,17 @@ def keys_on_disk(cfg, north_star):
         check(not system.verifier(vk, bad, loaded),
               f"logreg/{sname}: the loaded vk accepted a changed public input")
         entry = {"stage_s": t, "crs_gib": crs / 2**30, "files_gib": file_bytes / 2**30,
-                 "proof_file_mib": proof_bytes / 2**20, "load_peak_allocated_gib": load_peak / 2**30}
+                 "proof_file_mib": proof_bytes / 2**20, "load_held_gib": held / 2**30,
+                 "load_peak_allocated_gib": load_peak / 2**30}
         if sname == "rinocchio":
-            # the JAX package's writer (deflate), on the same arrays, and the
-            # port's loader on its file
-            with np.load(paths["pk.npz"]) as data:
-                store = {k: data[k] for k in data.files}
-            check_disk(file_bytes, "the compressed Rinocchio pk")
-            timed(t, "save_pk_compressed", lambda: np.savez_compressed(
-                paths["pk_compressed.npz"], **store))
-            del store
-            cbytes = _file_bytes(paths["pk_compressed.npz"])
-            pkc = timed(t, "load_pk_compressed", lambda: load_pk(paths["pk_compressed.npz"]))
-            check(all(e == getattr(pkc, k) for k, e in vars(vk.pk).items()
-                      if isinstance(e, Encoding)), "the compressed pk loads other encodings")
-            del pkc
-            timed(t, "load_pk_uncompressed", lambda: load_pk(paths["pk.npz"]))
-            entry["compressed"] = {"pk_gib": cbytes / 2**30,
-                                   "pk_uncompressed_gib": _file_bytes(paths["pk.npz"]) / 2**30,
-                                   "save_s": t["save_pk_compressed"],
-                                   "load_s": t["load_pk_compressed"],
-                                   "uncompressed_load_pk_s": t["load_pk_uncompressed"]}
+            entry["compressed"] = stored_vs_compressed(paths["pk.npz"], t)
         for p in paths.values():
             if os.path.exists(p):
                 os.remove(p)
         print(f"    CRS {crs / 2**30:.3f} GiB; files {file_bytes / 2**30:.3f} GiB (vk + pk + cs); "
               f"proof file {proof_bytes / 2**20:.1f} MiB; load peak allocated "
-              f"{load_peak / 2**30:.3f} GiB; proof from the loaded key == proof from memory"
-              + (f"; compressed pk {entry['compressed']['pk_gib']:.3f} GiB"
-                 if "compressed" in entry else ""), flush=True)
+              f"{load_peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB held before); proof "
+              "from the loaded key == proof from memory", flush=True)
         report[sname] = entry
         del vk, proof, proof_mem, loaded
         torch.cuda.empty_cache()
@@ -1096,7 +1087,41 @@ def keys_on_disk(cfg, north_star):
     print(f"  north-star vk (M=2^18 stub): files {file_bytes / 2**20:.1f} MiB; the reloaded vk "
           "verifies phase 7's proof", flush=True)
     report["north_star_vk"] = {"stage_s": t, "files_mib": file_bytes / 2**20}
-    return report
+    counts = dict(cuda_ntt.launch_counts)
+    print(f"  launches {counts}", flush=True)
+    for mode in ("negacyclic_fwd", "negacyclic_inv", "cyclic_fwd", "cyclic_inv"):
+        check(counts[mode] > 0, f"kernel mode {mode} never launched on the keys path")
+    return counts, report
+
+
+COMPRESSION_ARRAYS = ("s_pows_c0",)  # 1.0 GiB of the 8.0 GiB of logreg's Rinocchio pk
+
+
+def stored_vs_compressed(pk_path: str, t: dict) -> dict:
+    """The port's writer (np.savez, stored) against the JAX package's
+    (np.savez_compressed, deflate) on COMPRESSION_ARRAYS of a saved pk: the
+    seconds to write each file and to read it back on the host, and its
+    size; what is read back must equal what was written."""
+    with np.load(pk_path) as data:
+        store = {k: data[k] for k in COMPRESSION_ARRAYS}
+    nbytes = sum(a.nbytes for a in store.values())
+    out = {"arrays": list(COMPRESSION_ARRAYS), "array_gib": nbytes / 2**30}
+    for kind, writer in (("stored", np.savez), ("compressed", np.savez_compressed)):
+        path = KEYS_DIR / f"compare_{kind}.npz"
+        check_disk(nbytes, f"the {kind} comparison file")
+        timed(t, f"save_{kind}", lambda: writer(path, **store))  # noqa: B023
+        with np.load(path) as data:
+            back = timed(t, f"load_{kind}", lambda: {k: data[k] for k in data.files})  # noqa: B023
+        check(all(np.array_equal(back[k], store[k]) for k in store),
+              f"the {kind} file reads back other arrays")
+        out[kind] = {"gib": path.stat().st_size / 2**30, "save_s": t[f"save_{kind}"],
+                     "load_s": t[f"load_{kind}"]}
+        path.unlink()
+        del back
+    print(f"    {nbytes / 2**30:.3f} GiB of the pk ({', '.join(COMPRESSION_ARRAYS)}): stored "
+          f"{out['stored']['gib']:.4f} GiB, compressed {out['compressed']['gib']:.4f} GiB "
+          f"({100 * out['compressed']['gib'] / out['stored']['gib']:.2f} %)", flush=True)
+    return out
 
 
 def small_keys_cross_check():
@@ -1228,8 +1253,8 @@ def main() -> int:
 
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    keys = keys_on_disk((SMALL_CIRCUITS if args.small else REFERENCE_CIRCUITS)["logreg"],
-                        north_star)
+    counts12, keys = keys_on_disk(
+        (SMALL_CIRCUITS if args.small else REFERENCE_CIRCUITS)["logreg"], north_star)
     del north_star
     phase(12, "keys on disk: logreg Rinocchio and ringGroth16, the north-star vk", t0)
 
@@ -1238,7 +1263,8 @@ def main() -> int:
     phase("12b", "small keys cross-check, card to CPU", t0)
 
     by_path = {m: {"resident": counts[m], "seeded": counts5[m], "streamed": counts7[m],
-                   "streamed_rinocchio": counts8[m], "frontend": counts10[m]} for m in counts}
+                   "streamed_rinocchio": counts8[m], "frontend": counts10[m],
+                   "keys": counts12[m]} for m in counts}
 
     def bounds(r):  # no PyTorch call computes an NTT modulo a prime: library_ms is null
         return {"bound_ms": r["bound_ms"], "bound_by": "bytes",

@@ -84,7 +84,9 @@ def _host(t) -> np.ndarray:
 def residues(arr, p: torch.Tensor) -> torch.Tensor:
     """A uint32 residue array [..., K, n] from outside, canonical mod the
     primes p (int64 [K, 1] on the target device), as int32 there."""
-    a = np.ascontiguousarray(np.asarray(arr).astype(np.uint32))
+    # copied only if not uint32, contiguous and writable (an array np.load
+    # returns is all three; torch warns on a read-only one)
+    a = np.require(np.asarray(arr).astype(np.uint32, copy=False), requirements=("C", "W"))
     return canonical_residues(torch.from_numpy(a.view(np.int32)).to(p.device), p)
 
 
