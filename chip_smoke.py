@@ -108,9 +108,27 @@ traceback and exits nonzero without the final line:
    N'=512): a vk and a proof saved on the card load on the CPU; the CPU's
    proof from the loaded key equals the card's bit for bit, and the CPU
    verifier accepts the card's proof from its file.
+13. the multi-device layer (`ringsnark_tpu_torch/parallel/`) on a world of
+   one rank over NCCL, opened before phase 3 (one card: NCCL refuses two
+   ranks on one device, so no exchange stage runs; the exchange stages, the
+   sum over 'data' and the gathers over 'limb' and 'coeff' at D > 1 are
+   held by the CPU tests on gloo ranks): the ('limb', 'data') = (1, 1) mesh
+   of `make_mesh` and a ('limb', 'coeff', 'data') = (1, 1, 1) mesh built
+   directly.  `sharded_ntt` in all four modes at M = 2^18 on 1024 rows
+   equals `ops.ntt` bit for bit; `cyclic_intt_nat(scale=False)` on the
+   shared-memory route (M = 2^14) and the split route (2^18) equals the plain
+   twin.  The sharded provers run inside the phases whose keys they use,
+   after those phases' launch counts are read: `groth16_prove_sharded` in
+   phase 3 on both meshes (== phase 3's proof, verifies), the data-sharded
+   streamed chunk after phase 7 (65,536 rows at phase 7's parameters, slab
+   4096, == `encode_seeded` + `seeded_inner_product(use_modswitch=False)`),
+   and `rinocchio_prove_sharded` in phase 10 on logistic regression's keypair
+   (== the unsharded proof under the same numpy seed, verifies).  Their launch
+   counts, set to 0 before each and read after, are the path `sharded`.
 
 The line before the last is a JSON object with the kernels' launch counts
-(per path), errors, times, bounds (`bound_ms`, `bound_by`, `share_of_bound`)
+(per path, `sharded` among them), errors, times, bounds (`bound_ms`, `bound_by`,
+`share_of_bound`)
 and `library_ms` (null: no PyTorch call computes an NTT modulo a prime);
 the last line is
 `{"ok": true, "device": {...}}`.  This script imports nothing of JAX.
@@ -156,6 +174,9 @@ SMALL_CIRCUITS = {
     "incircuit_ntt": dict(N=128, n_inner=512, log_t=16, features=4),
     "logreg": dict(N=64, n_inner=512, log_t=16, features=8),
 }
+# phase 13: the sharded NTT's (log2 M, rows); the streamed chunk is one
+# phase_rows chunk of phase 7's stream
+SHARDED_NTT = dict(full=(18, 1024), small=(16, 8))
 REPLACES = "ringsnark_tpu/ops/pallas_ntt.py:170"  # _ntt_kernel_gridfree
 REPLACES_SPLIT = "ringsnark_tpu/ops/pallas_ntt.py:557"  # ntt_split_pallas -> _outer_kernel :458
 SOURCE = "ringsnark_tpu_torch/csrc/ntt.cu"
@@ -201,6 +222,193 @@ def gpu_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def add_counts(total: dict, counts: dict) -> dict:
+    for m, c in counts.items():
+        total[m] = total.get(m, 0) + c
+    return total
+
+
+def open_world(card: str):
+    """Phase 13's world of one rank over NCCL (before phase 3, which proves
+    on it) and its two meshes: ('limb', 'data') from `make_mesh` and
+    ('limb', 'coeff', 'data') built directly, so the coeff branch runs."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from ringsnark_tpu_torch.parallel import mesh as pmesh
+
+    pmesh.init_single_process("cuda")
+    check(dist.get_backend() == "nccl", f"the world-1 group runs {dist.get_backend()}, not nccl")
+    meshes = {"limb x data": pmesh.make_mesh(1),
+              "limb x coeff x data": DeviceMesh("cuda", torch.arange(1).reshape(1, 1, 1),
+                                                mesh_dim_names=("limb", "coeff", "data"))}
+    for name, mesh in meshes.items():
+        check(mesh.device_type == "cuda", f"{name} mesh on {mesh.device_type}")
+    print(f"  world size {dist.get_world_size()} over {dist.get_backend()}; meshes "
+          f"{ {n: dict(zip(m.mesh_dim_names, m.mesh.shape)) for n, m in meshes.items()} }; "
+          "world size 1: exchange stages held by tier-1 on gloo", flush=True)
+    return meshes
+
+
+def sharded_groth16(kp, primary, aux, proof, meshes, card):
+    """Phase 3's sharded check: groth16_prove_sharded on both meshes ==
+    phase 3's proof, bit for bit, and verifies.  Returns the launch counts
+    (set to 0 before each prove, read after) and the seconds per mesh."""
+    from ringsnark_tpu_torch.ops import cuda_ntt
+    from ringsnark_tpu_torch.parallel import groth16_prove_sharded
+    from ringsnark_tpu_torch.snark import groth16
+
+    counts, times = {}, {}
+    for name, mesh in meshes.items():
+        torch.cuda.synchronize()
+        cuda_ntt.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = groth16_prove_sharded(kp.pk, primary, aux, mesh)
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        add_counts(counts, cuda_ntt.launch_counts)
+        check(all(a == b for a, b in zip((proof.A, proof.B, proof.C), (got.A, got.B, got.C))),
+              f"sharded ringGroth16 on the {name} mesh != phase 3's proof")
+        check(groth16.verifier(kp.vk, primary, got) is True,
+              f"the verifier rejected the sharded ringGroth16 proof ({name})")
+        print(f"  sharded ringGroth16 on {name} ({dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}): "
+              f"{times[name]:.3f} s, == phase 3's proof, verifies ({card})", flush=True)
+    return counts, times
+
+
+def sharded_rinocchio(kp, primary, aux, proof, mesh, seed, card):
+    """Phase 10's sharded check on logistic regression's keypair:
+    rinocchio_prove_sharded under the prover's numpy seed == its proof, and
+    verifies.  Returns the launch counts and the seconds."""
+    from ringsnark_tpu_torch.ops import cuda_ntt
+    from ringsnark_tpu_torch.parallel import rinocchio_prove_sharded
+    from ringsnark_tpu_torch.snark import rinocchio
+
+    torch.cuda.synchronize()
+    cuda_ntt.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = rinocchio_prove_sharded(kp.pk, primary, aux, mesh, rng=np.random.default_rng(seed))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(cuda_ntt.launch_counts)
+    check(_proofs_equal(proof, got), "sharded Rinocchio != the unsharded proof")
+    check(rinocchio.verifier(kp.vk, primary, got) is True,
+          "the verifier rejected the sharded Rinocchio proof")
+    print(f"  sharded Rinocchio (logreg) on limb x data: {dt:.3f} s, == the unsharded proof, "
+          f"verifies ({card})", flush=True)
+    return counts, dt
+
+
+def sharded_stream_chunk(params, cfg, mesh, card):
+    """After phase 7: one chunk of its stream (phase_rows rows of random
+    CRS slots and two plaintext batches, slab as phase 7) through
+    stream_chunk_ip_sharded == encode_seeded + seeded_inner_product
+    (use_modswitch=False).  Returns the launch counts and the seconds."""
+    from ringsnark_tpu_torch.encoding import keygen
+    from ringsnark_tpu_torch.ops import cuda_ntt
+    from ringsnark_tpu_torch.parallel import stream_chunk_ip_sharded
+    from ringsnark_tpu_torch.rings.elem import RingElem
+    from ringsnark_tpu_torch.snark import seeded
+    from ringsnark_tpu_torch.utils import prng
+
+    ring, ectx = params.ring, params.enc
+    chunk, slab = cfg["phase_rows"], cfg["slab"]
+    _, sk = keygen(ectx, np.random.default_rng(21))
+    gen = torch.Generator(device="cuda").manual_seed(22)
+
+    def slots():
+        return torch.cat([torch.randint(0, p, (chunk, 1, ring.N), generator=gen,
+                                        dtype=torch.int32, device="cuda") for p in ring.primes],
+                         dim=1)
+
+    rows, pts, key = slots(), [slots(), slots()], prng.key(23)
+    torch.cuda.synchronize()
+    cuda_ntt.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = stream_chunk_ip_sharded(mesh, ectx, sk, rows, pts, key, slab)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(cuda_ntt.launch_counts)
+    t0 = time.perf_counter()
+    want = seeded.seeded_inner_product(seeded.encode_seeded(ectx, sk, RingElem(ring, rows), key,
+                                                            slab), pts, use_modswitch=False)
+    torch.cuda.synchronize()
+    dt_ref = time.perf_counter() - t0
+    check(all(g == w for g, w in zip(got, want)), "the sharded streamed chunk != the seeded one")
+    print(f"  sharded streamed chunk ({chunk} rows, slab {slab}, N={ring.N}, N'={ectx.n_inner}, "
+          f"L'={ectx.L_inner}): {dt:.3f} s, == encode_seeded + seeded_inner_product "
+          f"({dt_ref:.3f} s) ({card})", flush=True)
+    return counts, dt, dt_ref
+
+
+def sharded_ntt_phase(meshes, log_m, rows, report, split_report, card):
+    """Phase 13: sharded_ntt on the 3-D mesh's 'coeff' dimension in all four
+    modes at M = 2^log_m == ops.ntt, bit for bit (launch counts set to 0
+    before, read after; ops.ntt's launches are not counted); then
+    cyclic_intt_nat(scale=False) on the shared-memory route (M = 2^14) and
+    on the split route (2^log_m) == the plain twin, timed."""
+    from ringsnark_tpu_torch.ops import cuda_ntt
+    from ringsnark_tpu_torch.ops import ntt as nttm
+    from ringsnark_tpu_torch.parallel import sharded_ntt
+
+    from ringsnark_tpu_torch.ops.primes import find_ntt_primes
+
+    mesh = meshes["limb x coeff x data"]
+    M = 1 << log_m
+    primes = tuple(find_ntt_primes(1, 2 * M))  # one limb, as the streamed witness map's
+    gen = torch.Generator(device="cuda").manual_seed(1357)
+    x = torch.cat([torch.randint(0, p, (rows, 1, M), generator=gen, dtype=torch.int32,
+                                 device="cuda") for p in primes], dim=1)
+    plan = nttm.get_plan(primes, M, negacyclic=True)
+    modes = [(inv, nega) for nega in (False, True) for inv in (False, True)]
+    torch.cuda.synchronize()
+    cuda_ntt.reset_launch_counts()
+    got, ms = {}, {}
+    for inv, nega in modes:
+        t0 = time.perf_counter()
+        got[(inv, nega)] = sharded_ntt(x, plan, mesh, negacyclic=nega, inverse=inv)
+        torch.cuda.synchronize()
+        ms[cuda_ntt.mode_name(inv, nega)] = (time.perf_counter() - t0) * 1e3
+    counts = dict(cuda_ntt.launch_counts)
+    dispatch = {(False, False): nttm.cyclic_ntt_rev, (True, False): nttm.cyclic_intt_nat,
+                (False, True): nttm.negacyclic_ntt_rev, (True, True): nttm.negacyclic_intt_nat}
+    for inv, nega in modes:
+        mode = cuda_ntt.mode_name(inv, nega)
+        check(torch.equal(got[(inv, nega)], dispatch[(inv, nega)](x, plan)),
+              f"sharded_ntt {mode} != ops.ntt at M=2^{log_m}")
+        print(f"  equal  sharded {mode:15s} M=2^{log_m} rows={rows}: {ms[mode]:.3f} ms "
+              f"(first call, host clock) ({card})", flush=True)
+    del got
+
+    unscaled = {}
+    for label, m, rep, route in (("shared-memory M=2^14", 1 << 14, report["cyclic_inv"],
+                                  "cyclic_inv"),
+                                 (f"split M=2^{log_m}", M, split_report["split_cyclic_inv"],
+                                  "split_cyclic_inv")):
+        xm = x[..., :m].contiguous()
+        cplan = nttm.get_plan(primes, m)
+        before = cuda_ntt.launch_counts[route]
+        y = nttm.cyclic_intt_nat(xm, cplan, scale=False)
+        check(cuda_ntt.launch_counts[route] == before + 1, f"scale=False not routed to {route}")
+        want = nttm.cyclic_intt_nat_plain(xm, cplan, scale=False)
+        err = int((y.to(torch.int64) - want.to(torch.int64)).abs().max())
+        rep["max_abs_err"] = max(rep["max_abs_err"], err)
+        check(torch.equal(y, want), f"cyclic_intt_nat(scale=False) != the twin on the {label} route")
+        kms = cuda_ms(lambda: nttm.cyclic_intt_nat(xm, cplan, scale=False))
+        pms = cuda_ms(lambda: nttm.cyclic_intt_nat_plain(xm, cplan, scale=False), iters=1)
+        bms = bound_ms(xm.numel())
+        unscaled[route] = dict(ms=kms, plain_ms=pms, bound_ms=bms,
+                               shape=f"M={m}, L={len(primes)}, rows={rows}")
+        rep["unscaled"] = unscaled[route]
+        print(f"  equal  cyclic_intt_nat(scale=False) {label} rows={rows}: kernel {kms:.4f} ms, "
+              f"plain twin {pms:.4f} ms, bound {bms:.4f} ms ({100 * bms / kms:.1f} %) ({card})",
+              flush=True)
+        del y, want, xm
+    del x
+    torch.cuda.empty_cache()
+    return counts, ms, unscaled
 
 
 def make_params(cfg, device):
@@ -546,8 +754,9 @@ def large_split_vs_plain(split_report):
     torch.cuda.empty_cache()
 
 
-def main_path(params, cfg):
-    """Phase 3: generator -> prover x2 -> verifier (+ tampered)."""
+def main_path(params, cfg, meshes, card):
+    """Phase 3: generator -> prover x2 -> verifier (+ tampered); then, its
+    launch counts read, the sharded prover on both meshes (phase 13)."""
     from ringsnark_tpu_torch.models.synthetic import build_synthetic_square_chain
     from ringsnark_tpu_torch.ops import cuda_ntt
     from ringsnark_tpu_torch.snark import groth16
@@ -591,7 +800,8 @@ def main_path(params, cfg):
               f"proof element shape {tuple(e.c0.shape)}")
     for mode in cuda_ntt.MODES:
         check(counts[mode] > 0, f"kernel mode {mode} never launched on the main path")
-    return counts, times, crs_bytes, peak
+    sharded_counts, sharded_times = sharded_groth16(kp, primary, aux, proof, meshes, card)
+    return counts, times, crs_bytes, peak, sharded_counts, sharded_times
 
 
 def small_cross_check():
@@ -842,11 +1052,15 @@ def _crs_bytes(pk) -> int:
                for e in vars(pk).values() if isinstance(e, Encoding))
 
 
-def frontend_path(circuits, kernel_report):
+def frontend_path(circuits, kernel_report, mesh, card):
     """Phase 10: Protoboard -> generator -> prover x2 -> verifier (+ tampered),
     both proof systems with a resident CRS, for every circuit; after each
     circuit's launch counts are read, the kernels are held to their plain
-    twins at that circuit's shapes (into `kernel_report`)."""
+    twins at that circuit's shapes (into `kernel_report`).  On logistic
+    regression's Rinocchio keypair the sharded prover runs on `mesh`
+    (phase 13), its launches counted apart: the circuit's counts are read
+    before it and set to 0 after it.  Returns (counts, report, sharded
+    (counts, seconds))."""
     from ringsnark_tpu_torch.ops import cuda_ntt
     from ringsnark_tpu_torch.snark import groth16, rinocchio
     from ringsnark_tpu_torch.utils import prng
@@ -861,6 +1075,7 @@ def frontend_path(circuits, kernel_report):
               f"features={cfg['features']}", flush=True)
         times = {}
         stage = make_stage(times)
+        carried = {}  # the circuit's counts read before the sharded prove
         cuda_ntt.reset_launch_counts()
         pb = stage("build", lambda: build_circuit(name, cfg, ring, 0))
         check(stage("is_satisfied", pb.is_satisfied) is True, f"{name}: witness invalid")
@@ -904,8 +1119,12 @@ def frontend_path(circuits, kernel_report):
             if sname == "rinocchio":
                 check((proof.F is not None) == (len(aux) > 0),
                       f"{name}: F must be present exactly with auxiliary wires")
+            if sname == "rinocchio" and name == "logreg":
+                add_counts(carried, cuda_ntt.launch_counts)
+                sharded = sharded_rinocchio(kp, primary, aux, proof, mesh, 7, card)
+                cuda_ntt.reset_launch_counts()
             del kp, proof, proof2, prove
-        counts = dict(cuda_ntt.launch_counts)
+        counts = add_counts(dict(cuda_ntt.launch_counts), carried)
         print(f"  {name}: launches {counts}", flush=True)
         for mode in ("negacyclic_fwd", "negacyclic_inv"):
             check(counts[mode] > 0, f"kernel mode {mode} never launched for {name}")
@@ -916,7 +1135,7 @@ def frontend_path(circuits, kernel_report):
         report[name] = entry
         del pb, cs, primary, aux, bad
         torch.cuda.empty_cache()
-    return total, report
+    return total, report, sharded
 
 
 def small_frontend_cross_check(kernel_report):
@@ -1211,8 +1430,29 @@ def main() -> int:
     phase("2c", "split kernel past 2^19 vs plain", t0)
 
     t0 = time.perf_counter()
-    counts, times, crs_bytes, peak = main_path(params, cfg)
-    phase(3, "main path", t0)
+    meshes = open_world(card)
+    phase("13a", "world of one rank over NCCL, meshes", t0)
+    try:
+        return run_phases(args, (cfg, cfg5, cfg7, cfg8), (params, params5, params7), report,
+                          split_report, orders, meshes, card)
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def run_phases(args, cfgs, params_all, report, split_report, orders, meshes, card) -> int:
+    """Phases 3 to 13 on the world of one rank; the last lines of output."""
+    from ringsnark_tpu_torch.ops import cuda_ntt
+
+    cfg, cfg5, cfg7, cfg8 = cfgs
+    params, params5, params7 = params_all
+    sharded = {}  # the sharded checks' launch counts (path "sharded")
+    sharded_s = {}
+    t0 = time.perf_counter()
+    counts, times, crs_bytes, peak, c3, sharded_s["groth16"] = main_path(params, cfg, meshes, card)
+    add_counts(sharded, c3)
+    phase(3, "main path, sharded ringGroth16 on both meshes", t0)
 
     t0 = time.perf_counter()
     small_cross_check()
@@ -1230,7 +1470,11 @@ def main() -> int:
     torch.cuda.empty_cache()  # phase 5's seeded CRS is gone with its keypair
     t0 = time.perf_counter()
     counts7, times7, rec7, events7, peak7, north_star = streamed_path(params7, cfg7)
-    phase(7, "streamed main path", t0)
+    c7, sharded_s["stream_chunk"], sharded_s["stream_chunk_reference"] = sharded_stream_chunk(
+        params7, cfg7, meshes["limb x data"], card)
+    add_counts(sharded, c7)
+    torch.cuda.empty_cache()
+    phase(7, "streamed main path, sharded streamed chunk", t0)
 
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1243,9 +1487,10 @@ def main() -> int:
 
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    counts10, frontend = frontend_path(SMALL_CIRCUITS if args.small else REFERENCE_CIRCUITS,
-                                       report)
-    phase(10, "circuit frontend, reference circuits", t0)
+    counts10, frontend, (c10, sharded_s["rinocchio_logreg"]) = frontend_path(
+        SMALL_CIRCUITS if args.small else REFERENCE_CIRCUITS, report, meshes["limb x data"], card)
+    add_counts(sharded, c10)
+    phase(10, "circuit frontend, reference circuits, sharded Rinocchio", t0)
 
     t0 = time.perf_counter()
     small_frontend_cross_check(report)
@@ -1262,9 +1507,18 @@ def main() -> int:
     small_keys_cross_check()
     phase("12b", "small keys cross-check, card to CPU", t0)
 
+    t0 = time.perf_counter()
+    c13, sharded_s["ntt_ms"], unscaled = sharded_ntt_phase(
+        meshes, *SHARDED_NTT["small" if args.small else "full"], report, split_report, card)
+    add_counts(sharded, c13)
+    for mode in ("split_cyclic_fwd", "split_cyclic_inv", "negacyclic_fwd", "negacyclic_inv"):
+        check(sharded[mode] > 0, f"kernel mode {mode} never launched on the sharded path")
+    print(f"  sharded path: launches {sharded}; seconds {sharded_s}", flush=True)
+    phase(13, "multi-device layer: sharded NTT, unscaled inverse", t0)
+
     by_path = {m: {"resident": counts[m], "seeded": counts5[m], "streamed": counts7[m],
                    "streamed_rinocchio": counts8[m], "frontend": counts10[m],
-                   "keys": counts12[m]} for m in counts}
+                   "keys": counts12[m], "sharded": sharded.get(m, 0)} for m in counts}
 
     def bounds(r):  # no PyTorch call computes an NTT modulo a prime: library_ms is null
         return {"bound_ms": r["bound_ms"], "bound_by": "bytes",
@@ -1298,6 +1552,7 @@ def main() -> int:
                                       "peak_allocated_gib": peak8 / 2**30},
                "frontend": frontend,
                "keys_on_disk": keys,
+               "sharded": {"seconds": sharded_s, "unscaled_inverse": unscaled},
                "cta_order": orders}
     print(json.dumps(summary), flush=True)
     print(card, flush=True)  # as nvidia-smi prints it: name, power limit

@@ -530,13 +530,14 @@ __device__ __forceinline__ void outer_stages(uint32_t (&v)[1 << kLogK],
 // thread per (row, limb, hi, lo, column c) of the [B, L, R, Mi] view, global
 // to global.  The first forward pass (i0 = 0) twists by psi; the last
 // inverse pass (i0 = 0, the stages run in reverse) scales by psi^-k M^-1 or
-// M^-1.  With K = R it is the whole outer transform in one pass.
+// M^-1 (the cyclic inverse leaves M^-1 out when `scale` is 0).  With K = R it
+// is the whole outer transform in one pass.
 template <int kLogK, bool kInverse, bool kNegacyclic>
 __global__ void outer_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
                              const uint2* __restrict__ col, const uint2* __restrict__ row,
                              const uint2* __restrict__ sc,
                              const uint32_t* __restrict__ consts, size_t columns, int L,
-                             int log_mi, int log_r, int i0) {
+                             int log_mi, int log_r, int i0, int scale) {
   constexpr int K = 1 << kLogK;
   const size_t t = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= columns) return;
@@ -565,7 +566,7 @@ __global__ void outer_kernel(const uint32_t* __restrict__ x, uint32_t* __restric
   outer_stages<kLogK, kInverse>(v, col + ((static_cast<size_t>(limb) * log_r) << log_mi),
                                 row + ((static_cast<size_t>(limb) * log_r) << (log_r - 1)), c,
                                 log_mi, log_r, i0, lo, log_lo, p);
-  if (kInverse && edge) {
+  if (kInverse && edge && (kNegacyclic || scale)) {
     const uint2 minv = make_uint2(consts[3 * limb + 1], consts[3 * limb + 2]);
 #pragma unroll
     for (int m = 0; m < K; ++m) {
@@ -584,23 +585,23 @@ __global__ void outer_kernel(const uint32_t* __restrict__ x, uint32_t* __restric
 template <int kLogK, bool kInverse, bool kNegacyclic>
 cudaError_t launch_outer(const uint32_t* x, uint32_t* y, const uint2* col, const uint2* row,
                          const uint2* sc, const uint32_t* consts, int rows, int L, int log_mi,
-                         int log_r, int i0, cudaStream_t stream) {
+                         int log_r, int i0, int scale, cudaStream_t stream) {
   const size_t columns = (static_cast<size_t>(rows) * static_cast<size_t>(L)
                           << (log_r - kLogK)) << log_mi;
   const int threads = 256;
   const unsigned int blocks = static_cast<unsigned int>((columns + threads - 1) / threads);
   outer_kernel<kLogK, kInverse, kNegacyclic><<<blocks, threads, 0, stream>>>(
-      x, y, col, row, sc, consts, columns, L, log_mi, log_r, i0);
+      x, y, col, row, sc, consts, columns, L, log_mi, log_r, i0, scale);
   return cudaGetLastError();
 }
 
 template <int kLogK>
 cudaError_t launch_outer_mode(const uint32_t* x, uint32_t* y, const uint2* col,
                               const uint2* row, const uint2* sc, const uint32_t* consts,
-                              int rows, int L, int log_mi, int log_r, int i0, bool inv,
-                              bool nega, cudaStream_t st) {
-#define RINGSNARK_OUTER(I, N)                                                              \
-  launch_outer<kLogK, I, N>(x, y, col, row, sc, consts, rows, L, log_mi, log_r, i0, st)
+                              int rows, int L, int log_mi, int log_r, int i0, int scale,
+                              bool inv, bool nega, cudaStream_t st) {
+#define RINGSNARK_OUTER(I, N)                                                                 \
+  launch_outer<kLogK, I, N>(x, y, col, row, sc, consts, rows, L, log_mi, log_r, i0, scale, st)
   if (inv) return nega ? RINGSNARK_OUTER(true, true) : RINGSNARK_OUTER(true, false);
   return nega ? RINGSNARK_OUTER(false, true) : RINGSNARK_OUTER(false, false);
 #undef RINGSNARK_OUTER
@@ -645,7 +646,8 @@ extern "C" int ringsnark_ntt_launch(const void* x, void* y, const void* tw, cons
 extern "C" int ringsnark_ntt_outer_launch(const void* x, void* y, const void* col,
                                           const void* row, const void* sc, const void* consts,
                                           int rows, int L, int log_r, int log_mi, int inverse,
-                                          int negacyclic, int i0, int log_k, void* stream) {
+                                          int negacyclic, int i0, int log_k, int scale,
+                                          void* stream) {
   if (log_r < 1 || log_r > 16 || log_k < 1 || log_k > 5 || i0 < 0 || i0 + log_k > log_r ||
       log_mi < 1 || log_mi > 20 || rows < 1 || L < 1 ||
       (((static_cast<long long>(rows) * L) << (log_r - log_k)) << log_mi) / 256 >
@@ -662,7 +664,7 @@ extern "C" int ringsnark_ntt_outer_launch(const void* x, void* y, const void* co
   const bool inv = inverse != 0, nega = negacyclic != 0;
   cudaError_t err;
 #define RINGSNARK_OUTER_K(K) \
-  launch_outer_mode<K>(xi, yo, co, ro, s, c, rows, L, log_mi, log_r, i0, inv, nega, st)
+  launch_outer_mode<K>(xi, yo, co, ro, s, c, rows, L, log_mi, log_r, i0, scale, inv, nega, st)
   switch (log_k) {
     case 1: err = RINGSNARK_OUTER_K(1); break;
     case 2: err = RINGSNARK_OUTER_K(2); break;

@@ -15,7 +15,8 @@ from ..utils import prng
 from . import bgv
 from .context import EncodingContext, SecretKey
 
-__all__ = ["Encoding", "DecodingError", "encode", "decode", "inner_product"]
+__all__ = ["Encoding", "DecodingError", "encode", "decode", "inner_product", "mac_accumulate",
+           "finish_inner_product"]
 
 # Batch rows per chunk of the inner-product MAC: chunks hold this many
 # residues, so each int64 temporary is 128 MiB (256 rows at L = 1, L' = 4,
@@ -157,16 +158,12 @@ def decode(ctx: EncodingContext, sk: SecretKey, e: Encoding) -> RingElem:
     return RingElem(ctx.ring, slots[..., : ctx.ring.N])
 
 
-def inner_product(a: Encoding, b: RingElem, use_modswitch: bool = True) -> Encoding:
-    """sum_i E_i * r_i over the leading batch axis, then switch the sum down.
-
-    The sum-then-switch schedule of the JAX package: the whole batch is
-    multiply-accumulated at its level and only the final sum is switched
-    down to the floor.  The MAC runs in row chunks: each chunk's plaintexts
-    go to inner-NTT form, every ct x pt product is reduced mod Q_j, and the
-    reduced products are summed in int64 (exact: < 2^31 per term), so the
-    result equals the JAX package's bit for bit.
-    """
+def mac_accumulate(a: Encoding, b: RingElem):
+    """The exact int64 sums sum_i E_i * r_i over the leading batch axis,
+    before the final reduction: in row chunks, each chunk's plaintexts go to
+    inner-NTT form and every ct x pt product is reduced mod Q_j before the
+    int64 sum (exact: < 2^31 per term, < 2^32 rows), so any partition of the
+    rows sums to the same bits."""
     ctx = a.ctx
     B = len(a)
     assert b.res.shape[0] == B
@@ -178,11 +175,28 @@ def inner_product(a: Encoding, b: RingElem, use_modswitch: bool = True) -> Encod
         pt = bgv.plain_to_inner_ntt(ctx, b.res[lo:lo + chunk], a.level).to(torch.int64)
         acc0 += torch.remainder(a.c0[lo:lo + chunk].to(torch.int64) * pt, Q).sum(0)
         acc1 += torch.remainder(a.c1[lo:lo + chunk].to(torch.int64) * pt, Q).sum(0)
-    acc = Encoding(ctx, torch.remainder(acc0, Q).to(torch.int32),
-                   torch.remainder(acc1, Q).to(torch.int32), a.level)
-    if not use_modswitch:
-        return acc
-    # at least `floor_limbs` (>= 2) limbs must remain for noise headroom
-    for _ in range(max(ctx.L_inner - ctx.floor_limbs, 0)):
-        acc = acc.modswitch()
+    return acc0, acc1
+
+
+def finish_inner_product(ctx: EncodingContext, accs, level: int = 0,
+                         use_modswitch: bool = True) -> Encoding:
+    """The sums of `mac_accumulate` reduced mod Q_j, then switched down
+    ``L_inner - floor_limbs`` times (at least `floor_limbs` >= 2 limbs
+    remain for noise headroom)."""
+    Q = ctx.inner_consts(level)
+    acc = Encoding(ctx, *(torch.remainder(a, Q).to(torch.int32) for a in accs), level)
+    if use_modswitch:
+        for _ in range(max(ctx.L_inner - ctx.floor_limbs, 0)):
+            acc = acc.modswitch()
     return acc
+
+
+def inner_product(a: Encoding, b: RingElem, use_modswitch: bool = True) -> Encoding:
+    """sum_i E_i * r_i over the leading batch axis, then switch the sum down.
+
+    The sum-then-switch schedule of the JAX package: the whole batch is
+    multiply-accumulated at its level (`mac_accumulate`) and only the final
+    sum is switched down to the floor (`finish_inner_product`), so the
+    result equals the JAX package's bit for bit.
+    """
+    return finish_inner_product(a.ctx, mac_accumulate(a, b), a.level, use_modswitch)

@@ -119,7 +119,7 @@ def build() -> BuildResult:
 def _lib():
     lib = ctypes.CDLL(str(build().path))
     for name, n_ptr, n_int in (("ringsnark_ntt_launch", 5, 11),
-                               ("ringsnark_ntt_outer_launch", 6, 8)):
+                               ("ringsnark_ntt_outer_launch", 6, 9)):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -217,7 +217,10 @@ def _tables(primes: tuple, M: int, inverse: bool, negacyclic: bool, device: str)
     return KernelTables(tw_t, sc_t, _words(consts, device))
 
 
-def _check(x: torch.Tensor, plan: NTTPlan, negacyclic: bool, name: str):
+def _check(x: torch.Tensor, plan: NTTPlan, negacyclic: bool, name: str, inverse: bool = True,
+           scale: bool = True):
+    if not scale and (negacyclic or not inverse):
+        raise ValueError("scale=False is an option of the cyclic inverse only")
     if x.device.type != "cuda":
         raise ValueError(f"cuda_ntt.{name} needs a CUDA tensor, got {x.device}")
     if x.dtype != torch.int32:
@@ -251,18 +254,19 @@ def _launch(x, y, primes, M, inverse, negacyclic, rows, S=1, scale=True, order=N
 
 
 def ntt(x: torch.Tensor, plan: NTTPlan, inverse: bool, negacyclic: bool,
-        order: str | None = None) -> torch.Tensor:
+        order: str | None = None, scale: bool = True) -> torch.Tensor:
     """One kernel launch over ``x``: int32 CUDA ``[..., L, M]``, contiguous,
-    M <= 32768.  `order` picks the CTA order (default ``CTA_ORDER``)."""
+    M <= 32768.  `order` picks the CTA order (default ``CTA_ORDER``); the
+    cyclic inverse leaves out M^-1 when `scale` is off."""
     L, M = plan.L, plan.M
-    _check(x, plan, negacyclic, "ntt")
+    _check(x, plan, negacyclic, "ntt", inverse, scale)
     if tuple(x.shape[-2:]) != (L, M) or M < 2 or M & (M - 1) or M > 32768:
         raise ValueError(f"shape {tuple(x.shape)} does not fit the plan (L={L}, M={M})")
     y = torch.empty_like(x)
     rows = x.numel() // (L * M)
     if rows == 0:
         return y
-    _launch(x, y, plan.primes, M, inverse, negacyclic, rows, order=order)
+    _launch(x, y, plan.primes, M, inverse, negacyclic, rows, scale=scale, order=order)
     launch_counts[mode_name(inverse, negacyclic)] += 1
     return y
 
@@ -319,9 +323,10 @@ def outer_passes(log_r: int, inverse: bool) -> list:
     return passes[::-1] if inverse else passes
 
 
-def _split_check(x: torch.Tensor, plan: NTTPlan, negacyclic: bool, mi: int) -> int:
+def _split_check(x: torch.Tensor, plan: NTTPlan, negacyclic: bool, mi: int, inverse: bool,
+                 scale: bool) -> int:
     L, M = plan.L, plan.M
-    _check(x, plan, negacyclic, "ntt_split")
+    _check(x, plan, negacyclic, "ntt_split", inverse, scale)
     R = M // mi
     if (tuple(x.shape[-2:]) != (L, M) or M % mi or R < 2 or R & (R - 1)
             or mi > 32768 or mi & (mi - 1)):
@@ -331,16 +336,16 @@ def _split_check(x: torch.Tensor, plan: NTTPlan, negacyclic: bool, mi: int) -> i
 
 
 def ntt_split(x: torch.Tensor, plan: NTTPlan, inverse: bool, negacyclic: bool,
-              mi: int | None = None) -> torch.Tensor:
+              mi: int | None = None, scale: bool = True) -> torch.Tensor:
     """The split transform of ``x``: int32 CUDA ``[..., L, M]``, contiguous,
     M = R * mi (mi defaults to ``split_mi(M)``), R a power of two >= 2.
     Forward: the outer kernel's passes (psi twist + outer DIF stages, one
     pass up to R = 32), then the shared-memory kernel over the R rows of
     size mi; inverse: the shared-memory kernel unscaled, then the outer
-    passes (DIT stages + the full-size scale).  Counted once, as
-    ``split_<mode>``."""
+    passes (DIT stages + the full-size scale, left out of the cyclic
+    inverse when `scale` is off).  Counted once, as ``split_<mode>``."""
     mi = split_mi(plan.M) if mi is None else mi
-    R = _split_check(x, plan, negacyclic, mi)
+    R = _split_check(x, plan, negacyclic, mi, inverse, scale)
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
@@ -354,7 +359,8 @@ def ntt_split(x: torch.Tensor, plan: NTTPlan, inverse: bool, negacyclic: bool,
                 rc = _lib().ringsnark_ntt_outer_launch(
                     src.data_ptr(), dst.data_ptr(), st.col.data_ptr(), st.row.data_ptr(),
                     st.sc.data_ptr(), st.consts.data_ptr(), rows, plan.L, log_r,
-                    mi.bit_length() - 1, int(inverse), int(negacyclic), i0, k, _stream(x),
+                    mi.bit_length() - 1, int(inverse), int(negacyclic), i0, k, int(scale),
+                    _stream(x),
                 )
             if rc != 0:
                 raise RuntimeError(f"NTT outer kernel launch failed: cudaError {rc}")

@@ -10,7 +10,8 @@ two), int32 residues.  Ordering (Harvey/SEAL style, as in the JAX package):
 * ``cyclic_ntt_rev``: natural coefficients in -> bit-reversed evaluations out
   (output j holds the evaluation at ``w^bitrev(j)``);
 * ``cyclic_intt_nat``: bit-reversed evaluations in -> natural coefficients
-  out, scaled by M^-1;
+  out, scaled by M^-1 (``scale=False`` leaves the scale out: the
+  coefficient-sharded inverse applies it after its exchange stages);
 * the negacyclic pair twists by psi^i before / psi^-i * M^-1 after.
 
 Large sizes split as M = R * Mi (``get_split_tables``, ``ntt_split_plain``,
@@ -95,6 +96,7 @@ class NTTPlan:
     psi_inv_scaled: object = field(hash=False, compare=False)  # [L, M] * M^-1 or None
     # host-side table
     eval_points_np: object = field(hash=False, compare=False)  # [L, M] uint32: w^bitrev(j)
+    w_np: tuple = field(hash=False, compare=False)  # per-limb M-th root
 
     @property
     def L(self) -> int:
@@ -168,6 +170,7 @@ def get_plan(primes: tuple[int, ...], M: int, negacyclic: bool = False) -> NTTPl
         psi=psi,
         psi_inv_scaled=psi_inv_scaled,
         eval_points_np=eval_points,
+        w_np=tuple(ws),
     )
 
 
@@ -254,10 +257,13 @@ def cyclic_ntt_rev_plain(x, plan: NTTPlan):
     return _fwd_stages(x.to(torch.int64), tb, plan.M).to(torch.int32)
 
 
-def cyclic_intt_nat_plain(x, plan: NTTPlan):
-    """Inverse cyclic NTT along the last axis; bit-reversed in, natural out."""
+def cyclic_intt_nat_plain(x, plan: NTTPlan, scale: bool = True):
+    """Inverse cyclic NTT along the last axis; bit-reversed in, natural out;
+    times M^-1 unless `scale` is off."""
     tb = _tables_for(x, plan)
     y = _inv_stages(x.to(torch.int64), tb, plan.M)
+    if not scale:
+        return y.to(torch.int32)
     return torch.remainder(y * tb.minv, tb.p).to(torch.int32)
 
 
@@ -400,11 +406,13 @@ def _split_twin_tables(primes: tuple, M: int, Mi: int, negacyclic: bool, device:
     )
 
 
-def ntt_split_plain(x, plan: NTTPlan, inverse: bool, negacyclic: bool, mi: int = None):
+def ntt_split_plain(x, plan: NTTPlan, inverse: bool, negacyclic: bool, mi: int = None,
+                    scale: bool = True):
     """The split transform of ``[..., L, M]`` in plain PyTorch: the outer
     stages in int64 on the ``[..., L, R, Mi]`` view, and the plain twins'
     stages for the R inner cyclic transforms of size Mi (unscaled).  Equal
-    to the full-size transform of the same mode, bit for bit."""
+    to the full-size transform of the same mode, bit for bit; the cyclic
+    inverse leaves out M^-1 when `scale` is off."""
     mi = split_mi(plan.M) if mi is None else mi
     M, L = plan.M, plan.L
     assert tuple(x.shape[-2:]) == (L, M), (tuple(x.shape), L, M)
@@ -448,8 +456,9 @@ def ntt_split_plain(x, plan: NTTPlan, inverse: bool, negacyclic: bool, mi: int =
             nb = a - m
             nb = torch.where(nb < 0, nb + p[..., None], nb)
             xr = torch.stack([na, nb], dim=-3).reshape(*batch, L, R, mi)
-        scale = tb["psiinv_s"] if negacyclic else tb["minv"]
-        out = torch.remainder(xr * scale, p)
+        if negacyclic or scale:
+            xr = torch.remainder(xr * (tb["psiinv_s"] if negacyclic else tb["minv"]), p)
+        out = xr
     return out.reshape(*batch, L, M).to(torch.int32)
 
 
@@ -479,24 +488,27 @@ PLAIN_TWINS = {
 }
 
 
-def _dispatch(x, plan: NTTPlan, inverse: bool, negacyclic: bool):
+def _dispatch(x, plan: NTTPlan, inverse: bool, negacyclic: bool, scale: bool = True):
+    """`scale` (False: no M^-1) is taken by the cyclic inverse only."""
     if x.device.type == "cpu":
+        if not scale:
+            return cyclic_intt_nat_plain(x, plan, scale=False)
         return PLAIN_TWINS[(inverse, negacyclic)](x, plan)
     if x.device.type != "cuda":
         raise ValueError(f"no NTT route for device {x.device}")
     from . import cuda_ntt
 
-    if plan.M <= MAX_KERNEL_M:
-        return cuda_ntt.ntt(x.contiguous(), plan, inverse=inverse, negacyclic=negacyclic)
-    return cuda_ntt.ntt_split(x.contiguous(), plan, inverse=inverse, negacyclic=negacyclic)
+    route = cuda_ntt.ntt if plan.M <= MAX_KERNEL_M else cuda_ntt.ntt_split
+    return route(x.contiguous(), plan, inverse=inverse, negacyclic=negacyclic, scale=scale)
 
 
 def cyclic_ntt_rev(x, plan: NTTPlan):
     return _dispatch(x, plan, inverse=False, negacyclic=False)
 
 
-def cyclic_intt_nat(x, plan: NTTPlan):
-    return _dispatch(x, plan, inverse=True, negacyclic=False)
+def cyclic_intt_nat(x, plan: NTTPlan, scale: bool = True):
+    """The cyclic inverse; ``scale=False`` leaves out the factor M^-1."""
+    return _dispatch(x, plan, inverse=True, negacyclic=False, scale=scale)
 
 
 def negacyclic_ntt_rev(x, plan: NTTPlan):

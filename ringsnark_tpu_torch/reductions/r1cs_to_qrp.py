@@ -12,7 +12,8 @@ Port of ``ringsnark_tpu/reductions/r1cs_to_qrp.py``:
   cyclic NTT product whose upper half is H — assembled per slot chunk;
 * ``witness_map_kernel_chunked``: the ZK witness map (modes ``"mid"`` and
   ``"all"``) over the full/io/mid assignment batches of
-  ``_assignment_batches``, with the patch (d2·A + d1·B − d3) + d1·d2·Z;
+  ``_assignment_batches``, with the patch (d2·A + d1·B − d3) + d1·d2·Z,
+  its transforms (``WitnessTransforms``) on one device or coefficient-sharded;
   ``r1cs_to_qrp_witness_map`` wraps its ``"all"`` mode in a ``QRPWitness``;
 * ``r1cs_to_qrp_witness_map_generic``: the reference's control flow with
   list-based polynomials (``utils/poly.py``) on any domain and element type
@@ -24,6 +25,9 @@ the full assignment, since io + mid = full and the map is linear.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
 
 import torch
 
@@ -44,6 +48,8 @@ __all__ = [
     "r1cs_to_qrp_witness_map_generic",
     "prover_witness_map_chunked",
     "witness_map_kernel_chunked",
+    "WitnessTransforms",
+    "LOCAL",
 ]
 
 
@@ -199,7 +205,22 @@ def _h_main(ctx, aA, aB, M: int):
     return prod[..., M:].permute(2, 1, 0)  # q_{M-1} = 0
 
 
-def _witness_map_kernel(comp, z_full, z_io, z_mid, d1r, d2r, d3r, domain, outputs: str = "all"):
+@dataclass(frozen=True)
+class WitnessTransforms:
+    """The transforms of the witness map: ``interp(domain, evals)`` takes
+    [M, L, n] domain-order evaluations to coefficients, ``h_main(ctx, aA, aB,
+    M)`` gives the upper half of coeffs(A*B).  `LOCAL` runs them on one
+    device; ``parallel/witness_sharded.py`` coefficient-sharded."""
+
+    interp: Callable
+    h_main: Callable
+
+
+LOCAL = WitnessTransforms(_interp, _h_main)
+
+
+def _witness_map_kernel(comp, z_full, z_io, z_mid, d1r, d2r, d3r, domain, outputs: str = "all",
+                        tf: WitnessTransforms = LOCAL):
     """The ZK witness map (`r1cs_to_qrp.tcc:148-259`) of one slot chunk:
     constraint evaluations and iNTTs of the io and mid legs, H from the full
     assignment, and the patch H += d2*A + d1*B, H[0] -= d3 + d1*d2,
@@ -209,16 +230,17 @@ def _witness_map_kernel(comp, z_full, z_io, z_mid, d1r, d2r, d3r, domain, output
       "mid" -> (a_mid, b_mid, c_mid, H)
 
     Only the legs an output needs are run (C of the full assignment never
-    is; the io legs only for "all", so "mid" takes z_io = None)."""
+    is; the io legs only for "all", so "mid" takes z_io = None).  `tf` holds
+    the transforms."""
     assert outputs in ("all", "mid"), outputs
     ctx, M, p = comp.ctx, domain.m, comp.ctx.p
 
     def legs(z, k=3):
-        return tuple(_interp(domain, e) for e in comp.eval_matrices(z, num_rows=M)[:k])
+        return tuple(tf.interp(domain, e) for e in comp.eval_matrices(z, num_rows=M)[:k])
 
     aA, aB = legs(z_full, 2)
     patch = add_mod(mul_mod(aA, d2r, p), mul_mod(aB, d1r, p), p)  # [M, L, n]
-    H = add_mod(_h_main(ctx, aA, aB, M), patch, p)
+    H = add_mod(tf.h_main(ctx, aA, aB, M), patch, p)
     del aA, aB, patch
     d1d2 = mul_mod(d1r, d2r, p)
     n = H.shape[-1]
@@ -262,7 +284,8 @@ def r1cs_to_qrp_witness_map(comp: CompiledR1CS, primary, auxiliary, d1: RingElem
 
 
 def witness_map_kernel_chunked(comp, z_full, z_io, z_mid, d1r, d2r, d3r, domain,
-                               slot_chunk: int = 1024, outputs: str = "all"):
+                               slot_chunk: int = 1024, outputs: str = "all",
+                               tf: WitnessTransforms = LOCAL):
     """`_witness_map_kernel` over chunks of `slot_chunk` slots (slots never
     interact), the pieces written into preallocated outputs.  d1r/d2r/d3r
     are [L, 1] constants or [L, n] per-slot vectors, sliced with the chunk;
@@ -271,7 +294,8 @@ def witness_map_kernel_chunked(comp, z_full, z_io, z_mid, d1r, d2r, d3r, domain,
     for d in (d1r, d2r, d3r):
         assert d.shape[-1] in (1, n), (tuple(d.shape), n)
     if n <= slot_chunk:
-        return _witness_map_kernel(comp, z_full, z_io, z_mid, d1r, d2r, d3r, domain, outputs)
+        return _witness_map_kernel(comp, z_full, z_io, z_mid, d1r, d2r, d3r, domain, outputs,
+                                   tf)
     assert n % slot_chunk == 0, (n, slot_chunk)
     z_idx = 6 if outputs == "all" else None
 
@@ -281,7 +305,7 @@ def witness_map_kernel_chunked(comp, z_full, z_io, z_mid, d1r, d2r, d3r, domain,
         ds = (d if d.shape[-1] == 1 else d[..., sl] for d in (d1r, d2r, d3r))
         pieces = _witness_map_kernel(
             _comp_slot_slice(comp, lo, slot_chunk), z_full[..., sl],
-            None if z_io is None else z_io[..., sl], z_mid[..., sl], *ds, domain, outputs)
+            None if z_io is None else z_io[..., sl], z_mid[..., sl], *ds, domain, outputs, tf)
         if out is None:
             out = [pc if i == z_idx else
                    torch.empty((*pc.shape[:-1], n), dtype=pc.dtype, device=pc.device)

@@ -31,7 +31,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ..encoding import Encoding, bgv, encode, keygen
+from ..encoding import Encoding, bgv, encode, finish_inner_product, keygen
 from ..encoding.context import EncodingContext
 from ..reductions.r1cs_to_qrp import (
     _pa_batches,
@@ -158,16 +158,7 @@ def seeded_inner_product(senc: SeededEncoding, pts: list, use_modswitch: bool = 
     ctx = senc.ctx
     for pt in pts:
         assert pt.shape[0] <= senc.batch, (tuple(pt.shape), senc.batch)
-    Q = ctx.inner_consts(0)
-    max_level = max(ctx.L_inner - ctx.floor_limbs, 0) if use_modswitch else 0
-    outs = []
-    for a0, a1 in _mac_accs(senc, pts):
-        e = Encoding(ctx, torch.remainder(a0, Q).to(torch.int32),
-                     torch.remainder(a1, Q).to(torch.int32), 0)
-        while e.level < max_level:
-            e = e.modswitch()
-        outs.append(e)
-    return outs
+    return [finish_inner_product(ctx, accs, 0, use_modswitch) for accs in _mac_accs(senc, pts)]
 
 
 @dataclass

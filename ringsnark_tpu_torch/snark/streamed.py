@@ -77,13 +77,16 @@ __all__ = [
 # ---------------------------------------------------------------------------
 
 
-def limb_ring(ctx: RingContext, l: int) -> RingContext:
-    """The single-limb sub-ring Z_{q_l}[X]/(X^N+1)."""
-    return RingContext(primes=(ctx.primes[l],), N=ctx.N, device=ctx.device)
+def limb_ring(ctx: RingContext, l: int | slice) -> RingContext:
+    """The single-limb sub-ring Z_{q_l}[X]/(X^N+1), or that of the limbs of
+    a slice (``parallel/sharded.py``'s limb blocks)."""
+    primes = ctx.primes[l] if isinstance(l, slice) else (ctx.primes[l],)
+    return RingContext(primes=primes, N=ctx.N, device=ctx.device)
 
 
-def limb_enc_context(ectx: EncodingContext, l: int) -> EncodingContext:
-    """The encoding context of outer limb l (plain modulus t_l = q_l)."""
+def limb_enc_context(ectx: EncodingContext, l: int | slice) -> EncodingContext:
+    """The encoding context of outer limb l, or of the limbs of a slice
+    (plain moduli t_l = q_l)."""
     return EncodingContext(
         ring=limb_ring(ectx.ring, l),
         n_inner=ectx.n_inner,
@@ -244,9 +247,12 @@ def _as_batch(ctx: RingContext, x) -> RingElem:
 # ---------------------------------------------------------------------------
 
 
-def _encode_mac(ectx, sk, rows, nrows: int, pts, lo: int, key, slab: int, accs, rec, tag):
+def _encode_mac(ectx, sk, rows, nrows: int, pts, lo: int, key, slab: int, accs, rec, tag,
+                slab0: int = 0):
     """Encrypt rows [0, nrows) of one chunk (global rows lo + ...) as
-    ``seeded.encode_seeded(..., key, slab)`` would, and add each sub-chunk's
+    ``seeded.encode_seeded(..., key, slab)`` would, slab i under
+    ``fold_in(key, slab0 + i)`` (a rank of ``parallel/stream_sharded.py``
+    holds the slabs from slab0 on), and add each sub-chunk's
     products with the plaintext batches `pts` to the int64 accumulators
     `accs` (each product reduced mod Q_j).  `rows(a, b)` gives the chunk's
     CRS rows [a, b).  With ``rec.profile`` records the chunk's encryption
@@ -255,7 +261,7 @@ def _encode_mac(ectx, sk, rows, nrows: int, pts, lo: int, key, slab: int, accs, 
     t_enc = t_mac = 0.0
     for i, a, b in sd._sub_chunks(nrows, slab, sd._sub_rows(ectx)):
         t0 = time.perf_counter()
-        c0, c1 = bgv.encrypt(ectx, sk, rows(a, b), prng.fold_in(key, i),
+        c0, c1 = bgv.encrypt(ectx, sk, rows(a, b), prng.fold_in(key, slab0 + i),
                              draw_rows=slab, lo=a - i * slab)
         if rec.profile:
             rec._sync(c0)

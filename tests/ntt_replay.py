@@ -124,12 +124,12 @@ def ntt_kernel(x, primes, M, inverse, negacyclic, S=1, limb_major=False, scale=T
     return y.reshape(x.shape)
 
 
-def outer_pass(v, primes, log_r, i0, k, inverse, negacyclic, st):
+def outer_pass(v, primes, log_r, i0, k, inverse, negacyclic, st, scale=True):
     """One `outer_kernel` pass, stages i0 .. i0 + k - 1 (factored twiddles),
     on v [rows, L, R, mi], indexed as the kernel's threads index it: thread
     (hi, lo) of a column holds rows r(m) = (hi << (log_r - i0)) | (m <<
     log_lo) | lo.  The pass at i0 = 0 twists by psi first (forward) or scales
-    last (inverse)."""
+    last (inverse; the cyclic inverse not when `scale` is off)."""
     col, row, sc, consts = host(st.col), host(st.row), host(st.sc), host(st.consts)
     R, K = 1 << log_r, 1 << k
     log_lo = log_r - k - i0
@@ -160,7 +160,7 @@ def outer_pass(v, primes, log_r, i0, k, inverse, negacyclic, st):
             else:
                 t = shoup(sub(a, v[m + dl], p), wc, p)
                 v[m], v[m + dl] = add(a, v[m + dl], p), np.where(nz, shoup(t, wr, p), t)
-    if inverse and edge:
+    if inverse and edge and (negacyclic or scale):
         v = [shoup(v[m], sc[:, rows_m[:, m]], p) if negacyclic
              else shoup(v[m], consts[:, None, None, 1:3], p) for m in range(K)]
     n, L, _, mi = v[0].shape
@@ -170,7 +170,7 @@ def outer_pass(v, primes, log_r, i0, k, inverse, negacyclic, st):
     return out
 
 
-def ntt_split(x, primes, size, mi, inverse, negacyclic, limb_major=False):
+def ntt_split(x, primes, size, mi, inverse, negacyclic, limb_major=False, scale=True):
     """`ntt_split`: the outer kernel's passes (`cuda_ntt.outer_passes`) and
     `ntt_kernel` with S = R (inverse: unscaled inner first, then the outer
     passes)."""
@@ -182,7 +182,7 @@ def ntt_split(x, primes, size, mi, inverse, negacyclic, limb_major=False):
     if inverse:
         v = ntt_kernel(v, primes, mi, True, False, R, limb_major, scale=False)
     for i0, k in cuda_ntt.outer_passes(log_r, inverse):
-        v = outer_pass(v, primes, log_r, i0, k, inverse, negacyclic, st)
+        v = outer_pass(v, primes, log_r, i0, k, inverse, negacyclic, st, scale)
     if not inverse:
         v = ntt_kernel(v, primes, mi, False, False, R, limb_major)
     return v.reshape(x.shape)

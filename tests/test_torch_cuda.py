@@ -321,3 +321,64 @@ def test_frontend_proofs_on_card_equal_cpu(cuda, circuit):
         assert not system.verifier(kp.vk, [prim[0] + 1] + prim[1:], proof)
         assert system.verifier(kp_c.vk, pb_c.primary_input(),
                                interop.proof_from_numpy(p_cpu, got))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1 << 10, 1 << 14, 1 << 16, 1 << 18])
+def test_unscaled_cyclic_inverse_equals_twin(cuda, M):
+    """cyclic_intt_nat(scale=False) on the shared-memory route (M <= 32768)
+    and on the split route (the outer kernel without its M^-1) == the twin;
+    scaled back by M^-1 it is the scaled inverse."""
+    primes = tuple(find_ntt_primes(2, 1 << 19))
+    plan = tntt.get_plan(primes, M)
+    x = _residues(primes, M, 3, cuda, seed=M + 1)
+    route = "cyclic_inv" if M <= tntt.MAX_KERNEL_M else "split_cyclic_inv"
+    before = cuda_ntt.launch_counts[route]
+    got = tntt.cyclic_intt_nat(x, plan, scale=False)
+    assert cuda_ntt.launch_counts[route] == before + 1
+    assert torch.equal(got, tntt.cyclic_intt_nat_plain(x, plan, scale=False))
+    minv = torch.as_tensor(plan.minv.astype("int64"), device=x.device)
+    p = torch.as_tensor(plan.p.astype("int64"), device=x.device)
+    assert torch.equal(torch.remainder(got.to(torch.int64) * minv, p).to(torch.int32),
+                       tntt.cyclic_intt_nat(x, plan))
+    with pytest.raises(ValueError, match="cyclic inverse only"):
+        cuda_ntt.ntt(x[..., :1024].contiguous(), tntt.get_plan(primes, 1024), False, False,
+                     scale=False)
+
+
+@pytest.mark.gpu
+def test_world_one_nccl_sharded_ntt_equals_ops_ntt(cuda):
+    """A world of one rank over NCCL: sharded_ntt on the coeff dimension of
+    a (1, 1, 1) mesh in all four modes == ops.ntt (the local transforms are
+    the kernels; no exchange stage at D = 1)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from ringsnark_tpu_torch.parallel import mesh as pmesh
+    from ringsnark_tpu_torch.parallel import sharded_ntt
+
+    pmesh.init_single_process("cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = DeviceMesh("cuda", torch.arange(1).reshape(1, 1, 1),
+                          mesh_dim_names=("limb", "coeff", "data"))
+        for M in (1 << 12, 1 << 17):
+            primes = tuple(find_ntt_primes(2, 2 * M))
+            x = _residues(primes, M, 4, cuda, seed=M)
+            plan = tntt.get_plan(primes, M, negacyclic=True)
+            for (inverse, negacyclic), fn in DISPATCH.items():
+                got = sharded_ntt(x, plan, mesh, negacyclic=negacyclic, inverse=inverse)
+                assert torch.equal(got, fn(x, plan)), (M, inverse, negacyclic)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_dryrun_multichip_on_one_gpu(cuda):
+    """dryrun_multichip(1) spawns one NCCL rank on the GPU: the sharded
+    proof verifies and equals the single-device proof."""
+    from ringsnark_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    report = dryrun_multichip(1, timeout_s=300)
+    assert report["backend"] == "nccl" and report["ranks"] == 1
+    assert report["proof_equals_single_device"] and report["verified"]
