@@ -116,8 +116,8 @@ traceback and exits nonzero without the final line:
    of `make_mesh` and a ('limb', 'coeff', 'data') = (1, 1, 1) mesh built
    directly.  `sharded_ntt` in all four modes at M = 2^18 on 1024 rows
    equals `ops.ntt` bit for bit; `cyclic_intt_nat(scale=False)` on the
-   shared-memory route (M = 2^14) and the split route (2^18) equals the plain
-   twin.  The sharded provers run inside the phases whose keys they use,
+   shared-memory route (M = 2^14, and 2^15: the sharded witness map's
+   inv_2M) and the split route (2^18) equals the plain twin.  The sharded provers run inside the phases whose keys they use,
    after those phases' launch counts are read: `groth16_prove_sharded` in
    phase 3 on both meshes (== phase 3's proof, verifies), the data-sharded
    streamed chunk after phase 7 (65,536 rows at phase 7's parameters, slab
@@ -347,8 +347,9 @@ def sharded_ntt_phase(meshes, log_m, rows, report, split_report, card):
     """Phase 13: sharded_ntt on the 3-D mesh's 'coeff' dimension in all four
     modes at M = 2^log_m == ops.ntt, bit for bit (launch counts set to 0
     before, read after; ops.ntt's launches are not counted); then
-    cyclic_intt_nat(scale=False) on the shared-memory route (M = 2^14) and
-    on the split route (2^log_m) == the plain twin, timed."""
+    cyclic_intt_nat(scale=False) on the shared-memory route (M = 2^14, and
+    2^15: the inv_2M of the sharded witness map at M = 2^14) and on the
+    split route (2^log_m) == the plain twin, timed."""
     from ringsnark_tpu_torch.ops import cuda_ntt
     from ringsnark_tpu_torch.ops import ntt as nttm
     from ringsnark_tpu_torch.parallel import sharded_ntt
@@ -385,6 +386,8 @@ def sharded_ntt_phase(meshes, log_m, rows, report, split_report, card):
     unscaled = {}
     for label, m, rep, route in (("shared-memory M=2^14", 1 << 14, report["cyclic_inv"],
                                   "cyclic_inv"),
+                                 ("shared-memory M=2^15", 1 << 15, report["cyclic_inv"],
+                                  "cyclic_inv"),
                                  (f"split M=2^{log_m}", M, split_report["split_cyclic_inv"],
                                   "split_cyclic_inv")):
         xm = x[..., :m].contiguous()
@@ -399,9 +402,9 @@ def sharded_ntt_phase(meshes, log_m, rows, report, split_report, card):
         kms = cuda_ms(lambda: nttm.cyclic_intt_nat(xm, cplan, scale=False))
         pms = cuda_ms(lambda: nttm.cyclic_intt_nat_plain(xm, cplan, scale=False), iters=1)
         bms = bound_ms(xm.numel())
-        unscaled[route] = dict(ms=kms, plain_ms=pms, bound_ms=bms,
-                               shape=f"M={m}, L={len(primes)}, rows={rows}")
-        rep["unscaled"] = unscaled[route]
+        unscaled[f"{route} M={m}"] = dict(ms=kms, plain_ms=pms, bound_ms=bms,
+                                          shape=f"M={m}, L={len(primes)}, rows={rows}")
+        rep.setdefault("unscaled", {})[f"M={m}"] = unscaled[f"{route} M={m}"]
         print(f"  equal  cyclic_intt_nat(scale=False) {label} rows={rows}: kernel {kms:.4f} ms, "
               f"plain twin {pms:.4f} ms, bound {bms:.4f} ms ({100 * bms / kms:.1f} %) ({card})",
               flush=True)

@@ -40,7 +40,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .ntt import NTTPlan, _mod_powers, get_plan, shoup_np, split_mi
+from .ntt import NTTPlan, _mod_powers, check_scale, get_plan, shoup_np, split_mi
 from .primes import root_of_unity
 
 __all__ = ["build", "ntt", "ntt_split", "geometry", "kernel_passes", "outer_passes",
@@ -219,8 +219,7 @@ def _tables(primes: tuple, M: int, inverse: bool, negacyclic: bool, device: str)
 
 def _check(x: torch.Tensor, plan: NTTPlan, negacyclic: bool, name: str, inverse: bool = True,
            scale: bool = True):
-    if not scale and (negacyclic or not inverse):
-        raise ValueError("scale=False is an option of the cyclic inverse only")
+    check_scale(inverse, negacyclic, scale)
     if x.device.type != "cuda":
         raise ValueError(f"cuda_ntt.{name} needs a CUDA tensor, got {x.device}")
     if x.dtype != torch.int32:

@@ -413,6 +413,7 @@ def ntt_split_plain(x, plan: NTTPlan, inverse: bool, negacyclic: bool, mi: int =
     stages for the R inner cyclic transforms of size Mi (unscaled).  Equal
     to the full-size transform of the same mode, bit for bit; the cyclic
     inverse leaves out M^-1 when `scale` is off."""
+    check_scale(inverse, negacyclic, scale)
     mi = split_mi(plan.M) if mi is None else mi
     M, L = plan.M, plan.L
     assert tuple(x.shape[-2:]) == (L, M), (tuple(x.shape), L, M)
@@ -488,8 +489,15 @@ PLAIN_TWINS = {
 }
 
 
+def check_scale(inverse: bool, negacyclic: bool, scale: bool) -> None:
+    """`scale=False` (no M^-1) is an option of the cyclic inverse only; every
+    route refuses it elsewhere."""
+    if not scale and (negacyclic or not inverse):
+        raise ValueError("scale=False is an option of the cyclic inverse only")
+
+
 def _dispatch(x, plan: NTTPlan, inverse: bool, negacyclic: bool, scale: bool = True):
-    """`scale` (False: no M^-1) is taken by the cyclic inverse only."""
+    check_scale(inverse, negacyclic, scale)
     if x.device.type == "cpu":
         if not scale:
             return cyclic_intt_nat_plain(x, plan, scale=False)

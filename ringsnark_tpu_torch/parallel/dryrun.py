@@ -31,14 +31,17 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-__all__ = ["dryrun_multichip", "spawn", "tiny_env"]
+__all__ = ["dryrun_multichip", "spawn", "tiny_env", "SPAWN_TIMEOUT_S"]
+
+# the ranks of one spawn that are not all done by then are killed
+SPAWN_TIMEOUT_S = 300
 
 
-def spawn(fn, nprocs: int, args: tuple, timeout_s: float) -> None:
+def spawn(fn, nprocs: int, args: tuple) -> None:
     """Run fn(rank, *args) in `nprocs` spawned processes; raise if one fails
-    (the others are ended) or if they are not all done in `timeout_s`."""
+    (the others are ended) or if they are not all done in SPAWN_TIMEOUT_S."""
     ctx = mp.start_processes(fn, args=args, nprocs=nprocs, start_method="spawn", join=False)
-    deadline = time.monotonic() + timeout_s
+    deadline = time.monotonic() + SPAWN_TIMEOUT_S
     while not ctx.join(timeout=max(0.1, min(5.0, deadline - time.monotonic()))):
         if time.monotonic() >= deadline:
             for p in ctx.processes:
@@ -46,7 +49,7 @@ def spawn(fn, nprocs: int, args: tuple, timeout_s: float) -> None:
                     p.kill()
             for p in ctx.processes:
                 p.join(10)
-            raise TimeoutError(f"{nprocs} ranks not done in {timeout_s} s")
+            raise TimeoutError(f"{nprocs} ranks not done in {SPAWN_TIMEOUT_S} s")
 
 
 def tiny_env(device: str, L=2, N=8, n_inner=16, L_inner=3, replicate=2, seed=7):
@@ -160,19 +163,18 @@ def _rank(rank: int, n: int, device_type: str, tmp: str) -> None:
         dist.destroy_process_group()
 
 
-def dryrun_multichip(n_devices: int, device_type: str | None = None,
-                     timeout_s: float = 600) -> dict:
+def dryrun_multichip(n_devices: int, device_type: str | None = None) -> dict:
     """Start `n_devices` ranks (GPUs over NCCL by default; gloo ranks on the
     CPU with ``device_type="cpu"``), prove and check as the module says, and
     return rank 0's report.  Raises where a check fails, where the GPUs are
-    fewer than the ranks, or after `timeout_s`."""
+    fewer than the ranks, or after SPAWN_TIMEOUT_S."""
     device_type = device_type or "cuda"
     if device_type == "cuda" and torch.cuda.device_count() < n_devices:
         raise RuntimeError(f"{n_devices} ranks need {n_devices} GPUs, "
                            f"{torch.cuda.device_count()} visible (device_type='cpu' runs "
                            "gloo ranks on the CPU)")
     with tempfile.TemporaryDirectory(prefix="ringsnark_dryrun_") as tmp:
-        spawn(_rank, n_devices, (n_devices, device_type, tmp), timeout_s)
+        spawn(_rank, n_devices, (n_devices, device_type, tmp))
         return json.loads((Path(tmp) / "report.json").read_text())
 
 

@@ -49,8 +49,8 @@ BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 TIMEOUT_S = 60
 
 
-def init_rank(rank: int, world_size: int, init_file: str | Path, device_type: str = "cuda",
-              timeout_s: float = TIMEOUT_S) -> None:
+def init_rank(rank: int, world_size: int, init_file: str | Path,
+              device_type: str = "cuda") -> None:
     """Join a world of `world_size` ranks through a file store (no port to
     pick): NCCL for ``"cuda"`` (rank r on GPU r), gloo for ``"cpu"``.  A
     failed init raises."""
@@ -63,14 +63,13 @@ def init_rank(rank: int, world_size: int, init_file: str | Path, device_type: st
         torch.cuda.set_device(rank)
     dist.init_process_group(BACKENDS[device_type], init_method=f"file://{init_file}",
                             world_size=world_size, rank=rank,
-                            timeout=datetime.timedelta(seconds=timeout_s))
+                            timeout=datetime.timedelta(seconds=TIMEOUT_S))
 
 
-def init_single_process(device_type: str = "cuda", timeout_s: float = TIMEOUT_S) -> None:
+def init_single_process(device_type: str = "cuda") -> None:
     """A world of one rank (file store under a new temporary directory): the
     mesh of one card, or of the CPU when ``device_type="cpu"``."""
-    init_rank(0, 1, Path(tempfile.mkdtemp(prefix="ringsnark_pg_")) / "pg", device_type,
-              timeout_s)
+    init_rank(0, 1, Path(tempfile.mkdtemp(prefix="ringsnark_pg_")) / "pg", device_type)
 
 
 def make_mesh(n_devices: int | None = None, limb: int = 1, coeff: int = 1,

@@ -18,8 +18,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from ..encoding import Encoding
 from ..encoding.context import EncodingContext, SecretKey
+from ..encoding.encoding import finish_inner_product
 from ..snark.streamed import StreamRecord, _encode_mac
 from .mesh import axis_group, axis_rank, axis_size
 
@@ -49,11 +49,7 @@ def stream_chunk_ip_sharded(mesh, ectx: EncodingContext, sk: SecretKey, rows, pt
     _encode_mac(ectx, sk, lambda a, b: rows_loc[a:b], local, [pt[own] for pt in pts], 0, key,
                 slab, accs, StreamRecord(sync=False), "sharded", slab0=d * (local // slab))
     group = axis_group(mesh, "data")
-    Q = ectx.inner_consts(0)
-    outs = []
-    for a0, a1 in accs:
-        dist.all_reduce(a0, op=dist.ReduceOp.SUM, group=group)
-        dist.all_reduce(a1, op=dist.ReduceOp.SUM, group=group)
-        outs.append(Encoding(ectx, torch.remainder(a0, Q).to(torch.int32),
-                             torch.remainder(a1, Q).to(torch.int32), 0))
-    return outs
+    for a in accs:
+        for part in a:
+            dist.all_reduce(part, op=dist.ReduceOp.SUM, group=group)
+    return [finish_inner_product(ectx, a, 0, use_modswitch=False) for a in accs]

@@ -324,7 +324,7 @@ def test_frontend_proofs_on_card_equal_cpu(cuda, circuit):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("M", [1 << 10, 1 << 14, 1 << 16, 1 << 18])
+@pytest.mark.parametrize("M", [1 << 10, 1 << 14, 1 << 15, 1 << 16, 1 << 18])
 def test_unscaled_cyclic_inverse_equals_twin(cuda, M):
     """cyclic_intt_nat(scale=False) on the shared-memory route (M <= 32768)
     and on the split route (the outer kernel without its M^-1) == the twin;
@@ -379,6 +379,6 @@ def test_dryrun_multichip_on_one_gpu(cuda):
     proof verifies and equals the single-device proof."""
     from ringsnark_tpu_torch.parallel.dryrun import dryrun_multichip
 
-    report = dryrun_multichip(1, timeout_s=300)
+    report = dryrun_multichip(1)
     assert report["backend"] == "nccl" and report["ranks"] == 1
     assert report["proof_equals_single_device"] and report["verified"]

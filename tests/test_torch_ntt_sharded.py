@@ -168,3 +168,17 @@ def test_unscaled_inverse_replayed_split_route(size, mi):
     plan = tntt.get_plan(ps, size)
     assert np.array_equal(_u(tntt.ntt_split_plain(_t(x), plan, True, False, mi=mi, scale=False)),
                           want)
+
+
+@pytest.mark.parametrize("inverse,negacyclic", [(False, False), (False, True), (True, True)])
+def test_unscaled_refused_outside_cyclic_inverse(inverse, negacyclic):
+    """`scale=False` is the cyclic inverse's option: the dispatcher and the
+    plain split refuse it for every other mode before they pick a route,
+    as the CUDA wrappers do."""
+    ps = tuple(pr.find_ntt_primes(2, 1 << 12))
+    plan = tntt.get_plan(ps, 1024, negacyclic=True)
+    x = _t(_residues(ps, 1024, 1, seed=5))
+    with pytest.raises(ValueError, match="cyclic inverse only"):
+        tntt._dispatch(x, plan, inverse, negacyclic, scale=False)
+    with pytest.raises(ValueError, match="cyclic inverse only"):
+        tntt.ntt_split_plain(x, plan, inverse, negacyclic, mi=128, scale=False)

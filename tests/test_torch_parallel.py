@@ -218,7 +218,7 @@ def test_stream_chunk_sharded_equals_jax(N, rank):
 
 
 def test_dryrun_multichip_on_gloo_ranks():
-    report = dryrun.dryrun_multichip(WORLD, device_type="cpu", timeout_s=240)
+    report = dryrun.dryrun_multichip(WORLD, device_type="cpu")
     assert report["backend"] == "gloo" and report["ranks"] == WORLD
     assert report["prover_mesh"] == {"limb": 2, "coeff": 2, "data": 1}
     assert report["proof_equals_single_device"] and report["verified"]

@@ -176,9 +176,6 @@ def _stream_ctx(N: int):
 TASKS = {"ntt": ntt_task, "prover": prover_task}
 
 
-SPAWN_TIMEOUT_S = 240
-
-
 def run(world: int, task: str, inputs: dict) -> list:
     """Spawn `world` gloo ranks of `task` on `inputs` (from the test
     process); their outputs in rank order."""
@@ -186,7 +183,7 @@ def run(world: int, task: str, inputs: dict) -> list:
 
     with tempfile.TemporaryDirectory(prefix="ringsnark_ranks_") as tmp:
         np.savez(Path(tmp) / "in.npz", **inputs)
-        spawn(main, world, (world, tmp, task), SPAWN_TIMEOUT_S)
+        spawn(main, world, (world, tmp, task))
         return [dict(np.load(Path(tmp) / f"out_{r}.npz")) for r in range(world)]
 
 
