@@ -125,10 +125,33 @@ traceback and exits nonzero without the final line:
    and `rinocchio_prove_sharded` in phase 10 on logistic regression's keypair
    (== the unsharded proof under the same numpy seed, verifies).  Their launch
    counts, set to 0 before each and read after, are the path `sharded`.
+14. the entry-point scripts and examples (`ringsnark_tpu_torch/scripts/`,
+   `examples/`), each `main(argv)` called in-process as `python -m` calls it:
+   14a `scripts/bench`, the north-star NTT [32, 6, 8192] (kernel == plain
+   twin in both directions and == the native C++ output; time a transform
+   from a replayed CUDA graph and from the host, share of the bound, the
+   plain twin, the CPU legs on 1 and all threads); 14b `bench_prover
+   --ring zq --L 3 --n-inner 4096 --log-m 18 --phased --margin 4 --passes 2`
+   (the streamed Z_q prover, N=1: cold and warm passes, verifies, rejects a
+   changed public input; launches counted over the call as path `zq`:
+   negacyclic forward and inverse, the split cyclic modes, no outer
+   negacyclic); 14c the small Z_q L=3 cross-check (M=2^6, N'=512: the card's
+   streamed and seeded proofs == the CPU's); 14d `bench_prover` seeded over
+   Z_q at M=2^14 (`--margin 6`: L'=3; path `zq_seeded`); 14e the
+   four examples at their defaults (path `examples`); 14f `bench_circuits
+   --preset reference` for the plaintext check (both systems) and for
+   logreg's ringGroth16 and FHE side; 14g `bench_encode_profile`; 14h
+   `bench_cpu_full --log-m 12`; 14i `bench_scaling --D 1` (one NCCL rank).
+   During 14b, 14d, 14e and 14f-i every shape the dispatcher hands the
+   kernels is recorded; after each, every recorded shape is held against
+   the plain versions on random residues (the split route against
+   `ntt_split_plain` and the full-size twin), at its own rows up to 2^27
+   residues.  `--small` runs each at a tiny size.
 
 The line before the last is a JSON object with the kernels' launch counts
-(per path, `sharded` among them), errors, times, bounds (`bound_ms`, `bound_by`,
-`share_of_bound`)
+(per path, `sharded`, `zq`, `zq_seeded` and `examples` among them; the
+negacyclic entries carry 14a's numbers under `north_star`), errors, times,
+bounds (`bound_ms`, `bound_by`, `share_of_bound`)
 and `library_ms` (null: no PyTorch call computes an NTT modulo a prime);
 the last line is
 `{"ok": true, "device": {...}}`.  This script imports nothing of JAX.
@@ -137,7 +160,9 @@ the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -415,49 +440,20 @@ def sharded_ntt_phase(meshes, log_m, rows, report, split_report, card):
 
 
 def make_params(cfg, device):
-    from ringsnark_tpu_torch.encoding import EncodingContext
-    from ringsnark_tpu_torch.encoding.noise import plan_inner_chain
-    from ringsnark_tpu_torch.ops.primes import find_ntt_primes
-    from ringsnark_tpu_torch.rings.context import default_context
-    from ringsnark_tpu_torch.snark.api import SnarkParams
+    """bench_prover's parameters for cfg (noise margin 10)."""
+    from ringsnark_tpu_torch.scripts.common import bench_params
 
-    M, N, n_inner = 1 << cfg["log_m"], cfg["N"], cfg["n_inner"]
-    order = max(1 << (cfg["log_m"] + 2), 2 * n_inner, 4 * N)
-    ring = default_context(L=cfg["L"], N=N, order=order, device=device)
-    L_inner, floor = plan_inner_chain(n_inner, 31, M + 1, margin_bits=10, dense=N > 1)
-    inner, below = [], 1 << 31
-    while len(inner) < L_inner:
-        c = find_ntt_primes(1, 2 * n_inner, below=below)[0]
-        below = c
-        if c not in ring.primes:
-            inner.append(c)
-    ectx = EncodingContext(ring=ring, n_inner=n_inner, inner_primes=tuple(inner),
-                           floor_limbs=floor)
-    return SnarkParams(ring=ring, enc=ectx)
+    return bench_params(cfg["L"], cfg["N"], cfg["n_inner"], cfg["log_m"], 10, device)
 
 
 def make_circuit_params(cfg, device):
     """Ring L=2 and the inner chain for a circuit's largest inner product
-    (`features` is what a circuit without features is sized with)."""
-    from ringsnark_tpu_torch.encoding import EncodingContext
-    from ringsnark_tpu_torch.encoding.noise import plan_inner_chain
-    from ringsnark_tpu_torch.ops.primes import find_ntt_primes
-    from ringsnark_tpu_torch.rings.context import default_context
-    from ringsnark_tpu_torch.snark.api import SnarkParams
+    (`features` is what a circuit without features is sized with), as
+    bench_circuits makes them."""
+    from ringsnark_tpu_torch.scripts.bench_circuits import make_params as circuit_params
 
-    N, n_inner = cfg["N"], cfg["n_inner"]
-    max_terms = max(4 * cfg["features"] + 8, N + 2, cfg["log_t"] + 2)
-    ring = default_context(L=2, N=N, order=max(1 << 14, 2 * n_inner, 4 * N), device=device)
-    L_inner, floor = plan_inner_chain(n_inner, 31, max_terms, dense=N > 1)
-    inner, below = [], 1 << 31
-    while len(inner) < L_inner:
-        c = find_ntt_primes(1, 2 * n_inner, below=below)[0]
-        below = c
-        if c not in ring.primes:
-            inner.append(c)
-    ectx = EncodingContext(ring=ring, n_inner=n_inner, inner_primes=tuple(inner),
-                           floor_limbs=floor)
-    return SnarkParams(ring=ring, enc=ectx)
+    return circuit_params(cfg["N"], cfg["n_inner"],
+                          max(4 * cfg["features"] + 8, cfg["N"] + 2, cfg["log_t"] + 2), device)
 
 
 def build_circuit(name, cfg, ring, seed):
@@ -1388,6 +1384,264 @@ def small_keys_cross_check():
           flush=True)
 
 
+HELD_ELEMS = 1 << 27  # phase 14: the largest batch a recorded shape is held at (512 MiB)
+
+
+@contextlib.contextmanager
+def recorded_shapes():
+    """Every shape the dispatcher (`ops.ntt`) hands the two kernel wrappers
+    while the block runs, as {(route, shape, primes, inverse, negacyclic,
+    scale): calls}; the wrappers run, and count, as they do without it."""
+    from ringsnark_tpu_torch.ops import cuda_ntt
+
+    seen = {}
+    saved = {"ntt": cuda_ntt.ntt, "split": cuda_ntt.ntt_split}
+
+    def recording(route):
+        def call(x, plan, inverse, negacyclic, scale=True, **kw):
+            key = (route, tuple(x.shape), plan.primes, inverse, negacyclic, scale)
+            seen[key] = seen.get(key, 0) + 1
+            return saved[route](x, plan, inverse=inverse, negacyclic=negacyclic, scale=scale,
+                                **kw)
+        return call
+
+    cuda_ntt.ntt, cuda_ntt.ntt_split = recording("ntt"), recording("split")
+    try:
+        yield seen
+    finally:
+        cuda_ntt.ntt, cuda_ntt.ntt_split = saved["ntt"], saved["split"]
+
+
+def hold_recorded_shapes(label, seen, report, split_report, seed):
+    """Each shape of `seen` (from `recorded_shapes`) held against the plain
+    versions on random residues below its primes: the shared-memory kernel
+    == its plain twin; the split route == `ntt_split_plain` == the
+    full-size twin; the cyclic inverse unscaled where the path asked for it.
+    A batch above HELD_ELEMS residues is held at fewer rows.  The largest
+    difference goes into report / split_report[mode]["max_abs_err"]."""
+    from ringsnark_tpu_torch.ops import cuda_ntt
+    from ringsnark_tpu_torch.ops import ntt as nttm
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for (route, shape, primes, inverse, nega, scale), calls in sorted(seen.items(), key=str):
+        M, L = shape[-1], len(primes)
+        rows = math.prod(shape[:-2])
+        held = max(1, min(rows, HELD_ELEMS // (L * M)))
+        plan = nttm.get_plan(primes, M, negacyclic=nega)
+        x = torch.cat([torch.randint(0, p, (held, 1, M), generator=gen, dtype=torch.int32,
+                                     device="cuda") for p in primes], dim=1)
+        full = (nttm.PLAIN_TWINS[(inverse, nega)](x, plan) if scale
+                else nttm.cyclic_intt_nat_plain(x, plan, scale=False))
+        mode = cuda_ntt.mode_name(inverse, nega)
+        if route == "ntt":
+            got = cuda_ntt.ntt(x, plan, inverse, nega, scale=scale)
+            wants, rep = (full,), report[mode]
+        else:
+            mode = "split_" + mode
+            got = cuda_ntt.ntt_split(x, plan, inverse, nega, scale=scale)
+            wants = (nttm.ntt_split_plain(x, plan, inverse, nega, scale=scale), full)
+            rep = split_report[mode]
+        err = max(int((got.to(torch.int64) - w.to(torch.int64)).abs().max()) for w in wants)
+        rep["max_abs_err"] = max(rep["max_abs_err"], err)
+        dims = ", ".join(map(str, shape))
+        check(all(torch.equal(got, w) for w in wants),
+              f"{label}: {mode} kernel != plain at [{dims}], primes {primes}")
+        print(f"  equal  {mode:21s} {label} [{dims}] L={L}{'' if scale else ' unscaled'} "
+              f"({calls} call(s)), held at {held} of {rows} rows", flush=True)
+        del x, full, got, wants
+    torch.cuda.empty_cache()
+
+
+def _script(label, main_fn, argv):
+    """One entry point called in-process as `python -m` would call it."""
+    print(f"  {label}: main({' '.join(argv)})", flush=True)
+    t0 = time.perf_counter()
+    out = main_fn(argv)
+    torch.cuda.synchronize()
+    print(f"  {label}: {time.perf_counter() - t0:.3f} s", flush=True)
+    return out
+
+
+def bench_ntt(small: bool):
+    """14a: scripts/bench, the north-star NTT [32, 6, 8192]: the kernel ==
+    its plain twin in both directions and == the native C++ output (the
+    script raises otherwise), timed beside the bound and the CPU legs."""
+    from ringsnark_tpu_torch.scripts import bench
+
+    row = _script("14a bench", bench.main, ["--batch", "4", "--rep", "2"] if small else [])
+    print(f"  [{', '.join(map(str, row['shape']))}]: kernel {row['kernel_us']:.3f} us a batch "
+          f"({row['us_per_transform']:.4f} us a transform, {row['value']:.0f} NTT/s, "
+          f"{100 * row['kernel_share_of_bound']:.1f} % of the bound {row['bound_us']:.3f} us); "
+          f"inverse {row['kernel_inv_us']:.3f} us ({100 * row['kernel_inv_share_of_bound']:.1f} %)"
+          f"; from the host {row['kernel_eager_us']:.3f} / {row['kernel_inv_eager_us']:.3f} us; "
+          f"plain twin {row['plain_us']:.3f} / {row['plain_inv_us']:.3f} us; CPU "
+          f"{row['cpu_ntts_1core']:.1f} NTT/s on 1 thread ({row['cpu_rows_1core']} rows), "
+          f"{row['cpu_ntts_socket']:.1f} on {row['cpu_threads']} ({row['cpu_rows_socket']} rows, "
+          f"{row['cpu_model']}): {row['vs_baseline']:.1f}x the socket; max |kernel - twin| "
+          f"{row['max_abs_err']}",
+          flush=True)
+    return row
+
+
+def zq_streamed(small: bool, report, split_report):
+    """14b: scripts/bench_prover, streamed ringGroth16 over Z_q (N=1, L=3,
+    N'=4096, M=2^18, margin 4: L'=3, floor 2), cold and warm passes: it
+    verifies and rejects a changed public input (the script raises
+    otherwise); launches counted from 0 over the call, path `zq`; then
+    every shape the call gave the kernels held against the plain versions
+    (encryption at N'=4096 over L'=3, the inverse mod t over the three Z_q
+    primes, the split cyclic transforms on [1, 3, 2^18] and [1, 3, 2^19])."""
+    from ringsnark_tpu_torch.ops import cuda_ntt
+    from ringsnark_tpu_torch.scripts import bench_prover
+
+    log_m = 11 if small else 18
+    argv = ["--ring", "zq", "--L", "3", "--n-inner", "512" if small else "4096",
+            "--log-m", str(log_m), "--phased", "--margin", "4", "--passes", "2",
+            "--cpu-slabs", "1" if small else "2"]
+    if small:
+        argv += ["--slab", "256", "--phase-chunk", "1024"]
+    cuda_ntt.reset_launch_counts()
+    with recorded_shapes() as seen:
+        row = _script("14b bench_prover", bench_prover.main, argv)
+    counts = dict(cuda_ntt.launch_counts)
+    cfg = row["config"]
+    print(f"  Z_q N=1 L=3 M=2^{log_m} streamed: L'={cfg['L_inner']} floor={cfg['floor']}; warm "
+          f"combined {row['combined_s']:.3f} s (cold {row['combined_cold_s']:.3f} s), stream "
+          f"{row['stream_s']:.3f} s, peak {row['peak_gib']:.3f} GiB; verify {row['verify_s']:.3f} s"
+          f"; the native MAC alone ~{row['cpu_mac_s']:.3f} s on {row['cpu_threads']} threads (a "
+          f"lower bound without encryption or witness map); launches {counts}", flush=True)
+    check(row["verified"] and row["tampered_rejected"], "Z_q streamed verification")
+    _launch_check(counts, 1 << log_m, "zq")
+    check(counts["split_negacyclic_fwd"] == counts["split_negacyclic_inv"] == 0,
+          "the Z_q path launched an outer negacyclic split transform")
+    hold_recorded_shapes("14b", seen, report, split_report, 1401)
+    return counts, row
+
+
+def small_zq_cross_check():
+    """14c: Z_q, N=1, L=3 at M=2^6, N'=512 (the streamed prover's branch that
+    does not recurse per limb): the card's streamed and seeded proofs equal
+    the CPU's bit for bit and verify on both."""
+    from ringsnark_tpu_torch.models.synthetic import build_synthetic_square_chain
+    from ringsnark_tpu_torch.snark import groth16, seeded, streamed
+    from ringsnark_tpu_torch.utils import interop, prng
+
+    cfg = dict(L=3, N=1, n_inner=512, log_m=6)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = make_params(cfg, dev)
+        comp, primary, aux = build_synthetic_square_chain(params.ring, 64,
+                                                          np.random.default_rng(21))
+        proof, vk, _ = streamed.stream_prove(comp, params, primary, aux,
+                                             np.random.default_rng(22), prng.key(23),
+                                             slab=16, phase_rows=32)
+        kp = seeded.generator_seeded(comp, params, np.random.default_rng(24), prng.key(25),
+                                     slab=16)
+        sproof = seeded.prover_seeded(kp.pk, primary, aux)
+        check(groth16.verifier(vk, primary, proof) and groth16.verifier(kp.vk, primary, sproof),
+              f"small Z_q L=3 proofs rejected on {dev}")
+        out[dev] = (interop.proof_to_numpy(proof), interop.proof_to_numpy(sproof))
+    for kind, got, want in zip(("streamed", "seeded"), out["cuda"], out["cpu"]):
+        check(all(g[2] == w[2] and np.array_equal(g[0], w[0]) and np.array_equal(g[1], w[1])
+                  for g, w in zip(got, want)),
+              f"small Z_q L=3 {kind} proof: card != CPU")
+    print("  small Z_q (N=1, L=3, N'=512, M=2^6, slab 16): streamed and seeded proofs on the "
+          "card == the CPU's, verify", flush=True)
+
+
+def zq_seeded(small: bool, report, split_report):
+    """14d: scripts/bench_prover, the seeded prover over Z_q (L=3, N'=4096,
+    margin 6: L'=3) at M=2^14 (at 2^16, c0 27 GiB, it takes ~51 s and the
+    whole script runs past 650 s); launches counted over the call, path
+    `zq_seeded`; then every shape the call gave the kernels held against
+    the plain versions."""
+    from ringsnark_tpu_torch.ops import cuda_ntt
+    from ringsnark_tpu_torch.scripts import bench_prover
+
+    log_m = 9 if small else 14
+    argv = ["--ring", "zq", "--L", "3", "--n-inner", "512" if small else "4096",
+            "--log-m", str(log_m), "--margin", "6", "--cpu-slabs", "1"]
+    if small:
+        argv += ["--slab", "64"]
+    cuda_ntt.reset_launch_counts()
+    with recorded_shapes() as seen:
+        row = _script("14d bench_prover", bench_prover.main, argv)
+    counts = dict(cuda_ntt.launch_counts)
+    print(f"  Z_q N=1 L=3 M=2^{log_m} seeded: c0 {row['pk_c0_gib']:.3f} GiB; setup "
+          f"{row['setup_s']:.3f} s (cold {row['setup_cold_s']:.3f} s), prove {row['value']:.3f} s "
+          f"(cold {row['prove_cold_s']:.3f} s), peak {row['peak_gib']:.3f} GiB; launches {counts}",
+          flush=True)
+    check(row["verified"] and row["tampered_rejected"], "Z_q seeded verification")
+    _launch_check(counts, 1 << log_m, "zq_seeded")
+    hold_recorded_shapes("14d", seen, report, split_report, 1402)
+    return counts, row
+
+
+def examples(small: bool, report, split_report):
+    """14e: the four examples at their defaults (example_poly_ring at N=4096,
+    N'=8192, L=3; microbench at N=8192, L=6); each proof verifies (the
+    examples raise otherwise); launches counted over the four, path
+    `examples`; then every shape they gave the kernels held against the
+    plain versions."""
+    from ringsnark_tpu_torch.examples import (example_int_ring, example_plaintext_check,
+                                              example_poly_ring, microbench)
+    from ringsnark_tpu_torch.ops import cuda_ntt
+
+    cuda_ntt.reset_launch_counts()
+    out = {}
+    with recorded_shapes() as seen:
+        for name, mod, argv in (
+            ("example_int_ring", example_int_ring, []),
+            ("example_poly_ring", example_poly_ring, ["--small"] if small else []),
+            ("example_plaintext_check", example_plaintext_check, []),
+            ("microbench", microbench, ["--N", "256", "--L", "2", "--n-inner", "512"]
+             if small else []),
+        ):
+            res = _script(f"14e {name}", mod.main, argv)
+            if "systems" in res:
+                check(all(s["verified"] is True for s in res["systems"].values()),
+                      f"{name}: a proof was rejected")
+                out[name] = {s: {k: v for k, v in r.items() if k != "proof"}
+                             for s, r in res["systems"].items()}
+            else:
+                out[name] = {k: v for k, v in res.items() if k != "card"}
+    counts = dict(cuda_ntt.launch_counts)
+    print(f"  examples: all verify; launches {counts}", flush=True)
+    for mode in ("negacyclic_fwd", "negacyclic_inv"):
+        check(counts[mode] > 0, f"kernel mode {mode} never launched by the examples")
+    hold_recorded_shapes("14e", seen, report, split_report, 1403)
+    return counts, out
+
+
+def other_scripts(small: bool, report, split_report):
+    """14f-14i: bench_circuits (the plaintext check at its reference shape,
+    both systems; logreg's ringGroth16 for the FHE side), bench_encode_profile,
+    bench_cpu_full, bench_scaling at world size 1 over NCCL; then every
+    shape they gave the kernels held against the plain versions."""
+    from ringsnark_tpu_torch.scripts import (bench_circuits, bench_cpu_full,
+                                             bench_encode_profile, bench_scaling)
+
+    circ = (["--N", "64", "--n-inner", "512", "--features", "4"] if small
+            else ["--preset", "reference"])
+    out = {"circuits": []}
+    with recorded_shapes() as seen:
+        for argv in (circ + ["--circuit", "plaintext_check"],
+                     circ + ["--circuit", "logreg", "--system", "groth16"]):
+            rows = _script("14f bench_circuits", bench_circuits.main, argv)["rows"]
+            out["circuits"] += [{k: v for k, v in r.items() if k not in ("proof", "card")}
+                                for r in rows]
+        check(any(r["metric"] == "logreg_fhe_side" for r in out["circuits"]), "no FHE-side row")
+        out["encode_profile"] = _script(
+            "14g bench_encode_profile", bench_encode_profile.main,
+            ["--rows", "256", "--slab", "64", "--n-inner", "512", "--reps", "1"] if small else [])
+        out["cpu_full"] = _script("14h bench_cpu_full", bench_cpu_full.main,
+                                  ["--log-m", "6" if small else "12"])
+        out["scaling"] = _script("14i bench_scaling", bench_scaling.main, ["--D", "1"])["rows"]
+    check(all(r["backend"] == "nccl" for r in out["scaling"]), "bench_scaling not over NCCL")
+    hold_recorded_shapes("14f-i", seen, report, split_report, 1404)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--small", action="store_true", help="small main-path size, for debugging")
@@ -1444,8 +1698,22 @@ def main() -> int:
         dist.destroy_process_group()
 
 
+def north_star_entry(row: dict, mode: str) -> dict:
+    """14a's numbers for the negacyclic modes' entries of the kernels line."""
+    legs = {"negacyclic_fwd": ("kernel", "plain"), "negacyclic_inv": ("kernel_inv", "plain_inv")}
+    if mode not in legs:
+        return {}
+    tag, plain = legs[mode]
+    return {"north_star": {"shape": row["shape"], "ms": row[f"{tag}_us"] / 1e3,
+                           "plain_ms": row[f"{plain}_us"] / 1e3,
+                           "eager_ms": row[f"{tag}_eager_us"] / 1e3,
+                           "bound_ms": row["bound_us"] / 1e3, "bound_by": "bytes",
+                           "share_of_bound": row[f"{tag}_share_of_bound"],
+                           "max_abs_err": row["max_abs_err"]}}
+
+
 def run_phases(args, cfgs, params_all, report, split_report, orders, meshes, card) -> int:
-    """Phases 3 to 13 on the world of one rank; the last lines of output."""
+    """Phases 3 to 14 on the world of one rank; the last lines of output."""
     from ringsnark_tpu_torch.ops import cuda_ntt
 
     cfg, cfg5, cfg7, cfg8 = cfgs
@@ -1519,9 +1787,33 @@ def run_phases(args, cfgs, params_all, report, split_report, orders, meshes, car
     print(f"  sharded path: launches {sharded}; seconds {sharded_s}", flush=True)
     phase(13, "multi-device layer: sharded NTT, unscaled inverse", t0)
 
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    north_star_ntt = bench_ntt(args.small)
+    phase("14a", "scripts/bench: the north-star NTT [32, 6, 8192]", t0)
+    t0 = time.perf_counter()
+    counts14, zq = zq_streamed(args.small, report, split_report)
+    phase("14b", "scripts/bench_prover: Z_q N=1 L=3 streamed", t0)
+    t0 = time.perf_counter()
+    small_zq_cross_check()
+    phase("14c", "small Z_q L=3 cross-check, card to CPU", t0)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    counts14d, zq_sd = zq_seeded(args.small, report, split_report)
+    phase("14d", "scripts/bench_prover: Z_q N=1 L=3 seeded", t0)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    counts14e, example_rows = examples(args.small, report, split_report)
+    phase("14e", "the four examples", t0)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    script_rows = other_scripts(args.small, report, split_report)
+    phase("14f-i", "bench_circuits, bench_encode_profile, bench_cpu_full, bench_scaling", t0)
+
     by_path = {m: {"resident": counts[m], "seeded": counts5[m], "streamed": counts7[m],
                    "streamed_rinocchio": counts8[m], "frontend": counts10[m],
-                   "keys": counts12[m], "sharded": sharded.get(m, 0)} for m in counts}
+                   "keys": counts12[m], "sharded": sharded.get(m, 0), "zq": counts14[m],
+                   "zq_seeded": counts14d[m], "examples": counts14e[m]} for m in counts}
 
     def bounds(r):  # no PyTorch call computes an NTT modulo a prime: library_ms is null
         return {"bound_ms": r["bound_ms"], "bound_by": "bytes",
@@ -1532,7 +1824,7 @@ def run_phases(args, cfgs, params_all, report, split_report, orders, meshes, car
          "launches": sum(by_path[m].values()), "launches_by_path": by_path[m],
          "max_abs_err": report[m]["max_abs_err"],
          "ms": report[m]["ms"], "plain_ms": report[m]["plain_ms"], **bounds(report[m]),
-         "shape": report[m]["shape"]}
+         "shape": report[m]["shape"], **north_star_entry(north_star_ntt, m)}
         for m in cuda_ntt.MODES
     ] + [
         {"name": f"ntt_{m}", "route": "cuda", "source": SOURCE, "replaces": REPLACES_SPLIT,
@@ -1556,7 +1848,9 @@ def run_phases(args, cfgs, params_all, report, split_report, orders, meshes, car
                "frontend": frontend,
                "keys_on_disk": keys,
                "sharded": {"seconds": sharded_s, "unscaled_inverse": unscaled},
-               "cta_order": orders}
+               "cta_order": orders,
+               "scripts": {"bench": north_star_ntt, "zq_streamed": zq, "zq_seeded": zq_sd,
+                           "examples": example_rows, **script_rows}}
     print(json.dumps(summary), flush=True)
     print(card, flush=True)  # as nvidia-smi prints it: name, power limit
     print(json.dumps({"kernels": kernels}), flush=True)

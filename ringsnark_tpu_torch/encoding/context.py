@@ -40,12 +40,15 @@ def default_inner_primes(
     n_inner: int, outer_primes: tuple[int, ...], count: int | None = None
 ) -> tuple[int, ...]:
     """Inner ciphertext primes: < 2^31, ≡ 1 mod 2N', distinct from the outer
-    primes, within the 128-bit-security budget."""
-    budget_bits = max_inner_modulus_bits(n_inner)
-    count = count if count is not None else budget_bits // 31
-    assert count * 31 <= budget_bits, (
-        f"{count} x 31-bit limbs exceed the {budget_bits}-bit budget for N'={n_inner}"
-    )
+    primes, descending, within the 128-bit-security budget.  A degree
+    outside the security table (test scale) takes `count` primes unchecked;
+    `EncodingContext` checks the budget where the table has one."""
+    if count is None or n_inner in _HE_STD_128:
+        budget_bits = max_inner_modulus_bits(n_inner)
+        count = count if count is not None else budget_bits // 31
+        assert count * 31 <= budget_bits, (
+            f"{count} x 31-bit limbs exceed the {budget_bits}-bit budget for N'={n_inner}"
+        )
     found: list[int] = []
     below = 1 << 31
     while len(found) < count:

@@ -47,24 +47,39 @@ BUILD_DIR = _PKG / "_build"
 CXXFLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall", "-fopenmp")
 
 
+def _compilers() -> list[str]:
+    """$CXX (as native/Makefile takes it), then g++ and c++ on the PATH."""
+    found = [os.environ.get("CXX"), shutil.which("g++"), shutil.which("c++")]
+    return list(dict.fromkeys(c for c in found if c))
+
+
 def build() -> Path:
-    """Compile the library unless one of this source and command exists;
-    raises where the compiler is missing or fails."""
-    cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
-    if cxx is None or not SOURCE.exists():
-        raise RuntimeError(f"cannot build {SOURCE}: no C++ compiler or no source")
-    cmd = [cxx, *CXXFLAGS, "-shared"]
-    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(cmd).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libringsnark_native_{tag}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    res = subprocess.run([*cmd, "-o", str(tmp), str(SOURCE)], capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"{cxx} failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, out)
-    return out
+    """Compile the library unless one of this source and command exists,
+    with the first compiler of `_compilers()` that builds it (one compiler's
+    OpenMP can be missing where another's is there); raises where none
+    does, with each compiler's message."""
+    if not SOURCE.exists():
+        raise RuntimeError(f"cannot build {SOURCE}: no source")
+    errors = []
+    for cxx in _compilers():
+        cmd = [cxx, *CXXFLAGS, "-shared"]
+        tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(cmd).encode()).hexdigest()[:16]
+        out = BUILD_DIR / f"libringsnark_native_{tag}.so"
+        if out.exists():
+            return out
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        try:
+            res = subprocess.run([*cmd, "-o", str(tmp), str(SOURCE)], capture_output=True,
+                                 text=True)
+        except OSError as e:  # a $CXX that does not run
+            errors.append(f"{cxx}: {e}")
+            continue
+        if res.returncode == 0:
+            os.replace(tmp, out)
+            return out
+        errors.append(f"{cxx} failed ({res.returncode}):\n{res.stderr}")
+    raise RuntimeError(f"cannot build {SOURCE}: " + ("\n".join(errors) or "no C++ compiler"))
 
 
 @lru_cache(maxsize=1)

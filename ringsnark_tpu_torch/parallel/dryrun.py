@@ -56,21 +56,16 @@ def tiny_env(device: str, L=2, N=8, n_inner=16, L_inner=3, replicate=2, seed=7):
     """(params, protoboard, keypair) of the toy circuit at a tiny ring (the
     JAX package's ``_tiny_env``)."""
     from ..encoding import EncodingContext
+    from ..encoding.context import default_inner_primes
     from ..models import build_toy_circuit
-    from ..ops.primes import find_ntt_primes
     from ..rings.context import default_context
     from ..snark import groth16
     from ..snark.api import SnarkParams
     from ..utils import prng
 
     ring = default_context(L=L, N=N, order=1 << 12, device=device)
-    inner, below = [], 1 << 31
-    while len(inner) < L_inner:
-        c = find_ntt_primes(1, 2 * n_inner, below=below)[0]
-        below = c
-        if c not in ring.primes:
-            inner.append(c)
-    enc = EncodingContext(ring=ring, n_inner=n_inner, inner_primes=tuple(inner))
+    enc = EncodingContext(ring=ring, n_inner=n_inner,
+                          inner_primes=default_inner_primes(n_inner, ring.primes, L_inner))
     params = SnarkParams(ring=ring, enc=enc)
     rng = np.random.default_rng(seed)
     pb = build_toy_circuit(ring, rng, replicate=replicate)

@@ -382,3 +382,37 @@ def test_dryrun_multichip_on_one_gpu(cuda):
     report = dryrun_multichip(1)
     assert report["backend"] == "nccl" and report["ranks"] == 1
     assert report["proof_equals_single_device"] and report["verified"]
+
+
+@pytest.mark.gpu
+def test_zq_three_limbs_on_card_equal_cpu(cuda):
+    """Z_q (N=1) with L=3 outer limbs, M=2^6, N'=512 (bench_prover's
+    parameters): the streamed prover's branch that keeps all limbs in one
+    witness map, and the seeded prover, give the CPU's proofs bit for bit on
+    the card, and verify there."""
+    import numpy as np
+
+    from ringsnark_tpu_torch.models.synthetic import build_synthetic_square_chain
+    from ringsnark_tpu_torch.scripts.common import bench_params
+    from ringsnark_tpu_torch.snark import groth16, seeded, streamed
+    from ringsnark_tpu_torch.utils import interop, prng
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = bench_params(3, 1, 512, 6, 10, dev)
+        comp, primary, aux = build_synthetic_square_chain(params.ring, 64,
+                                                          np.random.default_rng(21))
+        proof, vk, _ = streamed.stream_prove(comp, params, primary, aux,
+                                             np.random.default_rng(22), prng.key(23),
+                                             slab=16, phase_rows=32)
+        kp = seeded.generator_seeded(comp, params, np.random.default_rng(24), prng.key(25),
+                                     slab=16)
+        sproof = seeded.prover_seeded(kp.pk, primary, aux)
+        assert groth16.verifier(vk, primary, proof)
+        assert groth16.verifier(kp.vk, primary, sproof)
+        assert not groth16.verifier(vk, primary + 1, proof)
+        out[dev] = (interop.proof_to_numpy(proof), interop.proof_to_numpy(sproof))
+    for got, want in zip(out["cuda"], out["cpu"]):
+        for g, w in zip(got, want):
+            assert g[2] == w[2] and np.array_equal(g[0], w[0])
+            assert np.array_equal(g[1], w[1])

@@ -49,6 +49,21 @@ def test_library_built_from_the_repo_source():
     assert native.build() == path  # the same source and command reuse the library
 
 
+def test_build_takes_the_next_compiler_where_one_fails(monkeypatch, tmp_path):
+    """A $CXX that cannot build the source (e.g. without OpenMP) gives way to
+    g++ on the PATH; where no compiler builds it, the error names each."""
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setenv("CXX", "/bin/false")
+    assert native._compilers()[0] == "/bin/false"
+    path = native.build()
+    assert path.parent == tmp_path and path.exists()
+    monkeypatch.setattr(native, "_compilers", lambda: ["/bin/false", str(tmp_path / "no-cxx")])
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "other")
+    with pytest.raises(RuntimeError, match="/bin/false failed") as err:
+        native.build()
+    assert "no-cxx" in str(err.value)
+
+
 def test_native_scalar_ops():
     p = pr.find_ntt_primes(1, 1 << 12)[0]
     rng = np.random.default_rng(0)
