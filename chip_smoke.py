@@ -11,9 +11,10 @@ traceback and exits nonzero without the final line:
 
 0. environment: torch/CUDA versions, nvcc, the card's name and power limit;
    fails without CUDA.
-1. build the NTT kernels from `ringsnark_tpu_torch/csrc/ntt.cu` (or reuse
-   the library of this exact source, with the compiler output kept beside
-   it); `ptxas` must report no register spills.
+1. build the kernels' library from `ringsnark_tpu_torch/csrc/ntt.cu` and
+   `csrc/prng.cu` in one nvcc call (or reuse the library of these exact
+   sources, with the compiler output kept beside it); `ptxas` must report
+   no register spills.
 2. the shared-memory kernel against its plain PyTorch twin, on the card:
    every mode at every shape the resident path uses, and at the streamed
    path's encryption shapes ([512, 1, 4, 16384] forward, [512, 1, 16384]
@@ -34,11 +35,24 @@ traceback and exits nonzero without the final line:
    2^21 and 2^22 against the full-size plain twin (equal, max abs err 0,
    inverse(forward(x)) == x); the cyclic modes timed at 2^20 and 2^21 on a
    512 MiB batch beside the bound and the plain twin.
+2d. the draw and encryption kernels (`csrc/prng.cu`: `uniform`,
+   `cbd_error`, `encrypt`) against their plain torch-op versions on the same
+   inputs (equal, max abs err 0) at the north star's encryption sub-chunk
+   (rows 1024-1536 of a 4096-row slab, L=1, L'=4, N'=16384), one Z_q limb's
+   short last sub-chunk (rows 2730-4096, L'=3, N'=4096), logistic
+   regression's encode chunk (32 rows, L=2, L'=4, N'=16384) and
+   `models/fhe.py`'s signed span 13 (`prng.randint` in [-6, 7)); each timed
+   beside its bound (the larger of its int32 operations at 16.75 T/s and
+   its bytes at 3.35 TB/s) and the plain version's time.
 3. the resident main path (M=2^14) through the package API: ringGroth16
    `generator` -> `prover` (cold, then warm: the two proofs must be
    identical) -> `verifier` (True), and `verifier` with one public input
    changed (False).  Every kernel launch count is reset just before and
-   read just after; each shared-memory mode must have launched.
+   read just after; each shared-memory mode, and the error and encryption
+   kernels (the generator's encryptions), must have launched.  So on every
+   path: the streamed ones (7, 8, 14b) must launch `cbd_error` and
+   `encrypt`, the seeded ones (5, 14d) also `uniform` (c1 regenerated in
+   the MAC).
 4. small-input cross-check: a keypair made on the card, carried to the CPU,
    gives the same proof from the plain twins as from the kernels, and the
    CPU verifier accepts the card's proof.
@@ -150,9 +164,11 @@ traceback and exits nonzero without the final line:
 
 The line before the last is a JSON object with the kernels' launch counts
 (per path, `sharded`, `zq`, `zq_seeded` and `examples` among them; the
-negacyclic entries carry 14a's numbers under `north_star`), errors, times,
-bounds (`bound_ms`, `bound_by`, `share_of_bound`)
-and `library_ms` (null: no PyTorch call computes an NTT modulo a prime);
+negacyclic entries carry 14a's numbers under `north_star`; the PRNG
+kernels as `prng_<kernel>`, with every phase-2d shape under `shapes`),
+errors, times, bounds (`bound_ms`, `bound_by`, `share_of_bound`)
+and `library_ms` (null: no PyTorch call computes an NTT modulo a prime,
+nor threefry2x32: `torch`'s generators are Philox);
 the last line is
 `{"ok": true, "device": {...}}`.  This script imports nothing of JAX.
 """
@@ -255,6 +271,22 @@ def add_counts(total: dict, counts: dict) -> dict:
     return total
 
 
+def reset_counts():
+    """Every kernel wrapper's launch count to 0: the NTT's and the PRNG's."""
+    from ringsnark_tpu_torch.ops import cuda_ntt, cuda_prng
+
+    cuda_ntt.reset_launch_counts()
+    cuda_prng.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    """The launch count of every kernel wrapper, the PRNG's as prng_<kernel>."""
+    from ringsnark_tpu_torch.ops import cuda_ntt, cuda_prng
+
+    return {**cuda_ntt.launch_counts,
+            **{f"prng_{k}": n for k, n in cuda_prng.launch_counts.items()}}
+
+
 def open_world(card: str):
     """Phase 13's world of one rank over NCCL (before phase 3, which proves
     on it) and its two meshes: ('limb', 'data') from `make_mesh` and
@@ -281,19 +313,18 @@ def sharded_groth16(kp, primary, aux, proof, meshes, card):
     """Phase 3's sharded check: groth16_prove_sharded on both meshes ==
     phase 3's proof, bit for bit, and verifies.  Returns the launch counts
     (set to 0 before each prove, read after) and the seconds per mesh."""
-    from ringsnark_tpu_torch.ops import cuda_ntt
     from ringsnark_tpu_torch.parallel import groth16_prove_sharded
     from ringsnark_tpu_torch.snark import groth16
 
     counts, times = {}, {}
     for name, mesh in meshes.items():
         torch.cuda.synchronize()
-        cuda_ntt.reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         got = groth16_prove_sharded(kp.pk, primary, aux, mesh)
         torch.cuda.synchronize()
         times[name] = time.perf_counter() - t0
-        add_counts(counts, cuda_ntt.launch_counts)
+        add_counts(counts, read_counts())
         check(all(a == b for a, b in zip((proof.A, proof.B, proof.C), (got.A, got.B, got.C))),
               f"sharded ringGroth16 on the {name} mesh != phase 3's proof")
         check(groth16.verifier(kp.vk, primary, got) is True,
@@ -307,17 +338,16 @@ def sharded_rinocchio(kp, primary, aux, proof, mesh, seed, card):
     """Phase 10's sharded check on logistic regression's keypair:
     rinocchio_prove_sharded under the prover's numpy seed == its proof, and
     verifies.  Returns the launch counts and the seconds."""
-    from ringsnark_tpu_torch.ops import cuda_ntt
     from ringsnark_tpu_torch.parallel import rinocchio_prove_sharded
     from ringsnark_tpu_torch.snark import rinocchio
 
     torch.cuda.synchronize()
-    cuda_ntt.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     got = rinocchio_prove_sharded(kp.pk, primary, aux, mesh, rng=np.random.default_rng(seed))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = dict(cuda_ntt.launch_counts)
+    counts = read_counts()
     check(_proofs_equal(proof, got), "sharded Rinocchio != the unsharded proof")
     check(rinocchio.verifier(kp.vk, primary, got) is True,
           "the verifier rejected the sharded Rinocchio proof")
@@ -332,7 +362,6 @@ def sharded_stream_chunk(params, cfg, mesh, card):
     stream_chunk_ip_sharded == encode_seeded + seeded_inner_product
     (use_modswitch=False).  Returns the launch counts and the seconds."""
     from ringsnark_tpu_torch.encoding import keygen
-    from ringsnark_tpu_torch.ops import cuda_ntt
     from ringsnark_tpu_torch.parallel import stream_chunk_ip_sharded
     from ringsnark_tpu_torch.rings.elem import RingElem
     from ringsnark_tpu_torch.snark import seeded
@@ -350,12 +379,12 @@ def sharded_stream_chunk(params, cfg, mesh, card):
 
     rows, pts, key = slots(), [slots(), slots()], prng.key(23)
     torch.cuda.synchronize()
-    cuda_ntt.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     got = stream_chunk_ip_sharded(mesh, ectx, sk, rows, pts, key, slab)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = dict(cuda_ntt.launch_counts)
+    counts = read_counts()
     t0 = time.perf_counter()
     want = seeded.seeded_inner_product(seeded.encode_seeded(ectx, sk, RingElem(ring, rows), key,
                                                             slab), pts, use_modswitch=False)
@@ -390,14 +419,14 @@ def sharded_ntt_phase(meshes, log_m, rows, report, split_report, card):
     plan = nttm.get_plan(primes, M, negacyclic=True)
     modes = [(inv, nega) for nega in (False, True) for inv in (False, True)]
     torch.cuda.synchronize()
-    cuda_ntt.reset_launch_counts()
+    reset_counts()
     got, ms = {}, {}
     for inv, nega in modes:
         t0 = time.perf_counter()
         got[(inv, nega)] = sharded_ntt(x, plan, mesh, negacyclic=nega, inverse=inv)
         torch.cuda.synchronize()
         ms[cuda_ntt.mode_name(inv, nega)] = (time.perf_counter() - t0) * 1e3
-    counts = dict(cuda_ntt.launch_counts)
+    counts = read_counts()
     dispatch = {(False, False): nttm.cyclic_ntt_rev, (True, False): nttm.cyclic_intt_nat,
                 (False, True): nttm.negacyclic_ntt_rev, (True, True): nttm.negacyclic_intt_nat}
     for inv, nega in modes:
@@ -444,6 +473,13 @@ def make_params(cfg, device):
     from ringsnark_tpu_torch.scripts.common import bench_params
 
     return bench_params(cfg["L"], cfg["N"], cfg["n_inner"], cfg["log_m"], 10, device)
+
+
+def zq_limb_params(n_inner: int, log_m: int):
+    """One limb of phase 14b's Z_q parameters (N=1, margin 4), on the card."""
+    from ringsnark_tpu_torch.scripts.common import bench_params
+
+    return bench_params(1, 1, n_inner, log_m, 4, "cuda")
 
 
 def make_circuit_params(cfg, device):
@@ -753,6 +789,115 @@ def large_split_vs_plain(split_report):
     torch.cuda.empty_cache()
 
 
+# phase 2d: the draws and the encryption at the shapes the paths give them,
+# (parameters, slab, rows of the sub-chunk): the north star's encryption
+# sub-chunk (L=1, L'=4, N'=16384), Z_q's short last sub-chunk of one limb
+# (L=1, L'=3, N'=4096), logistic regression's encode chunk (ring L=2,
+# L'=4, N'=16384); and models/fhe.py's signed span 13 at logreg's N
+PRNG_SHAPES = {
+    "north_star": (lambda: make_params(FULL_STREAMED, "cuda"), 4096, (1024, 1536)),
+    "zq": (lambda: zq_limb_params(4096, 18), 4096, (2730, 4096)),
+    "logreg": (lambda: make_circuit_params(REFERENCE_CIRCUITS["logreg"], "cuda"), 32, None),
+}
+SMALL_PRNG_SHAPES = {
+    "north_star": (lambda: make_params(SMALL_STREAMED, "cuda"), 256, (64, 128)),
+    "zq": (lambda: zq_limb_params(512, 11), 256, (170, 256)),
+    "logreg": (lambda: make_circuit_params(SMALL_CIRCUITS["logreg"], "cuda"), 32, None),
+}
+FHE_SPAN = dict(full=(256, 1, 2048), small=(8, 1, 64))  # (rows, 1, N): randint in [-6, 7)
+PRNG_SOURCE = "ringsnark_tpu_torch/csrc/prng.cu"
+# the JAX package draws these with jax.random (XLA): it has no Pallas kernel
+# for them, so each names the function it is the counterpart of
+PRNG_REPLACES = {
+    "uniform": "ringsnark_tpu/encoding/bgv.py:85",  # _sample_uniform (jax.random.randint)
+    "cbd_error": "ringsnark_tpu/encoding/bgv.py:110",  # _sample_error_ntt (jax.random.bits)
+    "encrypt": "ringsnark_tpu/encoding/bgv.py:159",  # _encrypt_from_m
+}
+# int32 operations a second: the H100 SXM's float32 peak
+# (67 TFLOP/s = 132 SMs x 128 lanes x 2 for a fused multiply-add) over 4, as
+# Hopper has 64 INT32 lanes an SM and an integer operation counts once
+INT32_OPS_PER_S = 67e12 / 4
+HASH_OPS = 73  # threefry2x32: 2 + 20 rounds x 3 (add, funnel shift, xor) + 5 x 2 + 1 xor
+MOD_OPS = 4  # w mod span: multiply-high, multiply, subtract, minimum
+SHOUP_OPS = 6  # multiply-high, two multiplies, subtract, subtract, minimum
+ADD_SUB_OPS = 7  # sub_mod (4) and add_mod (3)
+
+
+def prng_bound(ops: float, nbytes: float):
+    """(bound_ms, bound_by): the larger of the operations at the card's int32
+    rate and the bytes at its memory rate."""
+    t_ops, t_bytes = ops / INT32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def prng_vs_plain(small: bool) -> dict:
+    """Phase 2d: each draw and encryption kernel == its plain version on the
+    same inputs at each shape of PRNG_SHAPES (max abs err 0), then both timed
+    (CUDA events) beside the bound; the first shape's numbers head each
+    kernel's report.  Launches made here are not a path's."""
+    from ringsnark_tpu_torch.encoding import bgv, keygen
+    from ringsnark_tpu_torch.ops import cuda_prng
+    from ringsnark_tpu_torch.ops import ntt as nttm
+    from ringsnark_tpu_torch.utils import prng
+
+    report = {k: {"max_abs_err": 0, "shapes": []} for k in cuda_prng.KERNELS}
+
+    def hold(kernel, label, fn, plain, ops, nbytes):
+        got, want = fn(), plain()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) if got.numel() else 0
+        check(got.shape == want.shape and torch.equal(got, want),
+              f"prng {kernel} kernel != its plain version at {label}")
+        ms, pms = cuda_ms(fn), cuda_ms(plain, iters=2)
+        bms, by = prng_bound(ops, nbytes)
+        r = report[kernel]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["shapes"].append(dict(shape=label, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                                share_of_bound=bms / ms, max_abs_err=err))
+        print(f"  prng {kernel:9s} {label:44s}: equal; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+              f"bound {bms:.4f} ms by {by} ({100 * bms / ms:.1f} %)", flush=True)
+
+    for name, (make, slab, rows) in (SMALL_PRNG_SHAPES if small else PRNG_SHAPES).items():
+        params = make()
+        ring, ctx = params.ring, params.enc
+        _, sk = keygen(ctx, np.random.default_rng(41))
+        k_a, k_e = prng.split(prng.key(42))
+        batch, n = (slab,), slab if rows is None else rows[1] - rows[0]
+        label = (f"{name} rows {rows or (0, slab)} of {slab}, L={ctx.L} L'={ctx.L_inner} "
+                 f"N'={ctx.n_inner}")
+        words = n * ctx.L * ctx.L_inner * ctx.n_inner
+        coeffs = n * ctx.L * ctx.n_inner
+        n_words = -(-bgv._cbd_k(ctx.error_stddev) // 32)
+        gen = torch.Generator(device="cuda").manual_seed(43)
+        slots = torch.cat([torch.randint(0, p, (n, 1, ring.N), generator=gen, dtype=torch.int32,
+                                         device="cuda") for p in ring.primes], dim=1)
+        m = bgv.plain_to_inner_ntt(ctx, slots, 0).contiguous()
+        e = nttm.negacyclic_ntt_rev(bgv._error_coeffs_plain(ctx, k_e, batch, rows),
+                                    ctx.inner_plan(0))
+        hold("uniform", label, lambda: bgv._sample_uniform(ctx, k_a, batch, rows),
+             lambda: bgv._uniform_plain(ctx, k_a, batch, rows),
+             words * (HASH_OPS + MOD_OPS), 4 * words)
+        hold("cbd_error", label, lambda: bgv._sample_error_coeffs(ctx, k_e, batch, rows),
+             lambda: bgv._error_coeffs_plain(ctx, k_e, batch, rows),
+             coeffs * (2 * n_words * (HASH_OPS + 1) + ctx.L_inner), 4 * coeffs * ctx.L_inner)
+        enc_bytes = 16 * words + 8 * ctx.L * ctx.L_inner * (ctx.n_inner + 1)
+        hold("encrypt", label, lambda: torch.stack(cuda_prng.encrypt(ctx, sk, m, e, k_a, batch,
+                                                                     rows)),
+             lambda: torch.stack(bgv._encrypt_from_m(
+                 ctx, sk.s_ntt, m, bgv._uniform_plain(ctx, k_a, batch, rows), e)),
+             words * (HASH_OPS + MOD_OPS + 2 * SHOUP_OPS + ADD_SUB_OPS), enc_bytes)
+        del params, ctx, sk, slots, m, e
+    shape = FHE_SPAN["small" if small else "full"]
+    values = math.prod(shape)
+    hold("uniform", f"fhe randint [-6, 7) {shape}",
+         lambda: prng.randint(prng.key(44), shape, 7, "cuda", minval=-6),
+         lambda: prng.randint_plain(prng.key(44), shape, 7, "cuda", minval=-6),
+         values * (2 * HASH_OPS + 3 * MOD_OPS + 3), 8 * values)
+    for r in report.values():
+        r.update({k: v for k, v in r["shapes"][0].items() if k != "max_abs_err"})
+    torch.cuda.empty_cache()
+    return report
+
+
 def main_path(params, cfg, meshes, card):
     """Phase 3: generator -> prover x2 -> verifier (+ tampered); then, its
     launch counts read, the sharded prover on both meshes (phase 13)."""
@@ -772,7 +917,7 @@ def main_path(params, cfg, meshes, card):
     comp, primary, aux = stage(
         "circuit", lambda: build_synthetic_square_chain(ring, M, np.random.default_rng(0)))
     torch.cuda.reset_peak_memory_stats()
-    cuda_ntt.reset_launch_counts()
+    reset_counts()
     kp = stage("setup", lambda: groth16.generator(comp, params, np.random.default_rng(1),
                                                   prng.key(0)))
     proof = stage("prove_cold", lambda: groth16.prover(kp.pk, primary, aux))
@@ -780,7 +925,7 @@ def main_path(params, cfg, meshes, card):
     ok = stage("verify", lambda: groth16.verifier(kp.vk, primary, proof))
     bad = primary + 1
     rejected = not stage("verify_tampered", lambda: groth16.verifier(kp.vk, bad, proof))
-    counts = dict(cuda_ntt.launch_counts)
+    counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
 
     pk = kp.pk
@@ -797,8 +942,8 @@ def main_path(params, cfg, meshes, card):
     for e in (proof.A, proof.B, proof.C):
         check(tuple(e.c0.shape) == (ring.L, params.enc.floor_limbs, params.enc.n_inner),
               f"proof element shape {tuple(e.c0.shape)}")
-    for mode in cuda_ntt.MODES:
-        check(counts[mode] > 0, f"kernel mode {mode} never launched on the main path")
+    for mode in (*cuda_ntt.MODES, *(f"prng_{k}" for k in ENCRYPTION)):
+        check(counts[mode] > 0, f"kernel {mode} never launched on the main path")
     sharded_counts, sharded_times = sharded_groth16(kp, primary, aux, proof, meshes, card)
     return counts, times, crs_bytes, peak, sharded_counts, sharded_times
 
@@ -832,7 +977,7 @@ def small_cross_check():
 def seeded_path(params, cfg):
     """Phase 5: generator_seeded -> prover_seeded x2 -> verifier (+ tampered)."""
     from ringsnark_tpu_torch.models.synthetic import build_synthetic_square_chain
-    from ringsnark_tpu_torch.ops import cuda_ntt
+    from ringsnark_tpu_torch.ops import cuda_prng
     from ringsnark_tpu_torch.snark import groth16, seeded
     from ringsnark_tpu_torch.utils import prng
 
@@ -847,14 +992,14 @@ def seeded_path(params, cfg):
     comp, primary, aux = stage(
         "circuit", lambda: build_synthetic_square_chain(ring, M, np.random.default_rng(0)))
     torch.cuda.reset_peak_memory_stats()
-    cuda_ntt.reset_launch_counts()
+    reset_counts()
     kp = stage("setup", lambda: seeded.generator_seeded(comp, params, np.random.default_rng(1),
                                                         prng.key(0)))
     proof = stage("prove_cold", lambda: seeded.prover_seeded(kp.pk, primary, aux))
     proof2 = stage("prove_warm", lambda: seeded.prover_seeded(kp.pk, primary, aux))
     ok = stage("verify", lambda: groth16.verifier(kp.vk, primary, proof))
     rejected = not stage("verify_tampered", lambda: groth16.verifier(kp.vk, primary + 1, proof))
-    counts = dict(cuda_ntt.launch_counts)
+    counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     crs_bytes = kp.pk.c0_bytes()
     print(f"  seeded CRS {crs_bytes / 2**30:.3f} GiB resident (c0 of the seeded batches; "
@@ -868,7 +1013,7 @@ def seeded_path(params, cfg):
     for e in (proof.A, proof.B, proof.C):
         check(tuple(e.c0.shape) == (ring.L, ectx.floor_limbs, ectx.n_inner),
               f"proof element shape {tuple(e.c0.shape)}")
-    _launch_check(counts, M, "seeded")
+    _launch_check(counts, M, "seeded", cuda_prng.KERNELS)
     return counts, times, crs_bytes, peak
 
 
@@ -898,21 +1043,24 @@ def small_seeded_cross_check():
           "slab 16): card proof == CPU proof, CPU verifier accepts", flush=True)
 
 
-def _launch_check(counts, M, path):
-    """Both negacyclic shared-memory modes and both cyclic modes of the
-    witness map (split past MAX_KERNEL_M) must have launched."""
+ENCRYPTION = ("cbd_error", "encrypt")  # the draws of every encryption on the card
+
+
+def _launch_check(counts, M, path, draws=ENCRYPTION):
+    """Both negacyclic shared-memory modes, both cyclic modes of the
+    witness map (split past MAX_KERNEL_M) and the PRNG kernels `draws`
+    must have launched."""
     from ringsnark_tpu_torch.ops import ntt as nttm
 
     inv = "split_cyclic_inv" if M > nttm.MAX_KERNEL_M else "cyclic_inv"
     fwd = "split_cyclic_fwd" if 2 * M > nttm.MAX_KERNEL_M else "cyclic_fwd"
-    for mode in ("negacyclic_fwd", "negacyclic_inv", fwd, inv):
-        check(counts[mode] > 0, f"kernel mode {mode} never launched on the {path} path")
+    for mode in ("negacyclic_fwd", "negacyclic_inv", fwd, inv, *(f"prng_{k}" for k in draws)):
+        check(counts[mode] > 0, f"kernel {mode} never launched on the {path} path")
 
 
 def streamed_path(params, cfg):
     """Phase 7: stream_prove (setup + prove in one pass) -> verifier (+ tampered)."""
     from ringsnark_tpu_torch.models.synthetic import build_synthetic_square_chain
-    from ringsnark_tpu_torch.ops import cuda_ntt
     from ringsnark_tpu_torch.snark import groth16, streamed
     from ringsnark_tpu_torch.utils import prng
 
@@ -928,14 +1076,14 @@ def streamed_path(params, cfg):
     comp, primary, aux = stage(
         "circuit", lambda: build_synthetic_square_chain(ring, M, np.random.default_rng(0)))
     torch.cuda.reset_peak_memory_stats()
-    cuda_ntt.reset_launch_counts()
+    reset_counts()
     rec = streamed.StreamRecord(sync=True)
     proof, vk, _ = stage("setup_prove", lambda: streamed.stream_prove(
         comp, params, primary, aux, np.random.default_rng(1), prng.key(0), slab=cfg["slab"],
         phase_rows=cfg["phase_rows"], record=rec))
     ok = stage("verify", lambda: groth16.verifier(vk, primary, proof))
     rejected = not stage("verify_tampered", lambda: groth16.verifier(vk, primary + 1, proof))
-    counts = dict(cuda_ntt.launch_counts)
+    counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     totals = {k: rec.total(k) for k in ("setup", "prove", "stream")}
     print(f"  record totals {totals}; sections {[(k, n, round(dt, 3)) for k, n, dt in rec.events]}",
@@ -954,7 +1102,6 @@ def streamed_path(params, cfg):
 def rinocchio_path(params, cfg):
     """Phase 8: stream_prove_rinocchio -> rinocchio.verifier (+ tampered)."""
     from ringsnark_tpu_torch.models.synthetic import build_synthetic_square_chain
-    from ringsnark_tpu_torch.ops import cuda_ntt
     from ringsnark_tpu_torch.snark import rinocchio, streamed
     from ringsnark_tpu_torch.utils import prng
 
@@ -968,14 +1115,14 @@ def rinocchio_path(params, cfg):
     comp, primary, aux = stage(
         "circuit", lambda: build_synthetic_square_chain(ring, M, np.random.default_rng(2)))
     torch.cuda.reset_peak_memory_stats()
-    cuda_ntt.reset_launch_counts()
+    reset_counts()
     rec = streamed.StreamRecord(sync=True)
     proof, vk, _ = stage("setup_prove", lambda: streamed.stream_prove_rinocchio(
         comp, params, primary, aux, np.random.default_rng(3), prng.key(4), slab=cfg["slab"],
         phase_rows=cfg["phase_rows"], record=rec))
     ok = stage("verify", lambda: rinocchio.verifier(vk, primary, proof))
     rejected = not stage("verify_tampered", lambda: rinocchio.verifier(vk, primary + 1, proof))
-    counts = dict(cuda_ntt.launch_counts)
+    counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     totals = {k: rec.total(k) for k in ("setup", "prove", "stream")}
     print(f"  record totals {totals}; peak allocated {peak / 2**30:.3f} GiB; launches {counts}",
@@ -1060,11 +1207,10 @@ def frontend_path(circuits, kernel_report, mesh, card):
     (phase 13), its launches counted apart: the circuit's counts are read
     before it and set to 0 after it.  Returns (counts, report, sharded
     (counts, seconds))."""
-    from ringsnark_tpu_torch.ops import cuda_ntt
     from ringsnark_tpu_torch.snark import groth16, rinocchio
     from ringsnark_tpu_torch.utils import prng
 
-    total = {m: 0 for m in cuda_ntt.launch_counts}
+    total = {m: 0 for m in read_counts()}
     report = {}
     for name, cfg in circuits.items():
         params = make_circuit_params(cfg, "cuda")
@@ -1075,7 +1221,7 @@ def frontend_path(circuits, kernel_report, mesh, card):
         times = {}
         stage = make_stage(times)
         carried = {}  # the circuit's counts read before the sharded prove
-        cuda_ntt.reset_launch_counts()
+        reset_counts()
         pb = stage("build", lambda: build_circuit(name, cfg, ring, 0))
         check(stage("is_satisfied", pb.is_satisfied) is True, f"{name}: witness invalid")
         cs = pb.get_constraint_system()
@@ -1119,11 +1265,11 @@ def frontend_path(circuits, kernel_report, mesh, card):
                 check((proof.F is not None) == (len(aux) > 0),
                       f"{name}: F must be present exactly with auxiliary wires")
             if sname == "rinocchio" and name == "logreg":
-                add_counts(carried, cuda_ntt.launch_counts)
+                add_counts(carried, read_counts())
                 sharded = sharded_rinocchio(kp, primary, aux, proof, mesh, 7, card)
-                cuda_ntt.reset_launch_counts()
+                reset_counts()
             del kp, proof, proof2, prove
-        counts = add_counts(dict(cuda_ntt.launch_counts), carried)
+        counts = add_counts(read_counts(), carried)
         print(f"  {name}: launches {counts}", flush=True)
         for mode in ("negacyclic_fwd", "negacyclic_inv"):
             check(counts[mode] > 0, f"kernel mode {mode} never launched for {name}")
@@ -1222,13 +1368,12 @@ def keys_on_disk(cfg, north_star):
     np.savez (the port's).  Then phase 7's north-star vk (a CRS-less stub) is
     saved and loaded, and verifies phase 7's proof.  Returns the launch
     counts of the whole phase (set to 0 at its start) and the report."""
-    from ringsnark_tpu_torch.ops import cuda_ntt
     from ringsnark_tpu_torch.snark import groth16, rinocchio
     from ringsnark_tpu_torch.utils import prng
     from ringsnark_tpu_torch.utils import serialization as ser
 
     KEYS_DIR.mkdir(exist_ok=True)
-    cuda_ntt.reset_launch_counts()
+    reset_counts()
     params = make_circuit_params(cfg, "cuda")
     pb = build_circuit("logreg", cfg, params.ring, 0)
     cs = pb.get_constraint_system()
@@ -1305,7 +1450,7 @@ def keys_on_disk(cfg, north_star):
     print(f"  north-star vk (M=2^18 stub): files {file_bytes / 2**20:.1f} MiB; the reloaded vk "
           "verifies phase 7's proof", flush=True)
     report["north_star_vk"] = {"stage_s": t, "files_mib": file_bytes / 2**20}
-    counts = dict(cuda_ntt.launch_counts)
+    counts = read_counts()
     print(f"  launches {counts}", flush=True)
     for mode in ("negacyclic_fwd", "negacyclic_inv", "cyclic_fwd", "cyclic_inv"):
         check(counts[mode] > 0, f"kernel mode {mode} never launched on the keys path")
@@ -1496,7 +1641,6 @@ def zq_streamed(small: bool, report, split_report):
     every shape the call gave the kernels held against the plain versions
     (encryption at N'=4096 over L'=3, the inverse mod t over the three Z_q
     primes, the split cyclic transforms on [1, 3, 2^18] and [1, 3, 2^19])."""
-    from ringsnark_tpu_torch.ops import cuda_ntt
     from ringsnark_tpu_torch.scripts import bench_prover
 
     log_m = 11 if small else 18
@@ -1505,10 +1649,10 @@ def zq_streamed(small: bool, report, split_report):
             "--cpu-slabs", "1" if small else "2"]
     if small:
         argv += ["--slab", "256", "--phase-chunk", "1024"]
-    cuda_ntt.reset_launch_counts()
+    reset_counts()
     with recorded_shapes() as seen:
         row = _script("14b bench_prover", bench_prover.main, argv)
-    counts = dict(cuda_ntt.launch_counts)
+    counts = read_counts()
     cfg = row["config"]
     print(f"  Z_q N=1 L=3 M=2^{log_m} streamed: L'={cfg['L_inner']} floor={cfg['floor']}; cold "
           f"pass {row['combined_cold_s']:.3f} s, peak {row['peak_gib']:.3f} GiB; verify "
@@ -1560,7 +1704,7 @@ def zq_seeded(small: bool, report, split_report):
     whole script runs past 650 s); launches counted over the call, path
     `zq_seeded`; then every shape the call gave the kernels held against
     the plain versions."""
-    from ringsnark_tpu_torch.ops import cuda_ntt
+    from ringsnark_tpu_torch.ops import cuda_prng
     from ringsnark_tpu_torch.scripts import bench_prover
 
     log_m = 9 if small else 14
@@ -1568,16 +1712,16 @@ def zq_seeded(small: bool, report, split_report):
             "--log-m", str(log_m), "--margin", "6", "--cpu-slabs", "1"]
     if small:
         argv += ["--slab", "64"]
-    cuda_ntt.reset_launch_counts()
+    reset_counts()
     with recorded_shapes() as seen:
         row = _script("14d bench_prover", bench_prover.main, argv)
-    counts = dict(cuda_ntt.launch_counts)
+    counts = read_counts()
     print(f"  Z_q N=1 L=3 M=2^{log_m} seeded: c0 {row['pk_c0_gib']:.3f} GiB; setup "
           f"{row['setup_s']:.3f} s (cold {row['setup_cold_s']:.3f} s), prove {row['value']:.3f} s "
           f"(cold {row['prove_cold_s']:.3f} s), peak {row['peak_gib']:.3f} GiB; launches {counts}",
           flush=True)
     check(row["verified"] and row["tampered_rejected"], "Z_q seeded verification")
-    _launch_check(counts, 1 << log_m, "zq_seeded")
+    _launch_check(counts, 1 << log_m, "zq_seeded", cuda_prng.KERNELS)
     hold_recorded_shapes("14d", seen, report, split_report, 1402)
     return counts, row
 
@@ -1590,9 +1734,8 @@ def examples(small: bool, report, split_report):
     plain versions."""
     from ringsnark_tpu_torch.examples import (example_int_ring, example_plaintext_check,
                                               example_poly_ring, microbench)
-    from ringsnark_tpu_torch.ops import cuda_ntt
 
-    cuda_ntt.reset_launch_counts()
+    reset_counts()
     out = {}
     with recorded_shapes() as seen:
         for name, mod, argv in (
@@ -1610,7 +1753,7 @@ def examples(small: bool, report, split_report):
                              for s, r in res["systems"].items()}
             else:
                 out[name] = {k: v for k, v in res.items() if k != "card"}
-    counts = dict(cuda_ntt.launch_counts)
+    counts = read_counts()
     print(f"  examples: all verify; launches {counts}", flush=True)
     for mode in ("negacyclic_fwd", "negacyclic_inv"):
         check(counts[mode] > 0, f"kernel mode {mode} never launched by the examples")
@@ -1692,11 +1835,15 @@ def main() -> int:
     phase("2c", "split kernel past 2^19 vs plain", t0)
 
     t0 = time.perf_counter()
+    prng_report = prng_vs_plain(args.small)
+    phase("2d", "draw and encryption kernels vs plain", t0)
+
+    t0 = time.perf_counter()
     meshes = open_world(card)
     phase("13a", "world of one rank over NCCL, meshes", t0)
     try:
         return run_phases(args, (cfg, cfg5, cfg7, cfg8), (params, params5, params7), report,
-                          split_report, orders, meshes, card)
+                          split_report, prng_report, orders, meshes, card)
     finally:
         import torch.distributed as dist
 
@@ -1717,9 +1864,10 @@ def north_star_entry(row: dict, mode: str) -> dict:
                            "max_abs_err": row["max_abs_err"]}}
 
 
-def run_phases(args, cfgs, params_all, report, split_report, orders, meshes, card) -> int:
+def run_phases(args, cfgs, params_all, report, split_report, prng_report, orders, meshes,
+               card) -> int:
     """Phases 3 to 14 on the world of one rank; the last lines of output."""
-    from ringsnark_tpu_torch.ops import cuda_ntt
+    from ringsnark_tpu_torch.ops import cuda_ntt, cuda_prng
 
     cfg, cfg5, cfg7, cfg8 = cfgs
     params, params5, params7 = params_all
@@ -1841,6 +1989,15 @@ def run_phases(args, cfgs, params_all, report, split_report, orders, meshes, car
          "streamed_shape": split_report[m]["streamed"],
          "large_shapes": split_report[m].get("large")}
         for m in cuda_ntt.SPLIT_MODES
+    ] + [
+        {"name": f"prng_{k}", "route": "cuda", "source": PRNG_SOURCE, "replaces": PRNG_REPLACES[k],
+         "launches": sum(by_path[f"prng_{k}"].values()), "launches_by_path": by_path[f"prng_{k}"],
+         "max_abs_err": prng_report[k]["max_abs_err"], "ms": prng_report[k]["ms"],
+         "plain_ms": prng_report[k]["plain_ms"], "bound_ms": prng_report[k]["bound_ms"],
+         "bound_by": prng_report[k]["bound_by"],
+         "share_of_bound": prng_report[k]["share_of_bound"], "library_ms": None,
+         "shape": prng_report[k]["shape"], "shapes": prng_report[k]["shapes"]}
+        for k in cuda_prng.KERNELS
     ]
     summary = {"resident": {"config": cfg, "stage_s": times, "crs_gib": crs_bytes / 2**30,
                             "peak_allocated_gib": peak / 2**30},

@@ -1,0 +1,39 @@
+// Modular arithmetic on 31-bit residues, shared by the kernels of this
+// package (ntt.cu, prng.cu): p < 2^31, residues in [0, p), unsigned 32-bit
+// words throughout (Hopper has a native 32-bit multiply-high, __umulhi).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// An error returned before or by a launch also stays as the runtime's last
+// error, which the next launch's cudaGetLastError() would report as its
+// own: clear it, and return it to this caller.
+inline cudaError_t refused(cudaError_t err) {
+  (void)cudaGetLastError();
+  return err;
+}
+
+// x in [0, 2p) -> x mod p: where x < p, x - p wraps above x (unsigned min).
+__device__ __forceinline__ uint32_t reduce_once(uint32_t x, uint32_t p) {
+  return min(x, x - p);
+}
+
+__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b, uint32_t p) {
+  return reduce_once(a + b, p);  // a, b < p < 2^31: no wrap
+}
+
+__device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b, uint32_t p) {
+  return reduce_once(a + p - b, p);  // in [1, 2p)
+}
+
+// a * w mod p with w_sh = floor(w * 2^32 / p), for any a < 2^32:
+// r = a*w - q*p lies in [0, 2p).
+__device__ __forceinline__ uint32_t shoup_mul(uint32_t a, uint2 w, uint32_t p) {
+  const uint32_t q = __umulhi(a, w.y);
+  return reduce_once(a * w.x - q * p, p);
+}
+
+}  // namespace

@@ -95,6 +95,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "modarith.cuh"  // reduce_once, add_mod, sub_mod, shoup_mul, refused
+
 namespace {
 
 // A thread needs up to 128 registers (E = 16 residues, their twiddles and
@@ -103,34 +105,6 @@ namespace {
 // passes and stores: measured faster than one CTA of 512 with a second
 // buffer).
 constexpr int kMaxThreads = 512;
-
-// An error returned before or by a launch also stays as the runtime's last
-// error, which the next launch's cudaGetLastError() would report as its
-// own: clear it, and return it to this caller.
-inline cudaError_t refused(cudaError_t err) {
-  (void)cudaGetLastError();
-  return err;
-}
-
-// x in [0, 2p) -> x mod p: where x < p, x - p wraps above x (unsigned min).
-__device__ __forceinline__ uint32_t reduce_once(uint32_t x, uint32_t p) {
-  return min(x, x - p);
-}
-
-__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b, uint32_t p) {
-  return reduce_once(a + b, p);  // a, b < p < 2^31: no wrap
-}
-
-__device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b, uint32_t p) {
-  return reduce_once(a + p - b, p);  // in [1, 2p)
-}
-
-// a * w mod p with w_sh = floor(w * 2^32 / p), for any a < 2^32:
-// r = a*w - q*p lies in [0, 2p).
-__device__ __forceinline__ uint32_t shoup_mul(uint32_t a, uint2 w, uint32_t p) {
-  const uint32_t q = __umulhi(a, w.y);
-  return reduce_once(a * w.x - q * p, p);
-}
 
 // Shared-memory address of logical word a: the low 5 bits are XORed with
 // bits of the 32-word row index, so that the exchanges at D = 1, 16 and

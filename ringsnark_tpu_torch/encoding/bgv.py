@@ -10,6 +10,9 @@ error from a threefry key (``utils/prng.py``) exactly as the JAX package
 draws them from a ``jax.random`` key, so one key gives one ciphertext in
 both packages.  A draw may be made for a row range ``rows=(lo, hi)`` of its
 leading batch axis: those rows get the bits they get in the whole draw.
+On a CUDA device the draws and the encryption's arithmetic are kernels
+(``ops/cuda_prng.py``); elsewhere they run their plain versions here
+(``_uniform_plain``, ``_error_coeffs_plain``, ``_encrypt_from_m``).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import math
 import numpy as np
 import torch
 
+from ..ops import cuda_prng
 from ..ops import ntt as _ntt
 from ..ops.modops import add_mod, mul_mod
 from ..utils import prng
@@ -52,7 +56,7 @@ def _slots_to_plain_coeffs(ctx: EncodingContext, slots):
 def _lift_centered(ctx: EncodingContext, pt_coeffs, level: int):
     """Centered lift of plaintext coeffs (mod t_i) into each inner limb:
     [*, L, N'] -> int64 [*, L, L'_lvl, N'];  v > t/2 maps to v - t + Q_j."""
-    t = torch.as_tensor(ctx.t_np.astype(np.int64), device=pt_coeffs.device)[:, None, None]
+    t = ctx.t_consts  # [L, 1, 1]
     Q = ctx.inner_consts(level)[None]  # [1, L', 1]
     v = pt_coeffs.to(_I64)[..., :, None, :]  # [*, L, 1, N']
     lifted = torch.where(v > (t >> 1), v + Q - t, v)
@@ -87,17 +91,29 @@ def _popcount32(v):
     return ((v * 0x01010101) & 0xFFFFFFFF) >> 24
 
 
+def _on_card(ctx: EncodingContext) -> bool:
+    return torch.device(ctx.device).type == "cuda"
+
+
 def _sample_error_coeffs(ctx: EncodingContext, key, batch_shape, rows=None):
     """Centered-binomial error, k = ceil(2 sigma^2) (21 at sigma = 3.2), as
     the JAX package's `_sample_error_ntt` draws it: words
     ``bits(key, (2, n_words, *batch, L, N'))``, the last word masked to the
     remaining bits, popcounts summed per side, side 0 minus side 1.
     Returns its residues per inner limb, int32 [*, L, L', N'] (coefficient
-    form)."""
+    form).  A CUDA context launches the kernel; any other runs
+    `_error_coeffs_plain`."""
+    if _on_card(ctx):
+        return cuda_prng.cbd_error(ctx, key, batch_shape, rows, _cbd_k(ctx.error_stddev))
+    return _error_coeffs_plain(ctx, key, batch_shape, rows)
+
+
+def _error_coeffs_plain(ctx: EncodingContext, key, batch_shape, rows=None):
+    """`_sample_error_coeffs` as torch ops on the context's device."""
     k = _cbd_k(ctx.error_stddev)
     n_words = -(-k // 32)
     shape = (2, n_words, *batch_shape, ctx.L, ctx.n_inner)
-    u = prng.bits(key, shape, ctx.device, rows=rows, axis=2)
+    u = prng.bits_plain(key, shape, ctx.device, rows=rows, axis=2)
     last_mask = (1 << (k - 32 * (n_words - 1))) - 1
     pops = sum(_popcount32(u[:, w] & (0xFFFFFFFF if w < n_words - 1 else last_mask))
                for w in range(n_words))
@@ -109,10 +125,18 @@ def _sample_error_coeffs(ctx: EncodingContext, key, batch_shape, rows=None):
 
 def _sample_uniform(ctx: EncodingContext, key, batch_shape, rows=None):
     """Uniform element of R_Q in NTT form: per inner prime Q_j, uint32
-    ``randint(split(key, L')[j], (*batch, L, N'), 0, Q_j)``."""
+    ``randint(split(key, L')[j], (*batch, L, N'), 0, Q_j)``.  A CUDA
+    context launches the kernel; any other runs `_uniform_plain`."""
+    if _on_card(ctx):
+        return cuda_prng.uniform(ctx, key, batch_shape, rows)
+    return _uniform_plain(ctx, key, batch_shape, rows)
+
+
+def _uniform_plain(ctx: EncodingContext, key, batch_shape, rows=None):
+    """`_sample_uniform` as torch ops on the context's device."""
     shape = (*batch_shape, ctx.L, ctx.n_inner)
     cols = [
-        prng.randint(k, shape, Q, ctx.device, rows=rows).to(_I32)
+        prng.randint_plain(k, shape, Q, ctx.device, rows=rows).to(_I32)
         for k, Q in zip(prng.split(key, ctx.L_inner), ctx.inner_primes)
     ]
     return torch.stack(cols, dim=-2)  # [*, L, L', N']
@@ -144,14 +168,19 @@ def encrypt(ctx: EncodingContext, sk: SecretKey, slots, key, draw_rows=None, lo:
     slots: int32[*batch, L, n] -> (c0, c1): int32[*batch, L, L', N'] with
     c0 + c1*s = m + t*e (mod Q).  With `draw_rows`, `slots` are rows
     ``[lo, lo + len(slots))`` of a batch of `draw_rows` rows encrypted with
-    `key`: they get the randomness those rows get in the whole batch.
+    `key`: they get the randomness those rows get in the whole batch.  On
+    a CUDA device the uniform mask and c0 come from one kernel
+    (``cuda_prng.encrypt``) after the error's NTT.
     """
     m = plain_to_inner_ntt(ctx, slots, level=0)
-    if draw_rows is None:
-        a, e = sample_a_e(ctx, key, m.shape[:-3])
-    else:
-        a, e = sample_a_e(ctx, key, (draw_rows,), rows=(lo, lo + m.shape[0]))
-    return _encrypt_from_m(ctx, sk.s_ntt, m, a, e)
+    batch, rows = ((m.shape[:-3], None) if draw_rows is None
+                   else ((draw_rows,), (lo, lo + m.shape[0])))
+    if not _on_card(ctx):
+        a, e = sample_a_e(ctx, key, batch, rows)
+        return _encrypt_from_m(ctx, sk.s_ntt, m, a, e)
+    k_a, k_e = prng.split(key)
+    e = _ntt.negacyclic_ntt_rev(_sample_error_coeffs(ctx, k_e, batch, rows), ctx.inner_plan(0))
+    return cuda_prng.encrypt(ctx, sk, m, e, k_a, batch, rows)
 
 
 def ct_add(ctx: EncodingContext, ct_a, ct_b, level: int):

@@ -17,6 +17,7 @@ import torch
 
 from ..ops import primes as _primes
 from ..ops import ntt as _ntt
+from ..ops.cuda_prng import shoup_pairs
 from ..rings.context import RingContext
 
 __all__ = [
@@ -129,6 +130,11 @@ class EncodingContext:
         return np.array(self.inner_primes, dtype=np.uint32)
 
     @cached_property
+    def t_consts(self) -> torch.Tensor:
+        """The plain moduli t_i as int64 ``[L, 1, 1]`` on the device."""
+        return torch.as_tensor(self.t_np.astype(np.int64)[:, None, None], device=self.device)
+
+    @cached_property
     def t_mod_Q(self) -> torch.Tensor:
         """t_i mod Q_j as int64[L, L', 1] (broadcast over N')."""
         t = self.t_np[:, None].astype(np.int64)
@@ -168,6 +174,12 @@ class SecretKey:
     ctx: EncodingContext
     s_ntt: torch.Tensor
     s_coeffs: np.ndarray
+
+    @cached_property
+    def s_pairs(self) -> torch.Tensor:
+        """s_ntt beside its Shoup constants floor(s * 2^32 / Q_j), int32
+        ``[L, L', N', 2]`` (the encryption kernel's operand; made once a key)."""
+        return shoup_pairs(self.s_ntt, self.ctx.inner_consts(0))
 
 
 def keygen(ctx: EncodingContext, rng: np.random.Generator):

@@ -3,9 +3,13 @@
 Port of ``ringsnark_tpu/ops/pallas_ntt.py``: `_ntt_kernel_gridfree` (all
 four modes, ``ntt``) and the split large-M path `ntt_split_pallas` with its
 `_outer_kernel` (``ntt_split``).  The kernels are compiled with ``nvcc`` for
-``sm_90a`` at first use, from the source in this package, into
+``sm_90a`` at first use, from the sources in this package, into
 ``ringsnark_tpu_torch/_build/`` (a shared library with a plain C interface,
-loaded with ctypes).  Nothing is built or loaded at import time.
+loaded with ctypes).  Nothing is built or loaded at import time.  ``build``
+compiles every CUDA source of the package (``csrc/ntt.cu`` and
+``csrc/prng.cu``, which share ``csrc/modarith.cuh``) into that one library,
+so each build of the NTT kernels also builds the draws and the encryption
+of ``ops/cuda_prng.py``.
 
 ``ntt`` is one launch of the register-radix shared-memory kernel; its
 schedule (``geometry``, ``kernel_passes``, ``swizzle``, ``outer_passes``)
@@ -48,7 +52,9 @@ __all__ = ["build", "ntt", "ntt_split", "geometry", "kernel_passes", "outer_pass
            "CTA_ORDERS"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "ntt.cu"
+# every source of the library, and the header they include (hashed with them)
+SOURCES = (_PKG / "csrc" / "ntt.cu", _PKG / "csrc" / "prng.cu")
+HEADERS = (_PKG / "csrc" / "modarith.cuh",)
 BUILD_DIR = _PKG / "_build"
 
 MODES = ("negacyclic_fwd", "negacyclic_inv", "cyclic_fwd", "cyclic_inv")
@@ -78,7 +84,7 @@ def _find_nvcc() -> str:
     ):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): cannot build csrc/ntt.cu")
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): cannot build csrc/*.cu")
 
 
 @dataclass(frozen=True)
@@ -88,12 +94,12 @@ class BuildResult:
 
 
 def build() -> BuildResult:
-    """Compile ``csrc/ntt.cu`` unless a library of this exact source exists.
-    The compiler's output is kept beside the library (``.log``) and returned
-    with it either way, so a reused build reports the same registers and
-    spills as a fresh one."""
-    src = SOURCE.read_bytes()
-    out = BUILD_DIR / f"libringsnark_ntt_{hashlib.sha256(src).hexdigest()[:16]}.so"
+    """Compile ``SOURCES`` into one library unless a library of these exact
+    sources and headers exists.  The compiler's output is kept beside the
+    library (``.log``) and returned with it either way, so a reused build
+    reports the same registers and spills as a fresh one."""
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in SOURCES + HEADERS))
+    out = BUILD_DIR / f"libringsnark_kernels_{digest.hexdigest()[:16]}.so"
     log = out.with_suffix(".log")
     if out.exists() and log.exists():
         return BuildResult(out, log.read_text())
@@ -102,7 +108,7 @@ def build() -> BuildResult:
     cmd = [
         _find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", str(tmp), str(SOURCE),
+        "-o", str(tmp), *map(str, SOURCES),
     ]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:

@@ -18,9 +18,11 @@ gives the same ciphertexts in both packages:
   ``split(key)`` combined mod the span as JAX does, then ``minval`` added.
 
 A key is a pair of Python ints below 2^32 (its ``key_data``).  Key
-derivation runs on the host in Python ints; ``bits`` and ``randint`` run as
-int64 torch ops masked to 32 bits on the requested device (torch's uint32
-lacks add, shifts and ``%``).
+derivation runs on the host in Python ints.  On a CUDA device ``bits`` and
+``randint`` launch the threefry kernel (``ops/cuda_prng.py``,
+``csrc/prng.cu``); elsewhere they run their plain versions, ``bits_plain``
+and ``randint_plain``: int64 torch ops masked to 32 bits (torch's uint32
+lacks add, shifts and ``%``), which run on any device.
 
 Because element j of a draw depends only on the key and j, a draw can be
 made in pieces: ``rows=(lo, hi)`` returns only the index range ``[lo, hi)``
@@ -34,7 +36,8 @@ import math
 
 import torch
 
-__all__ = ["Key", "key", "split", "fold_in", "threefry2x32", "bits", "randint"]
+__all__ = ["Key", "key", "split", "fold_in", "threefry2x32", "bits", "randint", "bits_plain",
+           "randint_plain", "randint_multiplier"]
 
 Key = tuple[int, int]
 
@@ -94,15 +97,43 @@ def _counters(shape, rows, axis: int, device) -> torch.Tensor:
     return c.reshape(*shape[:axis], hi - lo, *shape[axis + 1:])
 
 
+def _on_card(device) -> bool:
+    return torch.device(device).type == "cuda"
+
+
 def bits(k: Key, shape, device, rows=None, axis: int = 0) -> torch.Tensor:
     """``jax.random.bits(k, shape, uint32)`` as int64 values in [0, 2^32).
 
     ``rows=(lo, hi)`` draws only indices ``[lo, hi)`` along `axis` (the
-    same bits as that slice of the full draw)."""
+    same bits as that slice of the full draw).  A CUDA device launches the
+    kernel; any other runs `bits_plain`."""
+    if _on_card(device):
+        from ..ops import cuda_prng
+
+        return cuda_prng.bits(k, shape, device, rows, axis)
+    return bits_plain(k, shape, device, rows, axis)
+
+
+def bits_plain(k: Key, shape, device, rows=None, axis: int = 0) -> torch.Tensor:
+    """`bits` as int64 torch ops on `device` (the kernel's plain version)."""
     c = _counters(shape, rows, axis, device)
     hi = (c >> 32) if math.prod(shape) > _MASK else 0
     y0, y1 = threefry2x32(k[0], k[1], hi, c & _MASK)
     return y0 ^ y1
+
+
+def randint_multiplier(span: int) -> int:
+    """"2^32 mod span" as JAX forms it, in uint32: (2^16 mod span)^2 wraps to
+    0 for spans above 2^16, so there the high word drops out entirely and
+    is not drawn (every inner prime Q_j is such a span)."""
+    return (((1 << 16) % span) ** 2 & _MASK) % span
+
+
+def _span(maxval: int, minval: int) -> int:
+    span = int(maxval) - int(minval)
+    if not 0 < span <= 1 << 31 or not -(1 << 31) <= minval or maxval > 1 << 32:
+        raise ValueError(f"[{minval}, {maxval}) is not a 32-bit range of span (0, 2^31]")
+    return span
 
 
 def randint(k: Key, shape, maxval: int, device, rows=None, axis: int = 0,
@@ -113,17 +144,24 @@ def randint(k: Key, shape, maxval: int, device, rows=None, axis: int = 0,
     JAX draws two 32-bit words per value, from the two halves of
     ``split(k)``, and reduces ``hi * 2^32 + lo`` mod the span
     ``maxval - minval`` with uint32 arithmetic (products and sums wrap at
-    2^32), then adds ``minval``; this does the same."""
-    span = int(maxval) - int(minval)
-    if not 0 < span <= 1 << 31 or not -(1 << 31) <= minval or maxval > 1 << 32:
-        raise ValueError(f"[{minval}, {maxval}) is not a 32-bit range of span (0, 2^31]")
+    2^32), then adds ``minval``; this does the same.  A CUDA device
+    launches the kernel; any other runs `randint_plain`."""
+    _span(maxval, minval)
+    if _on_card(device):
+        from ..ops import cuda_prng
+
+        return cuda_prng.randint(k, shape, maxval, device, rows, axis, minval)
+    return randint_plain(k, shape, maxval, device, rows, axis, minval)
+
+
+def randint_plain(k: Key, shape, maxval: int, device, rows=None, axis: int = 0,
+                  minval: int = 0) -> torch.Tensor:
+    """`randint` as int64 torch ops on `device` (the kernel's plain version)."""
+    span = _span(maxval, minval)
     k_hi, k_lo = split(k)
-    # "2^32 mod span" as JAX forms it, in uint32: (2^16 mod span)^2 wraps to
-    # 0 for spans above 2^16, so there the high word drops out entirely and
-    # is not drawn (every inner prime Q_j is such a span)
-    mult = (((1 << 16) % span) ** 2 & _MASK) % span
-    off = torch.remainder(bits(k_lo, shape, device, rows, axis), span)
+    mult = randint_multiplier(span)
+    off = torch.remainder(bits_plain(k_lo, shape, device, rows, axis), span)
     if mult:
-        hi = (torch.remainder(bits(k_hi, shape, device, rows, axis), span) * mult) & _MASK
+        hi = (torch.remainder(bits_plain(k_hi, shape, device, rows, axis), span) * mult) & _MASK
         off = torch.remainder((hi + off) & _MASK, span)
     return off + int(minval) if minval else off

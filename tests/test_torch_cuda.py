@@ -416,3 +416,111 @@ def test_zq_three_limbs_on_card_equal_cpu(cuda):
         for g, w in zip(got, want):
             assert g[2] == w[2] and np.array_equal(g[0], w[0])
             assert np.array_equal(g[1], w[1])
+
+
+# The draws and the encryption (csrc/prng.cu, ops/cuda_prng.py) against
+# their plain torch-op versions on the card, bit for bit, at the shapes the
+# paths give them: the north star's encryption sub-chunk (rows 1024-1536 of
+# a 4096-row slab, L=1, L'=4, N'=16384), Z_q's short last sub-chunk (rows
+# 2730-4096, L=1, L'=3, N'=4096), logistic regression's encode chunk (L=2,
+# L'=4, N'=16384).
+PRNG_SHAPES = {
+    "north_star": dict(params=(1, 8192, 16384, 18, 10), slab=4096, rows=(1024, 1536), L_inner=4),
+    "zq": dict(params=(1, 1, 4096, 18, 4), slab=4096, rows=(2730, 4096), L_inner=3),
+    "logreg": dict(circuit=(2048, 16384, 2050), slab=32, rows=None, L_inner=4),
+}
+
+
+def _prng_params(shape):
+    import numpy as np
+
+    from ringsnark_tpu_torch.encoding import keygen
+    from ringsnark_tpu_torch.scripts.bench_circuits import make_params as circuit_params
+    from ringsnark_tpu_torch.scripts.common import bench_params
+
+    cfg = PRNG_SHAPES[shape]
+    params = (bench_params(*cfg["params"], "cuda") if "params" in cfg
+              else circuit_params(*cfg["circuit"], "cuda"))
+    assert params.enc.L_inner == cfg["L_inner"]
+    _, sk = keygen(params.enc, np.random.default_rng(31))
+    return params, sk, cfg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["uniform", "cbd_error", "encrypt"])
+@pytest.mark.parametrize("shape", list(PRNG_SHAPES))
+def test_prng_kernels_equal_plain(cuda, shape, kernel):
+    from ringsnark_tpu_torch.encoding import bgv
+    from ringsnark_tpu_torch.ops import cuda_prng
+    from ringsnark_tpu_torch.utils import prng
+
+    params, sk, cfg = _prng_params(shape)
+    ctx = params.enc
+    key, batch, rows = prng.key(32), (cfg["slab"],), cfg["rows"]
+    n = cfg["slab"] if rows is None else rows[1] - rows[0]
+    before = dict(cuda_prng.launch_counts)
+    if kernel == "uniform":
+        got = bgv._sample_uniform(ctx, key, batch, rows)
+        want = bgv._uniform_plain(ctx, key, batch, rows)
+    elif kernel == "cbd_error":
+        got = bgv._sample_error_coeffs(ctx, key, batch, rows)
+        want = bgv._error_coeffs_plain(ctx, key, batch, rows)
+    else:
+        g = torch.Generator(device=cuda).manual_seed(33)
+        slots = torch.cat([torch.randint(0, p, (n, 1, ctx.ring.N), generator=g,
+                                         dtype=torch.int32, device=cuda)
+                           for p in ctx.ring.primes], dim=1)
+        lo = 0 if rows is None else rows[0]
+        got = torch.stack(bgv.encrypt(ctx, sk, slots, key, draw_rows=cfg["slab"], lo=lo))
+        k_a, k_e = prng.split(key)
+        m = bgv.plain_to_inner_ntt(ctx, slots, 0)
+        e = tntt.negacyclic_ntt_rev(bgv._error_coeffs_plain(ctx, k_e, batch, rows or (0, n)),
+                                    ctx.inner_plan(0))
+        want = torch.stack(bgv._encrypt_from_m(ctx, sk.s_ntt, m,
+                                               bgv._uniform_plain(ctx, k_a, batch, rows), e))
+    torch.cuda.synchronize()
+    assert cuda_prng.launch_counts[kernel] == before[kernel] + 1
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("maxval,minval", [(7, -6), (1 << 16, 0), (2147352577, 0),
+                                           ((1 << 31) + 99, 100), (0, None)],
+                         ids=["fhe_signed_13", "span_2e16", "prime", "past_2e31", "bits"])
+def test_prng_draws_equal_plain(cuda, maxval, minval):
+    """prng.randint and prng.bits on the card (models/fhe.py's signed span
+    13 at logreg's N, B=3) equal their plain versions, rows and all."""
+    from ringsnark_tpu_torch.ops import cuda_prng
+    from ringsnark_tpu_torch.utils import prng
+
+    shape, rows = (5, 1, 2048), (2, 5)
+    before = cuda_prng.launch_counts["uniform"]
+    if minval is None:
+        got = prng.bits(prng.key(34), shape, "cuda", rows=rows)
+        want = prng.bits_plain(prng.key(34), shape, "cuda", rows=rows)
+    else:
+        got = prng.randint(prng.key(34), shape, maxval, "cuda", rows=rows, minval=minval)
+        want = prng.randint_plain(prng.key(34), shape, maxval, "cuda", rows=rows, minval=minval)
+    torch.cuda.synchronize()
+    assert cuda_prng.launch_counts["uniform"] == before + 1
+    assert got.dtype == want.dtype == torch.int64 and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_prng_refused_launch_raises(cuda, monkeypatch):
+    """A launch the library refuses (rows past the end of their axis)
+    raises and counts nothing; nothing falls back, and the refusal does not
+    leak into the next launch."""
+    from ringsnark_tpu_torch.ops import cuda_prng
+    from ringsnark_tpu_torch.utils import prng
+
+    geo = cuda_prng.geometry((8, 64), (2, 6), 0)
+    before = dict(cuda_prng.launch_counts)
+    with monkeypatch.context() as m:
+        m.setattr(cuda_prng, "geometry",
+                  lambda *a: cuda_prng.Geometry(geo.outer, geo.n_axis, 6, 4, geo.A, geo.I))
+        with pytest.raises(RuntimeError, match="launch failed"):
+            prng.bits(prng.key(35), (8, 64), "cuda", rows=(2, 6))
+    assert cuda_prng.launch_counts == before
+    assert torch.equal(prng.bits(prng.key(35), (8, 64), "cuda", rows=(2, 6)),
+                       prng.bits_plain(prng.key(35), (8, 64), "cuda", rows=(2, 6)))

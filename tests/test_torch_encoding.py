@@ -257,3 +257,91 @@ def test_budget_bits_round_as_jitted_jax():
 
     got = bgv._budget_bits(torch.from_numpy(x)).numpy()
     assert np.array_equal(got, np.asarray(jbudget(jnp.asarray(x))))
+
+
+# The draw and encryption kernels (csrc/prng.cu) replayed in numpy with the
+# wrappers' own geometry and key tables (tests/prng_replay.py) equal the
+# plain torch-op draws and encryption on the CPU: whole batches, a single
+# element, row ranges with lo != 0 and a short last sub-chunk of a slab,
+# and the error's words at a stride of `slab` rows (two words a side at
+# sigma = 5: k = 50).
+ENC_DRAWS = {
+    "whole_batch": ((3,), None, 3.2),
+    "one_element": ((), None, 3.2),
+    "sub_chunk_lo_not_0": ((16,), (5, 9), 3.2),
+    "short_last_sub_chunk": ((16,), (12, 16), 3.2),
+    "two_words_a_side": ((16,), (3, 10), 5.0),
+}
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().view(np.uint32).astype(np.uint64)
+
+
+@pytest.mark.parametrize("case", list(ENC_DRAWS))
+def test_kernel_replay_equals_plain_uniform_and_error(pair, case):
+    import dataclasses
+
+    import prng_replay
+
+    from ringsnark_tpu_torch.ops import cuda_prng
+
+    _, _, tctx, _ = pair
+    batch, rows, sigma = ENC_DRAWS[case]
+    ctx = dataclasses.replace(tctx, error_stddev=sigma)
+    key = prng.key(60 + list(ENC_DRAWS).index(case))
+    shape = (*(batch or (1,)), ctx.L, ctx.n_inner)
+    geo = cuda_prng.geometry(shape, rows, 0)
+
+    a = bgv._sample_uniform(ctx, key, batch, rows)
+    got = prng_replay.draw(cuda_prng.uniform_columns(ctx, key), geo)
+    assert np.array_equal(got.reshape(a.shape), _host(a))
+
+    e = bgv._sample_error_coeffs(ctx, key, batch, rows)
+    k = bgv._cbd_k(sigma)
+    got = prng_replay.cbd(ctx.inner_primes, key, k, geo)
+    assert np.array_equal(got.reshape(e.shape), _host(e))
+    assert (k > 32) == (sigma == 5.0)  # the two-word case reaches the mask of word 1
+
+
+@pytest.mark.parametrize("case", ["whole_batch", "sub_chunk_lo_not_0"])
+def test_kernel_constants_and_encrypt_replay_equal_plain(pair, case):
+    """The host's tables for the encryption kernel equal the plain
+    version's constants (s_ntt and t mod Q_j beside floor(v 2^32 / Q_j),
+    the key columns of split(k_a, L')), and the kernel replayed with them
+    gives the plain encryption's c0 and c1."""
+    import prng_replay
+
+    from ringsnark_tpu_torch.ops import cuda_prng
+
+    jctx, _, ctx, sk = pair
+    batch, rows, _ = ENC_DRAWS[case]
+    Qs = np.array(ctx.inner_primes, dtype=object)
+    s_pairs, tq = _host(sk.s_pairs), _host(cuda_prng.t_pairs(ctx))
+    s = _host(sk.s_ntt)
+    assert np.array_equal(s_pairs[..., 0], s)
+    assert np.array_equal(s_pairs[..., 1].astype(object),
+                          (s.astype(object) << 32) // Qs[None, :, None])
+    tmq = ctx.t_mod_Q[..., 0].numpy()
+    assert np.array_equal(tq[..., 0], tmq)
+    assert np.array_equal(tq[..., 1].astype(object), (tmq.astype(object) << 32) // Qs[None, :])
+
+    key = prng.key(70)
+    k_a, k_e = prng.split(key)
+    cols = cuda_prng.uniform_columns(ctx, k_a)
+    for kj, Q, col in zip(prng.split(k_a, ctx.L_inner), ctx.inner_primes, cols):
+        k_hi, k_lo = prng.split(kj)
+        assert col == (*k_lo, *k_hi, Q, 0, (1 << 32) // Q, 0)
+
+    n = (rows[1] - rows[0]) if rows else batch[0]
+    slots = _slots(jctx, n, seed=71)
+    m = bgv.plain_to_inner_ntt(ctx, _t(slots), 0)
+    a, e = bgv.sample_a_e(ctx, key, batch, rows)
+    c0, c1 = bgv._encrypt_from_m(ctx, sk.s_ntt, m, a, e)
+    if rows is None:
+        assert all(torch.equal(x, y) for x, y in zip((c0, c1), bgv.encrypt(ctx, sk, _t(slots),
+                                                                          key)))
+    geo = cuda_prng.geometry((*batch, ctx.L, ctx.n_inner), rows, 0)
+    r0, r1 = prng_replay.encrypt(cols, geo, ctx.L, _host(m), _host(e), s_pairs, tq)
+    assert np.array_equal(r0.reshape(c0.shape), _host(c0))
+    assert np.array_equal(r1.reshape(c1.shape), _host(c1))

@@ -4,6 +4,8 @@ with a `minval`) on odd shapes, and
 draws made by row range equal to the slices of the whole draw (the property
 the chunked encode and the seeded MAC rely on)."""
 
+import math
+
 import numpy as np
 import pytest
 import jax
@@ -108,3 +110,44 @@ def test_contexts_and_draws_default_to_the_card():
         assert inspect.signature(fn).parameters["device"].default is inspect.Parameter.empty
     with pytest.raises(TypeError):
         prng.bits(prng.key(0), (2,))
+
+
+# The threefry kernel (csrc/prng.cu) replayed in numpy with the wrapper's
+# own geometry and key column (tests/prng_replay.py) equals the plain
+# torch-op draws: row ranges inside an axis, a short last sub-chunk, spans
+# above and below 2^16 with and without minval, unsigned values past 2^31,
+# and counters above 2^32 in a view that allocates only its rows.
+REPLAYED_DRAWS = {
+    "bits_inner_axis": ((3, 5, 7), (1, 4), 1, 0, 0),
+    "bits_whole": ((2, 1, 3, 33), None, 0, 0, 0),
+    "bits_last_axis": ((3, 5, 7), (6, 7), 2, 0, 0),
+    "prime_short_last_sub_chunk": ((16, 1, 64), (12, 16), 0, 2147352577, 0),
+    "prime_lo_not_0": ((16, 2, 64), (5, 9), 0, 2147352577, 0),
+    "span_2e16": ((4, 3, 40), (1, 3), 0, 1 << 16, 0),
+    "fhe_signed_span_13": ((4, 1, 50), None, 0, 13, -6),
+    "unsigned_past_2e31": ((3, 70), (1, 3), 0, 1 << 31, (1 << 31) - 7),
+    "counter_past_2e32_bits": ((1 << 20, 1 << 13), ((1 << 20) - 3, 1 << 20), 0, 0, 0),
+    "counter_past_2e32_prime": ((1 << 20, 1 << 13), ((1 << 20) - 2, 1 << 20), 0, 2147352577, 0),
+    "counter_past_2e32_span_13": ((2, 1 << 31, 3), (1 << 30, (1 << 30) + 2), 1, 13, -6),
+}
+
+
+@pytest.mark.parametrize("case", list(REPLAYED_DRAWS))
+def test_kernel_replay_equals_plain_draw(case):
+    import prng_replay
+
+    from ringsnark_tpu_torch.ops import cuda_prng
+
+    shape, rows, axis, span, minval = REPLAYED_DRAWS[case]
+    _, tk = _key(40 + list(REPLAYED_DRAWS).index(case))
+    geo = cuda_prng.geometry(shape, rows, axis)
+    got = prng_replay.draw([cuda_prng.column(tk, span, minval)], geo).astype(np.int64)
+    if span:
+        want = prng.randint(tk, shape, minval + span, "cpu", rows=rows, axis=axis,
+                            minval=minval).numpy()
+        want = want & 0xFFFFFFFF  # the kernel's uint32 words
+    else:
+        want = prng.bits(tk, shape, "cpu", rows=rows, axis=axis).numpy()
+    assert np.array_equal(got.reshape(want.shape), want)
+    if math.prod(shape) > 0xFFFFFFFF:
+        assert (geo.outer * geo.n_axis * geo.A * geo.I) > 1 << 32 and want.size < 1 << 16
