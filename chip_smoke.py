@@ -11,10 +11,10 @@ traceback and exits nonzero without the final line:
 
 0. environment: torch/CUDA versions, nvcc, the card's name and power limit;
    fails without CUDA.
-1. build the kernels' library from `ringsnark_tpu_torch/csrc/ntt.cu` and
-   `csrc/prng.cu` in one nvcc call (or reuse the library of these exact
-   sources, with the compiler output kept beside it); `ptxas` must report
-   no register spills.
+1. build the kernels' library from `ringsnark_tpu_torch/csrc/ntt.cu`,
+   `csrc/prng.cu` and `csrc/mac.cu` in one nvcc call (or reuse the library
+   of these exact sources, with the compiler output kept beside it);
+   `ptxas` must report no register spills.
 2. the shared-memory kernel against its plain PyTorch twin, on the card:
    every mode at every shape the resident path uses, and at the streamed
    path's encryption shapes ([512, 1, 4, 16384] forward, [512, 1, 16384]
@@ -44,15 +44,24 @@ traceback and exits nonzero without the final line:
    `models/fhe.py`'s signed span 13 (`prng.randint` in [-6, 7)); each timed
    beside its bound (the larger of its int32 operations at 16.75 T/s and
    its bytes at 3.35 TB/s) and the plain version's time.
+2e. the MAC kernels (`csrc/mac.cu`: `mac` with c1 given, `mac_drawn` with
+   c1 drawn in registers) against `encoding.mac.mac_plain` on the same
+   inputs (equal, max abs err 0) at the north star's row sub-chunk (512
+   rows, L=1, L'=4, N'=16384, two operands), Z_q's seeded sub-chunk with
+   its broadcast operand (910 rows, L=3, L'=3, N'=4096) and logistic
+   regression's resident chunk (128 rows, L=2, L'=4, N'=16384); each timed
+   beside its bound and the plain version's time.
 3. the resident main path (M=2^14) through the package API: ringGroth16
    `generator` -> `prover` (cold, then warm: the two proofs must be
    identical) -> `verifier` (True), and `verifier` with one public input
    changed (False).  Every kernel launch count is reset just before and
    read just after; each shared-memory mode, and the error and encryption
-   kernels (the generator's encryptions), must have launched.  So on every
-   path: the streamed ones (7, 8, 14b) must launch `cbd_error` and
-   `encrypt`, the seeded ones (5, 14d) also `uniform` (c1 regenerated in
-   the MAC).
+   kernels (the generator's encryptions) and `mac` (the prove), must have
+   launched.  So on every path: the streamed ones (7, 8, 14b) must launch
+   `cbd_error`, `encrypt` and `mac`, the seeded ones (5, 14d) `mac_drawn`
+   (c1 drawn in the MAC's registers; no `uniform` draw writes it); the
+   frontend's circuits, the keys, the sharded provers and the examples
+   `mac`.
 4. small-input cross-check: a keypair made on the card, carried to the CPU,
    gives the same proof from the plain twins as from the kernels, and the
    CPU verifier accepts the card's proof.
@@ -165,10 +174,12 @@ traceback and exits nonzero without the final line:
 The line before the last is a JSON object with the kernels' launch counts
 (per path, `sharded`, `zq`, `zq_seeded` and `examples` among them; the
 negacyclic entries carry 14a's numbers under `north_star`; the PRNG
-kernels as `prng_<kernel>`, with every phase-2d shape under `shapes`),
+kernels as `prng_<kernel>`, with every phase-2d shape under `shapes`; the
+MAC kernels as `mac` and `mac_drawn`, with every phase-2e shape),
 errors, times, bounds (`bound_ms`, `bound_by`, `share_of_bound`)
 and `library_ms` (null: no PyTorch call computes an NTT modulo a prime,
-nor threefry2x32: `torch`'s generators are Philox);
+nor threefry2x32: `torch`'s generators are Philox, nor sum (c * pt mod
+Q_j));
 the last line is
 `{"ok": true, "device": {...}}`.  This script imports nothing of JAX.
 """
@@ -272,19 +283,23 @@ def add_counts(total: dict, counts: dict) -> dict:
 
 
 def reset_counts():
-    """Every kernel wrapper's launch count to 0: the NTT's and the PRNG's."""
-    from ringsnark_tpu_torch.ops import cuda_ntt, cuda_prng
+    """Every kernel wrapper's launch count to 0: the NTT's, the PRNG's and
+    the MAC's."""
+    from ringsnark_tpu_torch.ops import cuda_mac, cuda_ntt, cuda_prng
 
     cuda_ntt.reset_launch_counts()
     cuda_prng.reset_launch_counts()
+    cuda_mac.reset_launch_counts()
 
 
 def read_counts() -> dict:
-    """The launch count of every kernel wrapper, the PRNG's as prng_<kernel>."""
-    from ringsnark_tpu_torch.ops import cuda_ntt, cuda_prng
+    """The launch count of every kernel wrapper, the PRNG's as prng_<kernel>,
+    the MAC's as `mac` and `mac_drawn`."""
+    from ringsnark_tpu_torch.ops import cuda_mac, cuda_ntt, cuda_prng
 
     return {**cuda_ntt.launch_counts,
-            **{f"prng_{k}": n for k, n in cuda_prng.launch_counts.items()}}
+            **{f"prng_{k}": n for k, n in cuda_prng.launch_counts.items()},
+            **cuda_mac.launch_counts}
 
 
 def open_world(card: str):
@@ -475,11 +490,16 @@ def make_params(cfg, device):
     return bench_params(cfg["L"], cfg["N"], cfg["n_inner"], cfg["log_m"], 10, device)
 
 
-def zq_limb_params(n_inner: int, log_m: int):
-    """One limb of phase 14b's Z_q parameters (N=1, margin 4), on the card."""
+def zq_params(L: int, n_inner: int, log_m: int):
+    """Phase 14b's Z_q parameters (N=1, margin 4) at L outer limbs, on the card."""
     from ringsnark_tpu_torch.scripts.common import bench_params
 
-    return bench_params(1, 1, n_inner, log_m, 4, "cuda")
+    return bench_params(L, 1, n_inner, log_m, 4, "cuda")
+
+
+def zq_limb_params(n_inner: int, log_m: int):
+    """One limb of phase 14b's Z_q parameters, on the card."""
+    return zq_params(1, n_inner, log_m)
 
 
 def make_circuit_params(cfg, device):
@@ -898,6 +918,109 @@ def prng_vs_plain(small: bool) -> dict:
     return report
 
 
+# phase 2e: the MAC kernels at the shapes the paths give them, rows from the
+# paths' own rules: the north star's row sub-chunk (seeded._sub_rows: 512
+# rows, L=1, L'=4, N'=16384; A and B together), Z_q's seeded sub-chunk with
+# its broadcast operand (910 rows at L=3, L'=3, N'=4096), logistic
+# regression's resident chunk (encoding._chunk_rows: 128 rows, L=2, L'=4,
+# N'=16384; one operand); (parameters, operands, the drawn c1's slab row lo)
+MAC_SHAPES = {
+    "north_star": (lambda: make_params(FULL_STREAMED, "cuda"), 2, 1024),
+    "zq": (lambda: zq_params(3, 4096, 18), 2, 2730),
+    "logreg": (lambda: make_circuit_params(REFERENCE_CIRCUITS["logreg"], "cuda"), 1, 0),
+}
+SMALL_MAC_SHAPES = {
+    "north_star": (lambda: make_params(SMALL_STREAMED, "cuda"), 2, 64),
+    "zq": (lambda: zq_params(3, 512, 11), 2, 170),
+    "logreg": (lambda: make_circuit_params(SMALL_CIRCUITS["logreg"], "cuda"), 1, 0),
+}
+MAC_SLAB = 4096  # the drawn c1's slab (seeded.DEFAULT_SLAB; --small: the rows' end)
+MAC_SOURCE = "ringsnark_tpu_torch/csrc/mac.cu"
+# the JAX package's MAC is XLA's (a jitted scan): no Pallas kernel stands
+# behind these, so each names the function it is the counterpart of
+MAC_REPLACES = {
+    "mac": "ringsnark_tpu/encoding/encoding.py:193",  # inner_product (the u64 scan body :345)
+    "mac_drawn": "ringsnark_tpu/snark/seeded.py:296",  # _seeded_mac_kernel, c1 regenerated
+}
+# int32 operations a MAC term takes: the 32 x 32 -> 64-bit product (1), the
+# multiply-high of the Barrett step (4), the product by Q_j (1), the
+# subtract (1), the conditional subtract (2) and the 64-bit add (2)
+MAC_OPS = 11
+
+
+def mac_vs_plain(small: bool) -> dict:
+    """Phase 2e: `mac` and `mac_drawn` == `mac_plain` on the same inputs at
+    each shape of MAC_SHAPES (max abs err 0; the operands from
+    `bgv.plain_to_inner_ntt`, so Z_q's is the broadcast it is on the path),
+    then both timed (CUDA events) beside the bound (the larger of the int32
+    operations at 16.75 T/s and the bytes at 3.35 TB/s: c0, c1 or its key,
+    the operands, the accumulators read and written).  Launches made here
+    are not a path's."""
+    from ringsnark_tpu_torch.encoding import bgv, encoding, mac
+    from ringsnark_tpu_torch.ops import cuda_mac
+    from ringsnark_tpu_torch.snark import seeded
+    from ringsnark_tpu_torch.utils import prng
+
+    report = {k: {"max_abs_err": 0, "shapes": []} for k in cuda_mac.KERNELS}
+    for name, (make, P, lo) in (SMALL_MAC_SHAPES if small else MAC_SHAPES).items():
+        params = make()
+        ring, ctx = params.ring, params.enc
+        n = (encoding._chunk_rows(ctx, ctx.L_inner) if name == "logreg"
+             else seeded._sub_rows(ctx))
+        width = ctx.L * ctx.L_inner * ctx.n_inner
+        gen = torch.Generator(device="cuda").manual_seed(46)
+
+        def residues(rows, primes, last):
+            return torch.cat([torch.randint(0, p, (rows, 1, last), generator=gen,
+                                            dtype=torch.int32, device="cuda")
+                              for p in primes], dim=1)
+
+        c0 = residues(n * ctx.L, ctx.inner_primes, ctx.n_inner).reshape(
+            n, ctx.L, ctx.L_inner, ctx.n_inner).contiguous()
+        c1 = residues(n * ctx.L, ctx.inner_primes, ctx.n_inner).reshape(c0.shape).contiguous()
+        pts = [bgv.plain_to_inner_ntt(ctx, residues(n, ring.primes, ring.N), 0)
+               for _ in range(P)]
+        bcast = pts[0].stride(-1) == 0
+        drawn = mac.Drawn(prng.key(47), (max(MAC_SLAB, lo + n),), (lo, lo + n))
+        label = (f"{name} {n} rows, L={ctx.L} L'={ctx.L_inner} N'={ctx.n_inner}, P={P}"
+                 f"{', broadcast operand' if bcast else ''}")
+        terms = 2 * P * n * width
+        nbytes = (P * 4 * n * (ctx.L * ctx.L_inner if bcast else width)
+                  + 2 * 2 * P * 8 * width)  # the operands; the accumulators in and out
+        for kernel, c, ops, cbytes in (
+            ("mac", c1, terms * MAC_OPS, 8 * n * width),
+            ("mac_drawn", drawn, terms * MAC_OPS + n * width * (HASH_OPS + MOD_OPS),
+             4 * n * width),
+        ):
+            run = cuda_mac.mac if kernel == "mac" else cuda_mac.mac_drawn
+
+            def accs():
+                return [tuple(torch.zeros((ctx.L, ctx.L_inner, ctx.n_inner), dtype=torch.int64,
+                                          device="cuda") for _ in range(2)) for _ in range(P)]
+
+            got, want = accs(), accs()
+            run(ctx, 0, c0, c, pts, got)
+            mac.mac_plain(ctx, 0, c0, c, pts, want)
+            err = max(int((g - w).abs().max()) for pair in zip(got, want) for g, w in
+                      zip(*pair))
+            check(all(torch.equal(g, w) for pair in zip(got, want) for g, w in zip(*pair)),
+                  f"mac kernel {kernel} != mac_plain at {label}")
+            ms = cuda_ms(lambda: run(ctx, 0, c0, c, pts, got))
+            pms = cuda_ms(lambda: mac.mac_plain(ctx, 0, c0, c, pts, want), iters=2)
+            bms, by = prng_bound(ops, nbytes + cbytes)
+            r = report[kernel]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            r["shapes"].append(dict(shape=label, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                                    share_of_bound=bms / ms, max_abs_err=err))
+            print(f"  {kernel:9s} {label:60s}: equal; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                  f"bound {bms:.4f} ms by {by} ({100 * bms / ms:.1f} %)", flush=True)
+        del params, ctx, c0, c1, pts
+    for r in report.values():
+        r.update({k: v for k, v in r["shapes"][0].items() if k != "max_abs_err"})
+    torch.cuda.empty_cache()
+    return report
+
+
 def main_path(params, cfg, meshes, card):
     """Phase 3: generator -> prover x2 -> verifier (+ tampered); then, its
     launch counts read, the sharded prover on both meshes (phase 13)."""
@@ -942,7 +1065,7 @@ def main_path(params, cfg, meshes, card):
     for e in (proof.A, proof.B, proof.C):
         check(tuple(e.c0.shape) == (ring.L, params.enc.floor_limbs, params.enc.n_inner),
               f"proof element shape {tuple(e.c0.shape)}")
-    for mode in (*cuda_ntt.MODES, *(f"prng_{k}" for k in ENCRYPTION)):
+    for mode in (*cuda_ntt.MODES, *(f"prng_{k}" for k in ENCRYPTION), "mac"):
         check(counts[mode] > 0, f"kernel {mode} never launched on the main path")
     sharded_counts, sharded_times = sharded_groth16(kp, primary, aux, proof, meshes, card)
     return counts, times, crs_bytes, peak, sharded_counts, sharded_times
@@ -977,7 +1100,6 @@ def small_cross_check():
 def seeded_path(params, cfg):
     """Phase 5: generator_seeded -> prover_seeded x2 -> verifier (+ tampered)."""
     from ringsnark_tpu_torch.models.synthetic import build_synthetic_square_chain
-    from ringsnark_tpu_torch.ops import cuda_prng
     from ringsnark_tpu_torch.snark import groth16, seeded
     from ringsnark_tpu_torch.utils import prng
 
@@ -1013,7 +1135,7 @@ def seeded_path(params, cfg):
     for e in (proof.A, proof.B, proof.C):
         check(tuple(e.c0.shape) == (ring.L, ectx.floor_limbs, ectx.n_inner),
               f"proof element shape {tuple(e.c0.shape)}")
-    _launch_check(counts, M, "seeded", cuda_prng.KERNELS)
+    _launch_check(counts, M, "seeded", macs=SEEDED_MAC)
     return counts, times, crs_bytes, peak
 
 
@@ -1044,17 +1166,21 @@ def small_seeded_cross_check():
 
 
 ENCRYPTION = ("cbd_error", "encrypt")  # the draws of every encryption on the card
+# the MAC kernel of a seeded prove: c1 drawn in its registers (no `uniform`
+# draw writes it); every other prove launches `mac`
+SEEDED_MAC = ("mac_drawn",)
 
 
-def _launch_check(counts, M, path, draws=ENCRYPTION):
+def _launch_check(counts, M, path, draws=ENCRYPTION, macs=("mac",)):
     """Both negacyclic shared-memory modes, both cyclic modes of the
-    witness map (split past MAX_KERNEL_M) and the PRNG kernels `draws`
-    must have launched."""
+    witness map (split past MAX_KERNEL_M), the PRNG kernels `draws` and the
+    MAC kernels `macs` must have launched."""
     from ringsnark_tpu_torch.ops import ntt as nttm
 
     inv = "split_cyclic_inv" if M > nttm.MAX_KERNEL_M else "cyclic_inv"
     fwd = "split_cyclic_fwd" if 2 * M > nttm.MAX_KERNEL_M else "cyclic_fwd"
-    for mode in ("negacyclic_fwd", "negacyclic_inv", fwd, inv, *(f"prng_{k}" for k in draws)):
+    for mode in ("negacyclic_fwd", "negacyclic_inv", fwd, inv, *(f"prng_{k}" for k in draws),
+                 *macs):
         check(counts[mode] > 0, f"kernel {mode} never launched on the {path} path")
 
 
@@ -1271,7 +1397,7 @@ def frontend_path(circuits, kernel_report, mesh, card):
             del kp, proof, proof2, prove
         counts = add_counts(read_counts(), carried)
         print(f"  {name}: launches {counts}", flush=True)
-        for mode in ("negacyclic_fwd", "negacyclic_inv"):
+        for mode in ("negacyclic_fwd", "negacyclic_inv", "mac"):
             check(counts[mode] > 0, f"kernel mode {mode} never launched for {name}")
         entry["launches"] = counts
         for m, c in counts.items():
@@ -1452,7 +1578,7 @@ def keys_on_disk(cfg, north_star):
     report["north_star_vk"] = {"stage_s": t, "files_mib": file_bytes / 2**20}
     counts = read_counts()
     print(f"  launches {counts}", flush=True)
-    for mode in ("negacyclic_fwd", "negacyclic_inv", "cyclic_fwd", "cyclic_inv"):
+    for mode in ("negacyclic_fwd", "negacyclic_inv", "cyclic_fwd", "cyclic_inv", "mac"):
         check(counts[mode] > 0, f"kernel mode {mode} never launched on the keys path")
     return counts, report
 
@@ -1704,7 +1830,6 @@ def zq_seeded(small: bool, report, split_report):
     whole script runs past 650 s); launches counted over the call, path
     `zq_seeded`; then every shape the call gave the kernels held against
     the plain versions."""
-    from ringsnark_tpu_torch.ops import cuda_prng
     from ringsnark_tpu_torch.scripts import bench_prover
 
     log_m = 9 if small else 14
@@ -1721,7 +1846,7 @@ def zq_seeded(small: bool, report, split_report):
           f"(cold {row['prove_cold_s']:.3f} s), peak {row['peak_gib']:.3f} GiB; launches {counts}",
           flush=True)
     check(row["verified"] and row["tampered_rejected"], "Z_q seeded verification")
-    _launch_check(counts, 1 << log_m, "zq_seeded", cuda_prng.KERNELS)
+    _launch_check(counts, 1 << log_m, "zq_seeded", macs=SEEDED_MAC)
     hold_recorded_shapes("14d", seen, report, split_report, 1402)
     return counts, row
 
@@ -1755,7 +1880,7 @@ def examples(small: bool, report, split_report):
                 out[name] = {k: v for k, v in res.items() if k != "card"}
     counts = read_counts()
     print(f"  examples: all verify; launches {counts}", flush=True)
-    for mode in ("negacyclic_fwd", "negacyclic_inv"):
+    for mode in ("negacyclic_fwd", "negacyclic_inv", "mac"):
         check(counts[mode] > 0, f"kernel mode {mode} never launched by the examples")
     hold_recorded_shapes("14e", seen, report, split_report, 1403)
     return counts, out
@@ -1839,11 +1964,15 @@ def main() -> int:
     phase("2d", "draw and encryption kernels vs plain", t0)
 
     t0 = time.perf_counter()
+    mac_report = mac_vs_plain(args.small)
+    phase("2e", "MAC kernels vs plain", t0)
+
+    t0 = time.perf_counter()
     meshes = open_world(card)
     phase("13a", "world of one rank over NCCL, meshes", t0)
     try:
         return run_phases(args, (cfg, cfg5, cfg7, cfg8), (params, params5, params7), report,
-                          split_report, prng_report, orders, meshes, card)
+                          split_report, prng_report, mac_report, orders, meshes, card)
     finally:
         import torch.distributed as dist
 
@@ -1864,10 +1993,10 @@ def north_star_entry(row: dict, mode: str) -> dict:
                            "max_abs_err": row["max_abs_err"]}}
 
 
-def run_phases(args, cfgs, params_all, report, split_report, prng_report, orders, meshes,
-               card) -> int:
+def run_phases(args, cfgs, params_all, report, split_report, prng_report, mac_report, orders,
+               meshes, card) -> int:
     """Phases 3 to 14 on the world of one rank; the last lines of output."""
-    from ringsnark_tpu_torch.ops import cuda_ntt, cuda_prng
+    from ringsnark_tpu_torch.ops import cuda_mac, cuda_ntt, cuda_prng
 
     cfg, cfg5, cfg7, cfg8 = cfgs
     params, params5, params7 = params_all
@@ -1935,7 +2064,8 @@ def run_phases(args, cfgs, params_all, report, split_report, prng_report, orders
     c13, sharded_s["ntt_ms"], unscaled = sharded_ntt_phase(
         meshes, *SHARDED_NTT["small" if args.small else "full"], report, split_report, card)
     add_counts(sharded, c13)
-    for mode in ("split_cyclic_fwd", "split_cyclic_inv", "negacyclic_fwd", "negacyclic_inv"):
+    for mode in ("split_cyclic_fwd", "split_cyclic_inv", "negacyclic_fwd", "negacyclic_inv",
+                 "mac"):
         check(sharded[mode] > 0, f"kernel mode {mode} never launched on the sharded path")
     print(f"  sharded path: launches {sharded}; seconds {sharded_s}", flush=True)
     phase(13, "multi-device layer: sharded NTT, unscaled inverse", t0)
@@ -1998,6 +2128,15 @@ def run_phases(args, cfgs, params_all, report, split_report, prng_report, orders
          "share_of_bound": prng_report[k]["share_of_bound"], "library_ms": None,
          "shape": prng_report[k]["shape"], "shapes": prng_report[k]["shapes"]}
         for k in cuda_prng.KERNELS
+    ] + [
+        # no single PyTorch call computes sum (c * pt mod Q_j): library_ms is null
+        {"name": k, "route": "cuda", "source": MAC_SOURCE, "replaces": MAC_REPLACES[k],
+         "launches": sum(by_path[k].values()), "launches_by_path": by_path[k],
+         **{key: mac_report[k][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "share_of_bound", "shape",
+                                                 "shapes")},
+         "library_ms": None}
+        for k in cuda_mac.KERNELS
     ]
     summary = {"resident": {"config": cfg, "stage_s": times, "crs_gib": crs_bytes / 2**30,
                             "peak_allocated_gib": peak / 2**30},

@@ -63,24 +63,13 @@
 #include <stdint.h>
 
 #include "modarith.cuh"  // reduce_once, add_mod, sub_mod, shoup_mul, refused
+#include "threefry.cuh"  // Column, Columns, kMaxCols, threefry_word, draw_value, columns_of
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kPer = 4;  // words a thread a line, kThreads apart
-constexpr int kMaxCols = 32;  // key columns (inner primes) a launch
 constexpr unsigned kMaxGridY = 65535;
-
-// One key column (ops/cuda_prng.column): the key of the low word (the key
-// itself for bits), of the high word, the span (0: raw bits), JAX's
-// multiplier, mu = min(floor(2^32 / span), 2^32 - 1) and minval as uint32.
-struct Column {
-  uint32_t lo0, lo1, hi0, hi1, span, mult, mu, minval;
-};
-
-struct Columns {
-  Column c[kMaxCols];
-};
 
 struct Moduli {
   uint32_t q[kMaxCols];
@@ -93,58 +82,6 @@ struct Geo {
   uint32_t L;  // outer limbs: s and t mod Q_j are indexed by a mod L
   uint32_t lines;  // lines of the launch
 };
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) { return __funnelshift_l(x, x, r); }
-
-// threefry2x32 with 20 rounds (jax's _threefry2x32_lowering; utils/prng.py).
-__device__ __forceinline__ uint32_t threefry_word(uint32_t k0, uint32_t k1, uint64_t ctr) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  uint32_t x0 = static_cast<uint32_t>(ctr >> 32) + k0;
-  uint32_t x1 = static_cast<uint32_t>(ctr) + k1;
-#define RINGSNARK_ROUND(r) \
-  x0 += x1;                \
-  x1 = rotl(x1, r);        \
-  x1 ^= x0;
-#define RINGSNARK_EVEN RINGSNARK_ROUND(13) RINGSNARK_ROUND(15) RINGSNARK_ROUND(26) RINGSNARK_ROUND(6)
-#define RINGSNARK_ODD RINGSNARK_ROUND(17) RINGSNARK_ROUND(29) RINGSNARK_ROUND(16) RINGSNARK_ROUND(24)
-  RINGSNARK_EVEN
-  x0 += k1;
-  x1 += k2 + 1u;
-  RINGSNARK_ODD
-  x0 += k2;
-  x1 += k0 + 2u;
-  RINGSNARK_EVEN
-  x0 += k0;
-  x1 += k1 + 3u;
-  RINGSNARK_ODD
-  x0 += k1;
-  x1 += k2 + 4u;
-  RINGSNARK_EVEN
-  x0 += k2;
-  x1 += k0 + 5u;
-#undef RINGSNARK_EVEN
-#undef RINGSNARK_ODD
-#undef RINGSNARK_ROUND
-  return x0 ^ x1;
-}
-
-// w mod span for any w < 2^32, span in [1, 2^31]: q = umulhi(w, mu) is
-// floor(w / span) or one less, so w - q * span lies in [0, 2 span).
-__device__ __forceinline__ uint32_t mod_span(uint32_t w, uint32_t span, uint32_t mu) {
-  return reduce_once(w - __umulhi(w, mu) * span, span);
-}
-
-// The word or value of column col at counter ctr (see the contract above).
-__device__ __forceinline__ uint32_t draw_value(const Column& col, uint64_t ctr) {
-  const uint32_t lo = threefry_word(col.lo0, col.lo1, ctr);
-  if (col.span == 0) return lo;
-  uint32_t off = mod_span(lo, col.span, col.mu);
-  if (col.mult != 0) {
-    const uint32_t hi = mod_span(threefry_word(col.hi0, col.hi1, ctr), col.span, col.mu);
-    off = mod_span(hi * col.mult + off, col.span, col.mu);
-  }
-  return off + col.minval;
-}
 
 // The first word of this thread in a line; the line of blockIdx.y.
 __device__ __forceinline__ uint32_t first_word() {
@@ -268,15 +205,6 @@ bool make_geo(long long outer, long long n_axis, long long lo, long long rows, l
 dim3 grid_of(const Geo& g) {
   return dim3((g.I + kThreads * kPer - 1) / (kThreads * kPer), g.lines < kMaxGridY ? g.lines
                                                                                     : kMaxGridY);
-}
-
-Columns columns_of(const uint32_t* table, int C) {
-  Columns cols = {};
-  for (int c = 0; c < C; ++c) {
-    const uint32_t* w = table + 8 * c;
-    cols.c[c] = Column{w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7]};
-  }
-  return cols;
 }
 
 }  // namespace

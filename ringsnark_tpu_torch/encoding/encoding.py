@@ -14,13 +14,14 @@ from ..rings.elem import RingElem
 from ..utils import prng
 from . import bgv
 from .context import EncodingContext, SecretKey
+from .mac import mac_rows
 
 __all__ = ["Encoding", "DecodingError", "encode", "decode", "inner_product", "mac_accumulate",
            "finish_inner_product"]
 
 # Batch rows per chunk of the inner-product MAC: chunks hold this many
-# residues, so each int64 temporary is 128 MiB (256 rows at L = 1, L' = 4,
-# N' = 16384).
+# residues, so each chunk's plaintext operand is 64 MiB of int32 (256 rows
+# at L = 1, L' = 4, N' = 16384).
 _CHUNK_ELEMS = 1 << 24
 # Rows per randomness chunk of `encode`: the JAX package's default
 # (``RINGSNARK_ENCODE_CHUNK_ELEMS`` = 2^22 residues, at least 8 rows).
@@ -161,20 +162,18 @@ def decode(ctx: EncodingContext, sk: SecretKey, e: Encoding) -> RingElem:
 def mac_accumulate(a: Encoding, b: RingElem):
     """The exact int64 sums sum_i E_i * r_i over the leading batch axis,
     before the final reduction: in row chunks, each chunk's plaintexts go to
-    inner-NTT form and every ct x pt product is reduced mod Q_j before the
-    int64 sum (exact: < 2^31 per term, < 2^32 rows), so any partition of the
-    rows sums to the same bits."""
+    inner-NTT form and `mac.mac_rows` adds their products (each reduced mod
+    Q_j before the int64 sum), so any partition of the rows sums to the same
+    bits."""
     ctx = a.ctx
     B = len(a)
     assert b.res.shape[0] == B
-    Q = ctx.inner_consts(a.level)
     acc0 = torch.zeros(a.c0.shape[1:], dtype=torch.int64, device=a.c0.device)
     acc1 = torch.zeros_like(acc0)
     chunk = _chunk_rows(ctx, ctx.L_inner - a.level)
     for lo in range(0, B, chunk):
-        pt = bgv.plain_to_inner_ntt(ctx, b.res[lo:lo + chunk], a.level).to(torch.int64)
-        acc0 += torch.remainder(a.c0[lo:lo + chunk].to(torch.int64) * pt, Q).sum(0)
-        acc1 += torch.remainder(a.c1[lo:lo + chunk].to(torch.int64) * pt, Q).sum(0)
+        pt = bgv.plain_to_inner_ntt(ctx, b.res[lo:lo + chunk], a.level)
+        mac_rows(ctx, a.level, a.c0[lo:lo + chunk], a.c1[lo:lo + chunk], [pt], [(acc0, acc1)])
     return acc0, acc1
 
 

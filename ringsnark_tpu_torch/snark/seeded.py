@@ -33,6 +33,7 @@ import torch
 
 from ..encoding import Encoding, bgv, encode, finish_inner_product, keygen
 from ..encoding.context import EncodingContext
+from ..encoding.mac import Drawn, mac_rows
 from ..reductions.r1cs_to_qrp import (
     _pa_batches,
     prover_witness_map_chunked,
@@ -57,8 +58,8 @@ __all__ = [
 ]
 
 DEFAULT_SLAB = 4096
-# Residues per row sub-chunk: int64 temporaries of 256 MiB (512 rows at
-# L = 1, L' = 4, N' = 16384).
+# Residues per row sub-chunk: 128 MiB of int32 a batch (512 rows at L = 1,
+# L' = 4, N' = 16384).
 _SUB_ELEMS = 1 << 25
 
 
@@ -128,25 +129,20 @@ def _mac_accs(senc: SeededEncoding, pts):
     """The exact int64 sums sum_i c[i] * pt[i] (each product reduced mod Q_j)
     of one seeded batch against several plaintext batches, at level 0 and
     before the final reduction: a Python loop over slabs and their row
-    sub-chunks, each regenerating its rows of c1 once for all plaintexts.
-    Exact: every term is < 2^31 and a batch has < 2^32 rows."""
+    sub-chunks, each one `mac_rows` for all plaintexts with its rows of c1
+    `Drawn` from the slab's key (on the card, in the kernel's registers)."""
     ctx = senc.ctx
-    Q = ctx.inner_consts(0)
     acc_shape = (ctx.L, ctx.L_inner, ctx.n_inner)
     accs = [(torch.zeros(acc_shape, dtype=torch.int64, device=ctx.device),
              torch.zeros(acc_shape, dtype=torch.int64, device=ctx.device)) for _ in pts]
     rows = max(pt.shape[0] for pt in pts)  # rows past a plaintext's end are zero terms
     for i, lo, hi in _sub_chunks(rows, senc.slab, _sub_rows(ctx)):
-        c0 = senc.c0[lo:hi].to(torch.int64)
-        c1 = bgv._sample_uniform(ctx, _slab_c1_key(senc.key, i), (senc.slab,),
-                                 rows=(lo - i * senc.slab, hi - i * senc.slab)).to(torch.int64)
-        for (a0, a1), pt in zip(accs, pts):
-            n = min(hi, pt.shape[0]) - lo
-            if n <= 0:
-                continue
-            ptntt = bgv.plain_to_inner_ntt(ctx, pt[lo:lo + n], 0).to(torch.int64)
-            a0 += torch.remainder(c0[:n] * ptntt, Q).sum(0)
-            a1 += torch.remainder(c1[:n] * ptntt, Q).sum(0)
+        c1 = Drawn(_slab_c1_key(senc.key, i), (senc.slab,),
+                   (lo - i * senc.slab, hi - i * senc.slab))
+        live = [(pt, acc) for pt, acc in zip(pts, accs) if pt.shape[0] > lo]
+        mac_rows(ctx, 0, senc.c0[lo:hi], c1,
+                 [bgv.plain_to_inner_ntt(ctx, pt[lo:hi], 0) for pt, _ in live],
+                 [acc for _, acc in live])
     return accs
 
 

@@ -39,6 +39,7 @@ import torch
 
 from ..encoding import Encoding, bgv, encode, keygen
 from ..encoding.context import EncodingContext, SecretKey
+from ..encoding.mac import mac_rows
 from ..ops.modops import add_mod, mul_mod
 from ..reductions.r1cs_to_qrp import (
     _assignment_batches,
@@ -257,7 +258,6 @@ def _encode_mac(ectx, sk, rows, nrows: int, pts, lo: int, key, slab: int, accs, 
     `accs` (each product reduced mod Q_j).  `rows(a, b)` gives the chunk's
     CRS rows [a, b).  With ``rec.profile`` records the chunk's encryption
     ("setup") and MAC ("prove") times."""
-    Q = ectx.inner_consts(0)
     t_enc = t_mac = 0.0
     for i, a, b in sd._sub_chunks(nrows, slab, sd._sub_rows(ectx)):
         t0 = time.perf_counter()
@@ -268,14 +268,10 @@ def _encode_mac(ectx, sk, rows, nrows: int, pts, lo: int, key, slab: int, accs, 
             t1 = time.perf_counter()
             t_enc += t1 - t0
             t0 = t1
-        c0, c1 = c0.to(torch.int64), c1.to(torch.int64)
-        for (a0, a1), pt in zip(accs, pts):
-            n = min(lo + b, pt.shape[0]) - (lo + a)
-            if n <= 0:
-                continue
-            ptntt = bgv.plain_to_inner_ntt(ectx, pt[lo + a:lo + a + n], 0).to(torch.int64)
-            a0 += torch.remainder(c0[:n] * ptntt, Q).sum(0)
-            a1 += torch.remainder(c1[:n] * ptntt, Q).sum(0)
+        live = [(pt, acc) for pt, acc in zip(pts, accs) if pt.shape[0] > lo + a]
+        mac_rows(ectx, 0, c0, c1,
+                 [bgv.plain_to_inner_ntt(ectx, pt[lo + a:lo + b], 0) for pt, _ in live],
+                 [acc for _, acc in live])
         if rec.profile:
             rec._sync(accs[0][0])
             t_mac += time.perf_counter() - t0

@@ -524,3 +524,148 @@ def test_prng_refused_launch_raises(cuda, monkeypatch):
     assert cuda_prng.launch_counts == before
     assert torch.equal(prng.bits(prng.key(35), (8, 64), "cuda", rows=(2, 6)),
                        prng.bits_plain(prng.key(35), (8, 64), "cuda", rows=(2, 6)))
+
+
+# The MAC (csrc/mac.cu, ops/cuda_mac.py) against encoding.mac.mac_plain on
+# the card, bit for bit, at the shapes the paths give it: the north star's
+# row sub-chunk (512 rows, L=1, L'=4, N'=16384, A and B together), Z_q's
+# seeded sub-chunk with its broadcast operand (910 rows at L=3, L'=3,
+# N'=4096), logistic regression's resident chunk (128 rows, L=2, L'=4,
+# N'=16384); and at level 1 with five operands (two launches) of unequal rows.
+MAC_SHAPES = {
+    "north_star": dict(params=(1, 8192, 16384, 18, 10), rows=(512, 512), L_inner=4),
+    "zq": dict(params=(3, 1, 4096, 18, 4), rows=(910, 910), L_inner=3),
+    "logreg": dict(circuit=(2048, 16384, 2050), rows=(128,), L_inner=4),
+    "level1_five": dict(params=(2, 64, 4096, 6, 4), rows=(300, 300, 299, 5, 1), L_inner=3,
+                        level=1),
+}
+
+
+def _mac_inputs(shape, seed=0):
+    from ringsnark_tpu_torch.encoding import bgv
+    from ringsnark_tpu_torch.scripts.bench_circuits import make_params as circuit_params
+    from ringsnark_tpu_torch.scripts.common import bench_params
+
+    cfg = MAC_SHAPES[shape]
+    params = (bench_params(*cfg["params"], "cuda") if "params" in cfg
+              else circuit_params(*cfg["circuit"], "cuda"))
+    ring, ctx = params.ring, params.enc
+    assert ctx.L_inner == cfg["L_inner"]
+    level = cfg.get("level", 0)
+    n, primes = cfg["rows"][0], ctx.level_primes(level)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def residues(rows, ps, last):
+        return torch.cat([torch.randint(0, p, (rows, 1, last), generator=g, dtype=torch.int32,
+                                        device="cuda") for p in ps], dim=1)
+
+    c0, c1 = (residues(n * ctx.L, primes, ctx.n_inner).reshape(
+        n, ctx.L, len(primes), ctx.n_inner).contiguous() for _ in range(2))
+    pts = [bgv.plain_to_inner_ntt(ctx, residues(r, ring.primes, ring.N), level)
+           for r in cfg["rows"]]
+    return ctx, level, c0, c1, pts
+
+
+def _mac_accs(ctx, level, P):
+    shape = (ctx.L, ctx.L_inner - level, ctx.n_inner)
+    return [tuple(torch.full(shape, 7, dtype=torch.int64, device="cuda") for _ in range(2))
+            for _ in range(P)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,drawn", [
+    (shape, drawn) for shape in MAC_SHAPES for drawn in (False, True)
+    if not (drawn and MAC_SHAPES[shape].get("level"))  # a drawn c1 is at level 0
+], ids=lambda v: {False: "mac", True: "mac_drawn"}.get(v, v) if isinstance(v, bool) else v)
+def test_mac_kernels_equal_plain(cuda, shape, drawn):
+    """mac_rows on the card (one launch per four operands of a kind) adds
+    the sums mac_plain adds, bit for bit; the Z_q operand stays a broadcast."""
+    from ringsnark_tpu_torch.encoding import mac
+    from ringsnark_tpu_torch.ops import cuda_mac
+    from ringsnark_tpu_torch.utils import prng
+
+    ctx, level, c0, c1, pts = _mac_inputs(shape, seed=len(shape))
+    if drawn:
+        n = c0.shape[0]
+        c1 = mac.Drawn(prng.key(48), (4096,), (4096 - n, 4096))
+    got, want = _mac_accs(ctx, level, len(pts)), _mac_accs(ctx, level, len(pts))
+    kernel = "mac_drawn" if drawn else "mac"
+    before = cuda_mac.launch_counts[kernel]
+    mac.mac_rows(ctx, level, c0, c1, pts, got)
+    torch.cuda.synchronize()
+    assert cuda_mac.launch_counts[kernel] == before + -(-len(pts) // cuda_mac.MAX_OPERANDS)
+    mac.mac_plain(ctx, level, c0, c1, pts, want)
+    if shape == "zq":
+        assert all(pt.stride(-1) == 0 for pt in pts)
+    for (g0, g1), (w0, w1) in zip(got, want):
+        assert torch.equal(g0, w0) and torch.equal(g1, w1)
+
+
+@pytest.mark.gpu
+def test_mac_drawn_equals_mac_over_the_uniform_draw(cuda):
+    """The c1 that mac_drawn draws in registers is cuda_prng.uniform's: the
+    same sums as mac over the draw_kernel's words."""
+    from ringsnark_tpu_torch.encoding import mac
+    from ringsnark_tpu_torch.ops import cuda_mac, cuda_prng
+    from ringsnark_tpu_torch.utils import prng
+
+    ctx, level, c0, _, pts = _mac_inputs("north_star", seed=9)
+    n, key = c0.shape[0], prng.key(49)
+    c1 = cuda_prng.uniform(ctx, key, (4096,), (1024, 1024 + n))
+    drawn, given = _mac_accs(ctx, level, len(pts)), _mac_accs(ctx, level, len(pts))
+    cuda_mac.mac_drawn(ctx, level, c0, mac.Drawn(key, (4096,), (1024, 1024 + n)), pts, drawn)
+    cuda_mac.mac(ctx, level, c0, c1, pts, given)
+    for (d0, d1), (g0, g1) in zip(drawn, given):
+        assert torch.equal(d0, g0) and torch.equal(d1, g1)
+
+
+@pytest.mark.gpu
+def test_mac_refused_launch_raises(cuda, monkeypatch):
+    """A launch the library refuses (a Barrett constant that is not
+    floor(2^64 / Q_j)) raises and counts nothing; nothing falls back, and
+    the refusal does not leak into the next launch."""
+    from ringsnark_tpu_torch.encoding import mac
+    from ringsnark_tpu_torch.ops import cuda_mac
+
+    ctx, level, c0, c1, pts = _mac_inputs("logreg", seed=3)
+    q, mu = cuda_mac.barrett(ctx.level_primes(level))
+    before = dict(cuda_mac.launch_counts)
+    with monkeypatch.context() as m:
+        m.setattr(cuda_mac, "barrett", lambda moduli: (q, mu - 1))
+        with pytest.raises(RuntimeError, match="launch failed"):
+            cuda_mac.mac(ctx, level, c0, c1, pts, _mac_accs(ctx, level, 1))
+    assert cuda_mac.launch_counts == before
+    got, want = _mac_accs(ctx, level, 1), _mac_accs(ctx, level, 1)
+    cuda_mac.mac(ctx, level, c0, c1, pts, got)
+    mac.mac_plain(ctx, level, c0, c1, pts, want)
+    assert all(torch.equal(g, w) for g, w in zip(got[0], want[0]))
+
+
+@pytest.mark.gpu
+def test_seeded_prove_draws_c1_in_the_mac(cuda):
+    """The seeded prove launches mac_drawn and no uniform draw (c1 is never
+    written), and its proof is the CPU's."""
+    import numpy as np
+
+    from ringsnark_tpu_torch.models.synthetic import build_synthetic_square_chain
+    from ringsnark_tpu_torch.ops import cuda_mac, cuda_prng
+    from ringsnark_tpu_torch.snark import groth16, seeded
+    from ringsnark_tpu_torch.utils import interop, prng
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = _small_params(2, dev)
+        comp, primary, aux = build_synthetic_square_chain(params.ring, 32,
+                                                          np.random.default_rng(50))
+        kp = seeded.generator_seeded(comp, params, np.random.default_rng(51), prng.key(52),
+                                     slab=16)
+        before = dict(cuda_prng.launch_counts), dict(cuda_mac.launch_counts)
+        proof = seeded.prover_seeded(kp.pk, primary, aux)
+        if dev == "cuda":
+            assert cuda_prng.launch_counts["uniform"] == before[0]["uniform"]
+            assert cuda_mac.launch_counts["mac_drawn"] > before[1]["mac_drawn"]
+            assert cuda_mac.launch_counts["mac"] == before[1]["mac"]
+            assert groth16.verifier(kp.vk, primary, proof)
+        out[dev] = interop.proof_to_numpy(proof)
+    for g, w in zip(out["cuda"], out["cpu"]):
+        assert g[2] == w[2] and np.array_equal(g[0], w[0]) and np.array_equal(g[1], w[1])
