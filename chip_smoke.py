@@ -35,33 +35,43 @@ traceback and exits nonzero without the final line:
    2^21 and 2^22 against the full-size plain twin (equal, max abs err 0,
    inverse(forward(x)) == x); the cyclic modes timed at 2^20 and 2^21 on a
    512 MiB batch beside the bound and the plain twin.
-2d. the draw and encryption kernels (`csrc/prng.cu`: `uniform`,
-   `cbd_error`, `encrypt`) against their plain torch-op versions on the same
-   inputs (equal, max abs err 0) at the north star's encryption sub-chunk
-   (rows 1024-1536 of a 4096-row slab, L=1, L'=4, N'=16384), one Z_q limb's
-   short last sub-chunk (rows 2730-4096, L'=3, N'=4096), logistic
-   regression's encode chunk (32 rows, L=2, L'=4, N'=16384) and
-   `models/fhe.py`'s signed span 13 (`prng.randint` in [-6, 7)); each timed
-   beside its bound (the larger of its int32 operations at 16.75 T/s and
-   its bytes at 3.35 TB/s) and the plain version's time.
+2d. the draw, lift and encryption kernels (`csrc/prng.cu`: `uniform`,
+   `cbd_error`, `lift`, `encrypt`) against their plain torch-op versions on
+   the same inputs (equal, max abs err 0) at the north star's encryption
+   sub-chunk (rows 1024-1536 of a 4096-row slab, L=1, L'=4, N'=16384), one
+   Z_q limb's short last sub-chunk (rows 2730-4096, L'=3, N'=4096),
+   logistic regression's encode chunk (32 rows, L=2, L'=4, N'=16384) and
+   `models/fhe.py`'s signed span 13 (`prng.randint` in [-6, 7)): the lift
+   with its error at the encryption shapes, `encrypt` with c1 and with c0
+   alone, `bgv.encrypt` against the plain schedule; the lift alone at phase
+   2e's operand shapes (the north star's 512 rows, Z_q's 910 broadcast
+   rows, logreg's 128 rows at L=2); each timed beside its bound and the
+   plain version's time: the kernel eagerly (`ms`, with the host's wrapper:
+   key columns, geometry, ctypes) and from a replayed CUDA graph
+   (`graph_ms`, the device alone).  The bound (`prng_bound`) is the larger
+   of the bytes at 3.35 TB/s and the least time of the operations the
+   function needs, counted by the pipe they issue on (`Ops`: ALU, the FMA
+   pipe's integer multiplier, popcount, and the issue rate over all).
 2e. the MAC kernels (`csrc/mac.cu`: `mac` with c1 given, `mac_drawn` with
    c1 drawn in registers) against `encoding.mac.mac_plain` on the same
    inputs (equal, max abs err 0) at the north star's row sub-chunk (512
    rows, L=1, L'=4, N'=16384, two operands), Z_q's seeded sub-chunk with
    its broadcast operand (910 rows, L=3, L'=3, N'=4096) and logistic
    regression's resident chunk (128 rows, L=2, L'=4, N'=16384); each timed
-   beside its bound and the plain version's time.
+   as in 2d beside its bound and the plain version's time.
 3. the resident main path (M=2^14) through the package API: ringGroth16
    `generator` -> `prover` (cold, then warm: the two proofs must be
    identical) -> `verifier` (True), and `verifier` with one public input
    changed (False).  Every kernel launch count is reset just before and
-   read just after; each shared-memory mode, and the error and encryption
-   kernels (the generator's encryptions) and `mac` (the prove), must have
-   launched.  So on every path: the streamed ones (7, 8, 14b) must launch
-   `cbd_error`, `encrypt` and `mac`, the seeded ones (5, 14d) `mac_drawn`
-   (c1 drawn in the MAC's registers; no `uniform` draw writes it); the
-   frontend's circuits, the keys, the sharded provers and the examples
-   `mac`.
+   read just after; each shared-memory mode, and the lift and encryption
+   kernels (the generator's encryptions, the prover's operands) and `mac`
+   (the prove), must have launched.  So on every path: the streamed ones
+   (7, 8, 14b) must launch `lift`, `encrypt` and `mac`, the seeded ones (5,
+   14d) `mac_drawn` (c1 drawn in the MAC's registers; no `uniform` draw
+   writes it); the frontend's circuits, the keys, the sharded provers and
+   the examples `lift`, `encrypt` and `mac`.  From phase 3 to 14 every
+   encryption on the card must launch one forward NTT, one `lift` and one
+   `encrypt` (`one_ntt_per_encryption`).
 4. small-input cross-check: a keypair made on the card, carried to the CPU,
    gives the same proof from the plain twins as from the kernels, and the
    CPU verifier accepts the card's proof.
@@ -176,7 +186,12 @@ The line before the last is a JSON object with the kernels' launch counts
 negacyclic entries carry 14a's numbers under `north_star`; the PRNG
 kernels as `prng_<kernel>`, with every phase-2d shape under `shapes`; the
 MAC kernels as `mac` and `mac_drawn`, with every phase-2e shape),
-errors, times, bounds (`bound_ms`, `bound_by`, `share_of_bound`)
+errors, times (`ms`: CUDA events around eager calls, the host's wrapper
+in them, in every phase; `graph_ms`: the device alone, from a replayed
+CUDA graph, for the PRNG, lift, encryption and MAC kernels and 14a's
+north-star NTT, null where a phase does not take it), bounds
+(`bound_ms`, `bound_by`, `share_of_bound` of `ms`,
+`graph_share_of_bound`)
 and `library_ms` (null: no PyTorch call computes an NTT modulo a prime,
 nor threefry2x32: `torch`'s generators are Philox, nor sum (c * pt mod
 Q_j));
@@ -195,6 +210,7 @@ import shutil
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 from pathlib import Path
 
 import numpy as np
@@ -554,6 +570,31 @@ def cuda_ms(fn, iters=10):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters=10):
+    """Device time of one call of `fn`: `iters` calls captured in one CUDA
+    graph and replayed between two events, so the host's wrapper (key
+    columns, geometry, ctypes) is not in it; `cuda_ms` keeps it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture, as torch asks
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    torch.cuda.empty_cache()
+    return start.elapsed_time(end) / iters
+
+
 def equal_to_plain(label, primes, size, negacyclic, rows, gen, report):
     """Both modes of the shared-memory kernel on random [rows, L, size]
     residues == their plain twins, and inverse(forward(x)) == x; the largest
@@ -809,11 +850,12 @@ def large_split_vs_plain(split_report):
     torch.cuda.empty_cache()
 
 
-# phase 2d: the draws and the encryption at the shapes the paths give them,
-# (parameters, slab, rows of the sub-chunk): the north star's encryption
-# sub-chunk (L=1, L'=4, N'=16384), Z_q's short last sub-chunk of one limb
-# (L=1, L'=3, N'=4096), logistic regression's encode chunk (ring L=2,
-# L'=4, N'=16384); and models/fhe.py's signed span 13 at logreg's N
+# phase 2d: the draws, the lift and the encryption at the shapes the paths
+# give them, (parameters, slab, rows of the sub-chunk): the north star's
+# encryption sub-chunk (L=1, L'=4, N'=16384), Z_q's short last sub-chunk of
+# one limb (L=1, L'=3, N'=4096), logistic regression's encode chunk (ring
+# L=2, L'=4, N'=16384); and models/fhe.py's signed span 13 at logreg's N.
+# The lift without its error at phase 2e's operand shapes (MAC_SHAPES).
 PRNG_SHAPES = {
     "north_star": (lambda: make_params(FULL_STREAMED, "cuda"), 4096, (1024, 1536)),
     "zq": (lambda: zq_limb_params(4096, 18), 4096, (2730, 4096)),
@@ -826,55 +868,130 @@ SMALL_PRNG_SHAPES = {
 }
 FHE_SPAN = dict(full=(256, 1, 2048), small=(8, 1, 64))  # (rows, 1, N): randint in [-6, 7)
 PRNG_SOURCE = "ringsnark_tpu_torch/csrc/prng.cu"
-# the JAX package draws these with jax.random (XLA): it has no Pallas kernel
-# for them, so each names the function it is the counterpart of
+# the JAX package draws, lifts and encrypts with jax.random and XLA: it has
+# no Pallas kernel for them, so each names the function it is the
+# counterpart of
 PRNG_REPLACES = {
     "uniform": "ringsnark_tpu/encoding/bgv.py:85",  # _sample_uniform (jax.random.randint)
     "cbd_error": "ringsnark_tpu/encoding/bgv.py:110",  # _sample_error_ntt (jax.random.bits)
+    "lift": "ringsnark_tpu/encoding/bgv.py:49",  # _lift_centered (+ the error of :110)
     "encrypt": "ringsnark_tpu/encoding/bgv.py:159",  # _encrypt_from_m
 }
-# int32 operations a second: the H100 SXM's float32 peak
-# (67 TFLOP/s = 132 SMs x 128 lanes x 2 for a fused multiply-add) over 4, as
-# Hopper has 64 INT32 lanes an SM and an integer operation counts once
-INT32_OPS_PER_S = 67e12 / 4
-HASH_OPS = 73  # threefry2x32: 2 + 20 rounds x 3 (add, funnel shift, xor) + 5 x 2 + 1 xor
-MOD_OPS = 4  # w mod span: multiply-high, multiply, subtract, minimum
-SHOUP_OPS = 6  # multiply-high, two multiplies, subtract, subtract, minimum
-ADD_SUB_OPS = 7  # sub_mod (4) and add_mod (3)
 
 
-def prng_bound(ops: float, nbytes: float):
-    """(bound_ms, bound_by): the larger of the operations at the card's int32
-    rate and the bytes at its memory rate."""
-    t_ops, t_bytes = ops / INT32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+class Ops(NamedTuple):
+    """Integer operations, by the pipe of an H100 SM they issue on: `alu`
+    (funnel shifts, logic, three-input adds, compares, selects, min),
+    `fma` (the integer multiplies, IMAD*, on the FMA pipe), `either`
+    (two-input adds, negations and moves, which issue as IADD3 on the ALU or
+    IMAD.IADD / IMAD.MOV on the FMA pipe) and `popc` (population counts).
+    A count is the least a unit of work needs: key sums, constants and
+    limb-only work hoisted out of the loops over words and columns, adds
+    fused as the kernels fuse them, no address arithmetic or loads."""
+
+    alu: float = 0
+    fma: float = 0
+    either: float = 0
+    popc: float = 0
+
+    def __add__(self, o):
+        return Ops(*(x + y for x, y in zip(self, o)))
+
+    def __mul__(self, k):
+        return Ops(*(x * k for x in self))
+
+    __rmul__ = __mul__
+
+
+# Each pipe's rate on the H100 SXM (132 SMs): the guide's float32 peak, 67
+# TFLOP/s, is 128 FMA lanes an SM at 2 operations each, so one warp
+# instruction a clock per scheduler issues 128 lanes an SM (ISSUE); the
+# integer ALU and the FMA pipe's integer multiplier each have 64 lanes an
+# SM and run side by side; population count has 16.
+ISSUE_OPS_PER_S = 67e12 / 2
+ALU_OPS_PER_S = FMA_OPS_PER_S = 67e12 / 4
+POPC_OPS_PER_S = 67e12 / 16
+# threefry2x32, one word y0 ^ y1: 20 funnel-shift rotations and 21 xors on
+# the ALU; 20 round adds, 8 key injections and the last 2, and the
+# counter's add into x1 as two-input adds
+HASH = Ops(alu=41, either=31)
+MOD = Ops(alu=1, fma=2)  # w mod span: multiply-high, multiply-add by -span, min(x, x - span)
+SHOUP = Ops(alu=1, fma=3)  # a * w mod p: multiply-high, multiply, multiply-add by -p, min
+SUB_MOD = Ops(alu=1, either=2)  # a - b mod p: add p, subtract, min
+ADD_MOD = Ops(alu=1, either=1)  # add, min
+# the lift's two conditional steps a column (v > t/2 is the limb's, once a
+# coefficient; Q - t a constant): add Q - t, select; subtract Q, compare,
+# select
+LIFT_COLUMN = Ops(alu=3, either=2)
+LIFT_COEFF = Ops(alu=1)  # v > t/2
+ERROR_COLUMN = Ops(alu=1, either=1)  # e's residue: Q + e, select (e < 0 once a coefficient)
+# a MAC term: the 32 x 32 -> 64-bit product (1), the 64-bit multiply-high
+# of the Barrett step (4), the product by Q_j fused with the subtract (1),
+# the 64-bit add into the accumulator (1, IMAD.WIDE); min(r, r - Q_j)
+MAC_TERM = Ops(alu=1, fma=7)
+
+
+def cbd_ops(n_words: int) -> Ops:
+    """The CBD error of one coefficient: 2 n_words hashes, their popcounts
+    and sums, the last words masked, the sign tested once."""
+    return n_words * (2 * HASH + Ops(popc=2, either=1)) + Ops(alu=3)
+
+
+def ops_seconds(ops: Ops) -> float:
+    """The least time of `ops` on the card: the busiest pipe, with the
+    two-input adds and moves spread over the ALU and the FMA pipe."""
+    return max(ops.alu / ALU_OPS_PER_S, ops.fma / FMA_OPS_PER_S, ops.popc / POPC_OPS_PER_S,
+               sum(ops) / ISSUE_OPS_PER_S)
+
+
+def prng_bound(ops: Ops, nbytes: float):
+    """(bound_ms, bound_by): the larger of the operations' least time
+    (`ops_seconds`) and the bytes at the card's memory rate."""
+    t_ops, t_bytes = ops_seconds(ops) * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def prng_vs_plain(small: bool) -> dict:
-    """Phase 2d: each draw and encryption kernel == its plain version on the
-    same inputs at each shape of PRNG_SHAPES (max abs err 0), then both timed
-    (CUDA events) beside the bound; the first shape's numbers head each
-    kernel's report.  Launches made here are not a path's."""
-    from ringsnark_tpu_torch.encoding import bgv, keygen
+    """Phase 2d: each draw, lift and encryption kernel == its plain version
+    on the same inputs at each shape of PRNG_SHAPES (max abs err 0), then
+    both timed (CUDA events) beside the bound: the lift with its error
+    (`_lift_error_plain`), the encryption from u = NTT(lift + t*e) with c1
+    and with c0 alone (`_encrypt_from_u` over `_uniform_plain`); the lift
+    alone (`_lift_centered`) at each plaintext operand shape of MAC_SHAPES.
+    The first shape's numbers head each kernel's report.  Launches made
+    here are not a path's."""
+    from ringsnark_tpu_torch.encoding import bgv, encoding, keygen
     from ringsnark_tpu_torch.ops import cuda_prng
     from ringsnark_tpu_torch.ops import ntt as nttm
+    from ringsnark_tpu_torch.snark import seeded
     from ringsnark_tpu_torch.utils import prng
 
     report = {k: {"max_abs_err": 0, "shapes": []} for k in cuda_prng.KERNELS}
 
-    def hold(kernel, label, fn, plain, ops, nbytes):
+    def hold(kernel, label, fn, plain, ops, nbytes, timed=None):
+        """fn() == plain() on the card; then `timed` (fn by default) timed
+        eagerly (ms: with the host's wrapper, as every phase times a kernel)
+        and from a replayed CUDA graph (graph_ms: the device alone), the
+        plain version eagerly."""
         got, want = fn(), plain()
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) if got.numel() else 0
         check(got.shape == want.shape and torch.equal(got, want),
               f"prng {kernel} kernel != its plain version at {label}")
-        ms, pms = cuda_ms(fn), cuda_ms(plain, iters=2)
+        timed = timed or fn
+        ms, gms, pms = cuda_ms(timed), graph_ms(timed), cuda_ms(plain, iters=2)
         bms, by = prng_bound(ops, nbytes)
         r = report[kernel]
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["shapes"].append(dict(shape=label, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                                share_of_bound=bms / ms, max_abs_err=err))
-        print(f"  prng {kernel:9s} {label:44s}: equal; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-              f"bound {bms:.4f} ms by {by} ({100 * bms / ms:.1f} %)", flush=True)
+        r["shapes"].append(dict(shape=label, ms=ms, graph_ms=gms, plain_ms=pms, bound_ms=bms,
+                                bound_by=by, share_of_bound=bms / ms,
+                                graph_share_of_bound=bms / gms, max_abs_err=err))
+        print(f"  prng {kernel:9s} {label:58s}: equal; kernel {ms:.4f} ms (graph {gms:.4f}), "
+              f"plain {pms:.4f} ms, bound {bms:.4f} ms by {by} ({100 * bms / ms:.1f} %; "
+              f"graph {100 * bms / gms:.1f} %)", flush=True)
+
+    def slots_of(ring, n, gen):
+        return torch.cat([torch.randint(0, p, (n, 1, ring.N), generator=gen, dtype=torch.int32,
+                                        device="cuda") for p in ring.primes], dim=1)
 
     for name, (make, slab, rows) in (SMALL_PRNG_SHAPES if small else PRNG_SHAPES).items():
         params = make()
@@ -882,36 +999,67 @@ def prng_vs_plain(small: bool) -> dict:
         _, sk = keygen(ctx, np.random.default_rng(41))
         k_a, k_e = prng.split(prng.key(42))
         batch, n = (slab,), slab if rows is None else rows[1] - rows[0]
+        lo = 0 if rows is None else rows[0]
         label = (f"{name} rows {rows or (0, slab)} of {slab}, L={ctx.L} L'={ctx.L_inner} "
                  f"N'={ctx.n_inner}")
         words = n * ctx.L * ctx.L_inner * ctx.n_inner
         coeffs = n * ctx.L * ctx.n_inner
         n_words = -(-bgv._cbd_k(ctx.error_stddev) // 32)
-        gen = torch.Generator(device="cuda").manual_seed(43)
-        slots = torch.cat([torch.randint(0, p, (n, 1, ring.N), generator=gen, dtype=torch.int32,
-                                         device="cuda") for p in ring.primes], dim=1)
-        m = bgv.plain_to_inner_ntt(ctx, slots, 0).contiguous()
-        e = nttm.negacyclic_ntt_rev(bgv._error_coeffs_plain(ctx, k_e, batch, rows),
+        slots = slots_of(ring, n, torch.Generator(device="cuda").manual_seed(43))
+        pt = slots if bgv._scalar(ctx, slots) else bgv._slots_to_plain_coeffs(ctx, slots)
+        u = nttm.negacyclic_ntt_rev(bgv._lift_error_plain(ctx, pt, k_e, batch, rows),
                                     ctx.inner_plan(0))
         hold("uniform", label, lambda: bgv._sample_uniform(ctx, k_a, batch, rows),
              lambda: bgv._uniform_plain(ctx, k_a, batch, rows),
-             words * (HASH_OPS + MOD_OPS), 4 * words)
+             words * (HASH + MOD), 4 * words)
         hold("cbd_error", label, lambda: bgv._sample_error_coeffs(ctx, k_e, batch, rows),
              lambda: bgv._error_coeffs_plain(ctx, k_e, batch, rows),
-             coeffs * (2 * n_words * (HASH_OPS + 1) + ctx.L_inner), 4 * coeffs * ctx.L_inner)
-        enc_bytes = 16 * words + 8 * ctx.L * ctx.L_inner * (ctx.n_inner + 1)
-        hold("encrypt", label, lambda: torch.stack(cuda_prng.encrypt(ctx, sk, m, e, k_a, batch,
-                                                                     rows)),
-             lambda: torch.stack(bgv._encrypt_from_m(
-                 ctx, sk.s_ntt, m, bgv._uniform_plain(ctx, k_a, batch, rows), e)),
-             words * (HASH_OPS + MOD_OPS + 2 * SHOUP_OPS + ADD_SUB_OPS), enc_bytes)
-        del params, ctx, sk, slots, m, e
+             coeffs * (cbd_ops(n_words) + ctx.L_inner * ERROR_COLUMN), 4 * coeffs * ctx.L_inner)
+        hold("lift", f"{label}, with the error", lambda: bgv._lift_error(ctx, pt, k_e, batch, rows),
+             lambda: bgv._lift_error_plain(ctx, pt, k_e, batch, rows),
+             coeffs * (cbd_ops(n_words) + LIFT_COEFF
+                       + ctx.L_inner * (LIFT_COLUMN + ERROR_COLUMN + SHOUP + ADD_MOD)),
+             4 * pt.numel() + 4 * words)
+        s_bytes = 8 * ctx.L * ctx.L_inner * ctx.n_inner
+        enc_ops = words * (HASH + MOD + SHOUP + SUB_MOD)
+        out = torch.empty_like(u)
+        for with_c1 in (True, False):
+            def run(with_c1=with_c1):  # (c0, c1), or (c0 written into `out`, None)
+                return cuda_prng.encrypt(ctx, sk, u, k_a, batch, rows,
+                                         None if with_c1 else out)
+
+            def plain(with_c1=with_c1):
+                c = bgv._encrypt_from_u(ctx, sk.s_ntt, u, bgv._uniform_plain(ctx, k_a, batch, rows))
+                return torch.stack(c) if with_c1 else c[0]
+
+            hold("encrypt", f"{label}, {'c0 and c1' if with_c1 else 'c0 alone'}",
+                 lambda run=run, with_c1=with_c1: torch.stack(run()) if with_c1 else run()[0],
+                 plain, enc_ops, (12 if with_c1 else 8) * words + s_bytes, timed=run)
+        check(torch.equal(torch.stack(bgv.encrypt(ctx, sk, slots, prng.key(42), slab, lo)),
+                          torch.stack(bgv._encrypt_from_u(
+                              ctx, sk.s_ntt, u, bgv._uniform_plain(ctx, k_a, batch, rows)))),
+              f"bgv.encrypt != the plain schedule at {label}")
+        del params, ctx, sk, slots, pt, u, out
+    for name, (make, P, _) in (SMALL_MAC_SHAPES if small else MAC_SHAPES).items():
+        params = make()
+        ring, ctx = params.ring, params.enc
+        n = (encoding._chunk_rows(ctx, ctx.L_inner) if name == "logreg"
+             else seeded._sub_rows(ctx))
+        slots = slots_of(ring, n, torch.Generator(device="cuda").manual_seed(44))
+        pt = slots if bgv._scalar(ctx, slots) else bgv._slots_to_plain_coeffs(ctx, slots)
+        label = (f"{name} operand {n} rows, L={ctx.L} L'={ctx.L_inner} N'={ctx.n_inner}"
+                 f"{' (broadcast)' if bgv._scalar(ctx, slots) else ''}, one of {P}")
+        hold("lift", label, lambda: bgv._lift(ctx, pt, 0),
+             lambda: bgv._lift_centered(ctx, pt, 0).to(torch.int32),
+             pt.numel() * (LIFT_COEFF + ctx.L_inner * LIFT_COLUMN),
+             4 * pt.numel() * (1 + ctx.L_inner))
+        del params, ctx, slots, pt
     shape = FHE_SPAN["small" if small else "full"]
     values = math.prod(shape)
     hold("uniform", f"fhe randint [-6, 7) {shape}",
          lambda: prng.randint(prng.key(44), shape, 7, "cuda", minval=-6),
          lambda: prng.randint_plain(prng.key(44), shape, 7, "cuda", minval=-6),
-         values * (2 * HASH_OPS + 3 * MOD_OPS + 3), 8 * values)
+         values * (2 * HASH + 3 * MOD + Ops(fma=1, either=1)), 8 * values)
     for r in report.values():
         r.update({k: v for k, v in r["shapes"][0].items() if k != "max_abs_err"})
     torch.cuda.empty_cache()
@@ -942,20 +1090,18 @@ MAC_REPLACES = {
     "mac": "ringsnark_tpu/encoding/encoding.py:193",  # inner_product (the u64 scan body :345)
     "mac_drawn": "ringsnark_tpu/snark/seeded.py:296",  # _seeded_mac_kernel, c1 regenerated
 }
-# int32 operations a MAC term takes: the 32 x 32 -> 64-bit product (1), the
-# multiply-high of the Barrett step (4), the product by Q_j (1), the
-# subtract (1), the conditional subtract (2) and the 64-bit add (2)
-MAC_OPS = 11
 
 
 def mac_vs_plain(small: bool) -> dict:
     """Phase 2e: `mac` and `mac_drawn` == `mac_plain` on the same inputs at
     each shape of MAC_SHAPES (max abs err 0; the operands from
     `bgv.plain_to_inner_ntt`, so Z_q's is the broadcast it is on the path),
-    then both timed (CUDA events) beside the bound (the larger of the int32
-    operations at 16.75 T/s and the bytes at 3.35 TB/s: c0, c1 or its key,
-    the operands, the accumulators read and written).  Launches made here
-    are not a path's."""
+    then both timed beside the bound (`prng_bound`: the operations' least
+    time on the card's pipes, or the bytes at 3.35 TB/s: c0, c1 or its key,
+    the operands, the accumulators read and written): the kernel eagerly
+    (ms, CUDA events around ten calls, the host's wrapper in them) and from
+    a replayed CUDA graph (graph_ms, the device alone), the plain version
+    eagerly.  Launches made here are not a path's."""
     from ringsnark_tpu_torch.encoding import bgv, encoding, mac
     from ringsnark_tpu_torch.ops import cuda_mac
     from ringsnark_tpu_torch.snark import seeded
@@ -988,9 +1134,8 @@ def mac_vs_plain(small: bool) -> dict:
         nbytes = (P * 4 * n * (ctx.L * ctx.L_inner if bcast else width)
                   + 2 * 2 * P * 8 * width)  # the operands; the accumulators in and out
         for kernel, c, ops, cbytes in (
-            ("mac", c1, terms * MAC_OPS, 8 * n * width),
-            ("mac_drawn", drawn, terms * MAC_OPS + n * width * (HASH_OPS + MOD_OPS),
-             4 * n * width),
+            ("mac", c1, terms * MAC_TERM, 8 * n * width),
+            ("mac_drawn", drawn, terms * MAC_TERM + n * width * (HASH + MOD), 4 * n * width),
         ):
             run = cuda_mac.mac if kernel == "mac" else cuda_mac.mac_drawn
 
@@ -1005,15 +1150,18 @@ def mac_vs_plain(small: bool) -> dict:
                       zip(*pair))
             check(all(torch.equal(g, w) for pair in zip(got, want) for g, w in zip(*pair)),
                   f"mac kernel {kernel} != mac_plain at {label}")
-            ms = cuda_ms(lambda: run(ctx, 0, c0, c, pts, got))
+            ms, gms = cuda_ms(lambda: run(ctx, 0, c0, c, pts, got)), graph_ms(
+                lambda: run(ctx, 0, c0, c, pts, got))
             pms = cuda_ms(lambda: mac.mac_plain(ctx, 0, c0, c, pts, want), iters=2)
             bms, by = prng_bound(ops, nbytes + cbytes)
             r = report[kernel]
             r["max_abs_err"] = max(r["max_abs_err"], err)
-            r["shapes"].append(dict(shape=label, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                                    share_of_bound=bms / ms, max_abs_err=err))
-            print(f"  {kernel:9s} {label:60s}: equal; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-                  f"bound {bms:.4f} ms by {by} ({100 * bms / ms:.1f} %)", flush=True)
+            r["shapes"].append(dict(shape=label, ms=ms, graph_ms=gms, plain_ms=pms, bound_ms=bms,
+                                    bound_by=by, share_of_bound=bms / ms,
+                                    graph_share_of_bound=bms / gms, max_abs_err=err))
+            print(f"  {kernel:9s} {label:60s}: equal; kernel {ms:.4f} ms (graph {gms:.4f}), "
+                  f"plain {pms:.4f} ms, bound {bms:.4f} ms by {by} ({100 * bms / ms:.1f} %; "
+                  f"graph {100 * bms / gms:.1f} %)", flush=True)
         del params, ctx, c0, c1, pts
     for r in report.values():
         r.update({k: v for k, v in r["shapes"][0].items() if k != "max_abs_err"})
@@ -1165,7 +1313,40 @@ def small_seeded_cross_check():
           "slab 16): card proof == CPU proof, CPU verifier accepts", flush=True)
 
 
-ENCRYPTION = ("cbd_error", "encrypt")  # the draws of every encryption on the card
+ENCRYPTION = ("lift", "encrypt")  # the kernels of every encryption on the card
+
+
+@contextlib.contextmanager
+def one_ntt_per_encryption():
+    """While open, every `bgv.encrypt` on a card context must launch its
+    schedule's three steps once each: one forward NTT, one `lift` (with the
+    error) and one `encrypt`.  Yields the list of the encryptions checked."""
+    from ringsnark_tpu_torch.encoding import bgv
+    from ringsnark_tpu_torch.ops import cuda_ntt, cuda_prng
+
+    encrypt, seen = bgv.encrypt, []
+
+    def steps():
+        return (cuda_ntt.launch_counts["negacyclic_fwd"]
+                + cuda_ntt.launch_counts["split_negacyclic_fwd"],
+                cuda_prng.launch_counts["lift"], cuda_prng.launch_counts["encrypt"])
+
+    def checked(ctx, sk, slots, *args, **kwargs):
+        if not bgv._on_card(ctx) or slots.numel() == 0:
+            return encrypt(ctx, sk, slots, *args, **kwargs)
+        before = steps()
+        out = encrypt(ctx, sk, slots, *args, **kwargs)
+        launched = tuple(b - a for a, b in zip(before, steps()))
+        check(launched == (1, 1, 1), f"an encryption launched {launched} (forward NTTs, lifts, "
+              "encrypts), not one of each")
+        seen.append(tuple(slots.shape))
+        return out
+
+    bgv.encrypt = checked
+    try:
+        yield seen
+    finally:
+        bgv.encrypt = encrypt
 # the MAC kernel of a seeded prove: c1 drawn in its registers (no `uniform`
 # draw writes it); every other prove launches `mac`
 SEEDED_MAC = ("mac_drawn",)
@@ -1397,7 +1578,7 @@ def frontend_path(circuits, kernel_report, mesh, card):
             del kp, proof, proof2, prove
         counts = add_counts(read_counts(), carried)
         print(f"  {name}: launches {counts}", flush=True)
-        for mode in ("negacyclic_fwd", "negacyclic_inv", "mac"):
+        for mode in ("negacyclic_fwd", "negacyclic_inv", "prng_lift", "prng_encrypt", "mac"):
             check(counts[mode] > 0, f"kernel mode {mode} never launched for {name}")
         entry["launches"] = counts
         for m, c in counts.items():
@@ -1578,7 +1759,8 @@ def keys_on_disk(cfg, north_star):
     report["north_star_vk"] = {"stage_s": t, "files_mib": file_bytes / 2**20}
     counts = read_counts()
     print(f"  launches {counts}", flush=True)
-    for mode in ("negacyclic_fwd", "negacyclic_inv", "cyclic_fwd", "cyclic_inv", "mac"):
+    for mode in ("negacyclic_fwd", "negacyclic_inv", "cyclic_fwd", "cyclic_inv", "prng_lift",
+                 "prng_encrypt", "mac"):
         check(counts[mode] > 0, f"kernel mode {mode} never launched on the keys path")
     return counts, report
 
@@ -1880,7 +2062,7 @@ def examples(small: bool, report, split_report):
                 out[name] = {k: v for k, v in res.items() if k != "card"}
     counts = read_counts()
     print(f"  examples: all verify; launches {counts}", flush=True)
-    for mode in ("negacyclic_fwd", "negacyclic_inv", "mac"):
+    for mode in ("negacyclic_fwd", "negacyclic_inv", "prng_lift", "prng_encrypt", "mac"):
         check(counts[mode] > 0, f"kernel mode {mode} never launched by the examples")
     hold_recorded_shapes("14e", seen, report, split_report, 1403)
     return counts, out
@@ -1971,8 +2153,10 @@ def main() -> int:
     meshes = open_world(card)
     phase("13a", "world of one rank over NCCL, meshes", t0)
     try:
-        return run_phases(args, (cfg, cfg5, cfg7, cfg8), (params, params5, params7), report,
-                          split_report, prng_report, mac_report, orders, meshes, card)
+        with one_ntt_per_encryption() as encryptions:
+            return run_phases(args, (cfg, cfg5, cfg7, cfg8), (params, params5, params7), report,
+                              split_report, prng_report, mac_report, orders, meshes, card,
+                              encryptions)
     finally:
         import torch.distributed as dist
 
@@ -1985,17 +2169,20 @@ def north_star_entry(row: dict, mode: str) -> dict:
     if mode not in legs:
         return {}
     tag, plain = legs[mode]
-    return {"north_star": {"shape": row["shape"], "ms": row[f"{tag}_us"] / 1e3,
+    ms, gms, bms = (row[f"{tag}_eager_us"] / 1e3, row[f"{tag}_us"] / 1e3,
+                    row["bound_us"] / 1e3)
+    return {"north_star": {"shape": row["shape"], "ms": ms, "graph_ms": gms,
                            "plain_ms": row[f"{plain}_us"] / 1e3,
-                           "eager_ms": row[f"{tag}_eager_us"] / 1e3,
-                           "bound_ms": row["bound_us"] / 1e3, "bound_by": "bytes",
-                           "share_of_bound": row[f"{tag}_share_of_bound"],
+                           "bound_ms": bms, "bound_by": "bytes", "share_of_bound": bms / ms,
+                           "graph_share_of_bound": bms / gms,
                            "max_abs_err": row["max_abs_err"]}}
 
 
 def run_phases(args, cfgs, params_all, report, split_report, prng_report, mac_report, orders,
-               meshes, card) -> int:
-    """Phases 3 to 14 on the world of one rank; the last lines of output."""
+               meshes, card, encryptions) -> int:
+    """Phases 3 to 14 on the world of one rank (every encryption on the card
+    checked by `one_ntt_per_encryption` into `encryptions`); the last lines
+    of output."""
     from ringsnark_tpu_torch.ops import cuda_mac, cuda_ntt, cuda_prng
 
     cfg, cfg5, cfg7, cfg8 = cfgs
@@ -2065,7 +2252,7 @@ def run_phases(args, cfgs, params_all, report, split_report, prng_report, mac_re
         meshes, *SHARDED_NTT["small" if args.small else "full"], report, split_report, card)
     add_counts(sharded, c13)
     for mode in ("split_cyclic_fwd", "split_cyclic_inv", "negacyclic_fwd", "negacyclic_inv",
-                 "mac"):
+                 "prng_lift", "prng_encrypt", "mac"):
         check(sharded[mode] > 0, f"kernel mode {mode} never launched on the sharded path")
     print(f"  sharded path: launches {sharded}; seconds {sharded_s}", flush=True)
     phase(13, "multi-device layer: sharded NTT, unscaled inverse", t0)
@@ -2093,6 +2280,9 @@ def run_phases(args, cfgs, params_all, report, split_report, prng_report, mac_re
     script_rows = other_scripts(args.small, report, split_report)
     phase("14f-i", "bench_circuits, bench_encode_profile, bench_cpu_full, bench_scaling", t0)
 
+    print(f"  {len(encryptions)} encryptions on the card, each one forward NTT, one lift and "
+          "one encrypt launch", flush=True)
+    check(encryptions, "no encryption ran on the card")
     by_path = {m: {"resident": counts[m], "seeded": counts5[m], "streamed": counts7[m],
                    "streamed_rinocchio": counts8[m], "frontend": counts10[m],
                    "keys": counts12[m], "sharded": sharded.get(m, 0), "zq": counts14[m],
@@ -2100,7 +2290,8 @@ def run_phases(args, cfgs, params_all, report, split_report, prng_report, mac_re
 
     def bounds(r):  # no PyTorch call computes an NTT modulo a prime: library_ms is null
         return {"bound_ms": r["bound_ms"], "bound_by": "bytes",
-                "share_of_bound": r["bound_ms"] / r["ms"], "library_ms": None}
+                "share_of_bound": r["bound_ms"] / r["ms"], "library_ms": None,
+                "graph_ms": None, "graph_share_of_bound": None}  # phases 2-2c time eagerly
 
     kernels = [
         {"name": f"ntt_{m}", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
@@ -2122,19 +2313,18 @@ def run_phases(args, cfgs, params_all, report, split_report, prng_report, mac_re
     ] + [
         {"name": f"prng_{k}", "route": "cuda", "source": PRNG_SOURCE, "replaces": PRNG_REPLACES[k],
          "launches": sum(by_path[f"prng_{k}"].values()), "launches_by_path": by_path[f"prng_{k}"],
-         "max_abs_err": prng_report[k]["max_abs_err"], "ms": prng_report[k]["ms"],
-         "plain_ms": prng_report[k]["plain_ms"], "bound_ms": prng_report[k]["bound_ms"],
-         "bound_by": prng_report[k]["bound_by"],
-         "share_of_bound": prng_report[k]["share_of_bound"], "library_ms": None,
-         "shape": prng_report[k]["shape"], "shapes": prng_report[k]["shapes"]}
+         **{key: prng_report[k][key] for key in ("max_abs_err", "ms", "graph_ms", "plain_ms",
+                                                  "bound_ms", "bound_by", "share_of_bound",
+                                                  "graph_share_of_bound", "shape", "shapes")},
+         "library_ms": None}
         for k in cuda_prng.KERNELS
     ] + [
         # no single PyTorch call computes sum (c * pt mod Q_j): library_ms is null
         {"name": k, "route": "cuda", "source": MAC_SOURCE, "replaces": MAC_REPLACES[k],
          "launches": sum(by_path[k].values()), "launches_by_path": by_path[k],
-         **{key: mac_report[k][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                                 "bound_by", "share_of_bound", "shape",
-                                                 "shapes")},
+         **{key: mac_report[k][key] for key in ("max_abs_err", "ms", "graph_ms", "plain_ms",
+                                                 "bound_ms", "bound_by", "share_of_bound",
+                                                 "graph_share_of_bound", "shape", "shapes")},
          "library_ms": None}
         for k in cuda_mac.KERNELS
     ]
@@ -2150,6 +2340,7 @@ def run_phases(args, cfgs, params_all, report, split_report, prng_report, mac_re
                "keys_on_disk": keys,
                "sharded": {"seconds": sharded_s, "unscaled_inverse": unscaled},
                "cta_order": orders,
+               "encryptions_checked": len(encryptions),
                "scripts": {"bench": north_star_ntt, "zq_streamed": zq, "zq_seeded": zq_sd,
                            "examples": example_rows, **script_rows}}
     print(json.dumps(summary), flush=True)

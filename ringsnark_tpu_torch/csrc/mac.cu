@@ -40,10 +40,11 @@
 // is never written or read.
 //
 // What bounds them on this card: mac_kernel moves (2 + P) * 4 bytes a
-// column and row for 2P terms of about 10 int32 operations each, so its
-// bytes at 3.35 TB/s take longer than its operations at 16.75 T/s;
-// mac_drawn_kernel reads (1 + P) * 4 bytes but hashes one threefry word
-// (about 73 operations) a column and row, so it is bound by operations.
+// column and row for 2P terms of 7 integer multiplies each (the FMA pipe,
+// 64 lanes an SM), so its bytes at 3.35 TB/s take longer than its
+// operations; mac_drawn_kernel reads (1 + P) * 4 bytes and also hashes one
+// threefry word (41 ALU operations) a column and row, so its bytes or its
+// operations bind, as P and the shape say (chip_smoke.py's Ops).
 // What the design does about it: c0 and c1 are read once for all P
 // operands, every operand once, as int32 in 16-byte loads (the plain
 // version converts each to int64 first and reads both components once per

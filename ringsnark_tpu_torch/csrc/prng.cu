@@ -1,10 +1,11 @@
 // Threefry-2x32 draws and symmetric-BGV encryption, for Hopper (sm_90a).
 //
-// Replaces the PRNG that ringsnark_tpu_torch wrote as int64 torch ops
-// (utils/prng.py: bits, randint; encoding/bgv.py: _sample_uniform,
-// _sample_error_coeffs, _encrypt_from_m), the counterpart of the JAX
-// package's jax.random draws in ringsnark_tpu/encoding/bgv.py
-// (`_sample_uniform` :85, `_sample_error_ntt` :110, `_encrypt_from_m` :159).
+// Replaces what ringsnark_tpu_torch writes as int64 torch ops, the plain
+// versions (utils/prng.py: bits, randint; encoding/bgv.py: _uniform_plain,
+// _error_coeffs_plain, _lift_centered, _lift_error_plain, _encrypt_from_u),
+// the counterpart of the JAX package's jax.random draws, lift and
+// encryption in ringsnark_tpu/encoding/bgv.py (`_lift_centered` :49,
+// `_sample_uniform` :85, `_sample_error_ntt` :110, `_encrypt_from_m` :159).
 // The JAX package has no Pallas kernel for them: XLA fuses its threefry.
 //
 // Contract (bit for bit the plain versions' and jax.random's under
@@ -34,33 +35,65 @@
 //   words of bits(k_e, (2, n_words, slab, L, N')) (outer = 2 * n_words at a
 //   stride of `slab` rows), the last word of a side masked to k - 32 *
 //   (n_words - 1) bits, popcount of side 0 minus side 1, written as its
-//   residue mod every Q_j (coefficient form; the NTT kernel takes it on).
-// * encrypt_kernel: the uniform a of one element drawn in registers, c1 =
-//   a, c0 = m - a*s + t*e mod Q_j (m, e, s in inner-NTT form), with Shoup
-//   constants for s (one per residue, made once per key) and t mod Q_j.
-//   No int64 temporary, and a is never written and read back.
+//   residue mod every Q_j (coefficient form).  No path launches it since
+//   lift_kernel draws the error (scripts/bench_encode_profile; held in
+//   chip_smoke phase 2d).
+// * lift_kernel: the plaintext's centred lift into every Q_j
+//   (bgv._lift_centered's two conditional steps) and, with kError, plus
+//   t_l * e mod Q_j for the CBD error drawn as cbd_kernel draws it (one
+//   draw a coefficient, written as its L' residues): u = lift(pt) + t*e,
+//   which one forward NTT takes to NTT(m) + t*NTT(e).
+// * encrypt_kernel: c0 = u_ntt - a*s mod Q_j, c1 = a where the caller keeps
+//   it, the uniform mask a drawn in registers.  The NTT is linear mod Q_j
+//   and every residue canonical, so c0 = NTT(lift(pt) + t*e) - a*s is
+//   m - a*s + t*NTT(e) bit for bit: one NTT an encryption, not two, and no
+//   error tensor between the kernels.  (It replaces an encryption kernel
+//   that read m and the error's NTT and always wrote c1.)
 //
-// What bounds them on this card: integer operations.  A hash is 20 rounds
-// of add, rotate (one funnel shift) and xor plus five key injections, about
-// 73 int32 operations for one 32-bit word; writing that word takes 4 bytes,
-// so at 64 INT32 lanes an SM the hash takes about 3x as long as the bytes
-// (the encryption moves 16 bytes a word: m, e in; c0, c1 out, and is
-// within 1.5x of its bytes).  What the design does about it: one thread
-// per output word (4 words a thread a line), everything in registers, no
-// shared memory; the rotations are funnel shifts and the round constants
-// immediates; the division of a line into (o, r, a, c) happens once a line,
-// not once a word; mod span is a multiply-high with a host constant mu =
-// floor(2^32 / span) and one conditional subtract, never a division; the
-// key table rides in the launch's parameters (__grid_constant__), so a
-// launch needs no copy to the device.
+// What bounds them on this card: integer operations on the ALU.  A hash
+// is 20 rounds of add, rotate (one funnel shift) and xor plus six key
+// injections; its 20 rotations and 21 xors run only on the ALU (64 lanes
+// an SM), its 31 adds on the ALU or the FMA pipe beside it, so one 32-bit
+// word takes 41 ALU slots against 4 bytes of writing it: about twice as
+// long as the bytes.  The lift without error moves 4 + 4 L' bytes a
+// coefficient and is bound by them; with the error it hashes 2 n_words
+// words a coefficient.  The encryption hashes one word, reads u and writes
+// c0 (and c1): 44 ALU slots a word against 8 (12) bytes, so the
+// operations bind c0 alone and the bytes c0 with c1 (chip_smoke.py's Ops
+// counts them; scripts/sass_mix.py prints what the compiler issues).
+// What the design does about it: everything in
+// registers, no shared memory; the rotations are funnel shifts and the
+// round constants immediates; mod span is a multiply-high with a host
+// constant mu = floor(2^32 / span) and one conditional subtract, never a
+// division; the key table rides in the launch's parameters
+// (__grid_constant__), so a launch needs no copy to the device.  The
+// encryption kernel is persistent: as many CTAs as the device keeps
+// resident (three an SM at 80 registers a thread; the launcher reads the
+// occupancy) each take an equal run of (tile, row) units, a tile being one
+// (limb a, prime c, slice of kEncThreads * kEncWords words), rows fastest.
+// A tile's column key and mu stay in registers, and a span above 2^16 (every
+// inner prime) takes a loop with no test a word.  A thread
+// holds its 8 words' s pairs in registers for all the rows of a tile, so s
+// is read once a tile, not once a row; the next row's u is loaded into
+// registers before this row's hashes run (software pipelining in
+// registers: a word is used once, by the thread that loads it, so a
+// cp.async ring in shared memory only adds a copy, and it was slower in a
+// trial); the counter's low word advances by A * I a row
+// with one carry test (a line's counters start at a multiple of I, a power
+// of two, so no word of a line carries).  Stores follow the next reader:
+// with c1 (the streamed loop, whose MAC reads c0 and c1 at once, and
+// encode) plain write-back stores; without (the seeded setup, whose c0
+// goes into the CRS and is not read again there) evict-first stores.
 //
-// C interface: ringsnark_prng_draw, ringsnark_prng_cbd and
-// ringsnark_prng_encrypt return cudaGetLastError() after the launch (0 on
-// success) or cudaErrorInvalidValue for a configuration they refuse; the
+// C interface: ringsnark_prng_draw, ringsnark_prng_cbd, ringsnark_prng_lift
+// and ringsnark_prng_encrypt return cudaGetLastError() after the launch (0
+// on success) or cudaErrorInvalidValue for a configuration they refuse; the
 // Python wrapper (ops/cuda_prng.py) raises on anything else.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "modarith.cuh"  // reduce_once, add_mod, sub_mod, shoup_mul, refused
 #include "threefry.cuh"  // Column, Columns, kMaxCols, threefry_word, draw_value, columns_of
@@ -79,7 +112,7 @@ struct Geo {
   uint64_t step;  // counter distance between outer blocks: n_axis * A * I
   uint64_t base;  // counter of row lo: lo * A * I
   uint32_t R, A, C, I;  // rows drawn, positions a, key columns, words a line
-  uint32_t L;  // outer limbs: s and t mod Q_j are indexed by a mod L
+  uint32_t L;  // outer limbs: s is indexed by a mod L
   uint32_t lines;  // lines of the launch
 };
 
@@ -122,12 +155,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int k = 0; k < kPer; ++k) {
       const uint32_t i = first_word() + k * kThreads;
       if (i >= g.I) continue;
-      int e = 0;
-      for (uint32_t w = 0; w < n_words; ++w) {
-        const uint32_t mask = w + 1 == n_words ? last_mask : 0xFFFFFFFFu;
-        e += __popc(threefry_word(k0, k1, w * g.step + ctr + i) & mask);
-        e -= __popc(threefry_word(k0, k1, (n_words + w) * g.step + ctr + i) & mask);
-      }
+      const int e = cbd_value(k0, k1, ctr + i, g.step, n_words, last_mask);
       for (uint32_t c = 0; c < g.C; ++c) {
         dst[static_cast<size_t>(c) * g.I + i] =
             e < 0 ? q.q[c] - static_cast<uint32_t>(-e) : static_cast<uint32_t>(e);
@@ -136,33 +164,153 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The error of a lift: the key k_e and cbd_kernel's counters (step, base).
+struct Cbd {
+  uint64_t step, base;
+  uint32_t k0, k1, n_words, last_mask;
+};
+
+struct LiftGeo {
+  uint32_t n;      // coefficients of the launch: rows * A * I, below 2^31
+  uint32_t log_i;  // I = 2^log_i coefficients a line (r, a)
+  uint32_t A, C, Cs;  // outer limbs; columns written; columns of a constants row
+};
+
+// bgv._lift_centered's two conditional steps on v < t < 2^31, Q < 2^31, in
+// signed 32-bit words, where they equal the plain version's int64 bit for
+// bit: v + Q - t and v - Q lie in (-2^31, 2^31).  The result is v's
+// residue mod Q wherever t <= 2 Q.
+__device__ __forceinline__ uint32_t lift_centered(uint32_t v, uint32_t t, uint32_t q) {
+  int32_t x = static_cast<int32_t>(v > (t >> 1) ? v + q - t : v);
+  x = x >= static_cast<int32_t>(q) ? x - static_cast<int32_t>(q) : x;
+  return static_cast<uint32_t>(x);
+}
+
+// out[r][a][c][i] = lift(pt) (+ t_a * e mod Q_c with kError); pt [R, A, I],
+// or [R, A] with kScalar (the coefficient at i = 0, zero beyond); k[a][c] =
+// (t_a, Q_c, t_a mod Q_c, its Shoup constant).  Coefficient x = (r A + a) I
+// + i, the error's counter base + x (cbd_kernel's, the error's rows being
+// the launch's).  The error is drawn once a coefficient and its L' residues
+// written; one thread takes kPer coefficients kThreads apart.
+template <bool kError, bool kScalar>
 __global__ void __launch_bounds__(kThreads)
+    lift_kernel(uint32_t* __restrict__ out, const uint32_t* __restrict__ pt,
+                const uint4* __restrict__ k, LiftGeo g, Cbd cbd) {
+  const uint32_t mask = (1u << g.log_i) - 1;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const uint32_t x = blockIdx.x * (kThreads * kPer) + j * kThreads + threadIdx.x;
+    if (x >= g.n) break;
+    const uint32_t line = x >> g.log_i;
+    const uint32_t i = x & mask;
+    const uint32_t v = kScalar ? (i == 0 ? __ldg(pt + line) : 0u) : __ldg(pt + x);
+    const int e = kError ? cbd_value(cbd.k0, cbd.k1, cbd.base + x, cbd.step, cbd.n_words,
+                                     cbd.last_mask)
+                         : 0;
+    const uint4* kc = k + (line % g.A) * g.Cs;
+    uint32_t* dst = out + static_cast<size_t>(line) * g.C * (mask + 1) + i;
+    for (uint32_t c = 0; c < g.C; ++c) {
+      const uint4 t = __ldg(kc + c);  // (t, Q, t mod Q, Shoup)
+      uint32_t y = lift_centered(v, t.x, t.y);
+      if (kError) {
+        const uint32_t er = e < 0 ? t.y - static_cast<uint32_t>(-e) : static_cast<uint32_t>(e);
+        y = add_mod(y, shoup_mul(er, make_uint2(t.z, t.w), t.y), t.y);
+      }
+      dst[static_cast<size_t>(c) << g.log_i] = y;
+    }
+  }
+}
+
+constexpr int kEncThreads = 256;
+constexpr int kEncWords = 8;  // words a thread holds, kEncThreads apart
+constexpr int kEncCtasPerSm = 3;  // the registers a thread may hold: 80 of 255
+constexpr uint32_t kEncTile = kEncThreads * kEncWords;  // words of a tile's slice of I
+
+struct EncGeo {
+  uint64_t base;   // counter of the launch's row 0: lo * A * I
+  uint64_t units;  // (tile, row) units: A * C * slices * R
+  uint32_t R, A, C, I, L, slices;
+};
+
+// c0 = u - a*s mod Q_c and, with kC1, c1 = a, for the units [b U / grid,
+// (b + 1) U / grid) of CTA b: unit = tile * R + r, tile = (a C + c) *
+// slices + slice.  u, c0, c1 [R, A, C, I]; s pairs [L, C, I] (limb a mod
+// L); word i of row r has the counter base + (r A + a) I + i.
+template <bool kC1>
+__global__ void __launch_bounds__(kEncThreads, kEncCtasPerSm)
     encrypt_kernel(uint32_t* __restrict__ c0, uint32_t* __restrict__ c1,
-                   const uint32_t* __restrict__ m, const uint32_t* __restrict__ e,
-                   const uint2* __restrict__ s, const uint2* __restrict__ tq,
-                   const __grid_constant__ Columns cols, Geo g) {
-  // line = (r A + a) C + c; c0, c1, m, e are [R, A, C, I]; s [L, C, I], tq [L, C]
-  for (uint32_t line = blockIdx.y; line < g.lines; line += gridDim.y) {
-    const uint32_t c = line % g.C;
-    const uint32_t t = line / g.C;
-    const uint32_t a = t % g.A;
-    const uint32_t r = t / g.A;
-    const uint32_t limb = (a % g.L) * g.C + c;
+                   const uint32_t* __restrict__ u, const uint2* __restrict__ s,
+                   const __grid_constant__ Columns cols, EncGeo g) {
+  const uint64_t end = g.units * (blockIdx.x + 1) / gridDim.x;
+  const size_t row_words = static_cast<size_t>(g.A) * g.C * g.I;
+  const uint32_t row_ctr = g.A * g.I;  // counter distance between rows
+  for (uint64_t unit = g.units * blockIdx.x / gridDim.x; unit < end;) {
+    const uint32_t tile = static_cast<uint32_t>(unit / g.R);
+    const uint32_t r = static_cast<uint32_t>(unit % g.R);
+    const uint64_t left = end - unit;  // rows of this tile in the CTA's run
+    const uint32_t n = left < g.R - r ? static_cast<uint32_t>(left) : g.R - r;
+    unit += n;
+    const uint32_t slice = tile % g.slices;
+    const uint32_t c = (tile / g.slices) % g.C;
+    const uint32_t a = tile / g.slices / g.C;
     const Column& col = cols.c[c];
     const uint32_t Q = col.span;
-    const uint2 tw = __ldg(tq + limb);
-    const uint2* srow = s + static_cast<size_t>(limb) * g.I;
-    const uint64_t ctr = g.base + (static_cast<uint64_t>(r) * g.A + a) * g.I;
-    const size_t off = static_cast<size_t>(line) * g.I;
+    const uint32_t i0 = slice * kEncTile + threadIdx.x;
+    // this thread's words of s, kept for every row of the tile
+    const uint2* srow = s + static_cast<size_t>((a % g.L) * g.C + c) * g.I;
+    uint2 sv[kEncWords];
 #pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const uint32_t i = first_word() + k * kThreads;
-      if (i >= g.I) continue;
-      const uint32_t av = draw_value(col, ctr + i);
-      const uint32_t as = shoup_mul(av, __ldg(srow + i), Q);
-      const uint32_t te = shoup_mul(__ldg(e + off + i), tw, Q);
-      c1[off + i] = av;
-      c0[off + i] = add_mod(sub_mod(__ldg(m + off + i), as, Q), te, Q);
+    for (int j = 0; j < kEncWords; ++j) {
+      const uint32_t i = i0 + j * kEncThreads;
+      sv[j] = i < g.I ? __ldg(srow + i) : make_uint2(0u, 0u);
+    }
+    size_t off = ((static_cast<size_t>(r) * g.A + a) * g.C + c) * g.I + i0;
+    const uint64_t ctr = g.base + (static_cast<uint64_t>(r) * g.A + a) * g.I + i0;
+    uint32_t lo = static_cast<uint32_t>(ctr), hi = static_cast<uint32_t>(ctr >> 32);
+    uint32_t cur[kEncWords], nxt[kEncWords];
+#pragma unroll
+    for (int j = 0; j < kEncWords; ++j) {
+      cur[j] = i0 + j * kEncThreads < g.I ? __ldg(u + off + j * kEncThreads) : 0u;
+    }
+    // The rows of the tile.  A span above 2^16 (every inner prime) draws
+    // one word and has no minval: that loop keeps the column's key and mu
+    // in registers and tests nothing a word; any other column takes
+    // draw_value_hl whole.
+    const auto rows = [&](auto one_word) {
+      const uint32_t k0 = col.lo0, k1 = col.lo1, mu = col.mu;
+      for (uint32_t k = 0; k < n; ++k) {
+        const bool more = k + 1 < n;
+#pragma unroll
+        for (int j = 0; j < kEncWords; ++j) {  // the next row's u, in flight during the hashes
+          nxt[j] = more && i0 + j * kEncThreads < g.I
+                       ? __ldg(u + off + row_words + j * kEncThreads) : 0u;
+        }
+#pragma unroll
+        for (int j = 0; j < kEncWords; ++j) {
+          const uint32_t w = lo + j * kEncThreads;
+          const uint32_t av = decltype(one_word)::value
+                                  ? mod_span(threefry_hl(k0, k1, hi, w), Q, mu)
+                                  : draw_value_hl(col, hi, w);
+          const uint32_t v = sub_mod(cur[j], shoup_mul(av, sv[j], Q), Q);
+          if (i0 + j * kEncThreads < g.I) {
+            if (kC1) {
+              c0[off + j * kEncThreads] = v;
+              c1[off + j * kEncThreads] = av;
+            } else {
+              __stcs(c0 + off + j * kEncThreads, v);
+            }
+          }
+          cur[j] = nxt[j];
+        }
+        off += row_words;
+        lo += row_ctr;
+        hi += lo < row_ctr;  // the row's one carry test
+      }
+    };
+    if (col.mult == 0 && col.minval == 0) {
+      rows(std::true_type{});
+    } else {
+      rows(std::false_type{});
     }
   }
 }
@@ -241,14 +389,77 @@ extern "C" int ringsnark_prng_cbd(void* out, const void* moduli, int C, unsigned
   return static_cast<int>(cudaGetLastError());
 }
 
-// c0, c1, m, e: uint32 [rows, A, C, I]; s: (value, Shoup) pairs [L, C, I];
-// tq: pairs [L, C] (t_l mod Q_c); table: host uint32 [C, 8], span = Q_c.
-extern "C" int ringsnark_prng_encrypt(void* c0, void* c1, const void* m, const void* e,
-                                      const void* s, const void* tq, const void* table, int C,
-                                      int L, long long n_axis, long long lo, long long rows,
-                                      long long A, long long I, void* stream) {
+// out: uint32 [rows, A, C, I]; pt: uint32 [rows, A, I], or [rows, A] where
+// scalar (coefficient 0 of I); k: uint4 [A, Cs] (t_a, Q_c, t_a mod Q_c, its
+// Shoup constant), the first C columns written; I a power of two.  With
+// n_words > 0, plus t_a * e mod Q_c for the CBD error of key (k0, k1): the
+// words of side s, word w are outer block s * n_words + w of [2 n_words,
+// n_axis, A, I], the launch's rows at lo (cbd_kernel's); t_a <= 2 Q_c there.
+extern "C" int ringsnark_prng_lift(void* out, const void* pt, const void* k, int C, int Cs,
+                                   int scalar, unsigned int k0, unsigned int k1, int n_words,
+                                   unsigned int last_mask, long long n_axis, long long lo,
+                                   long long rows, long long A, long long I, void* stream) {
   Geo g;
-  if (L < 1 || A % L != 0 || !make_geo(1, n_axis, lo, rows, A, I, C, L, false, true, g)) {
+  if (n_words < 0 || n_words > 64 || Cs < C || (I & (I - 1)) != 0 ||
+      !make_geo(n_words ? 2LL * n_words : 1, n_words ? n_axis : rows, n_words ? lo : 0, rows, A,
+                I, C, 1, false, false, g)) {
+    return static_cast<int>(refused(cudaErrorInvalidValue));
+  }
+  const LiftGeo lg{g.lines * g.I, static_cast<uint32_t>(__builtin_ctzll(I)), g.A, g.C,
+                   static_cast<uint32_t>(Cs)};
+  const Cbd cbd{g.step, g.base, k0, k1, static_cast<uint32_t>(n_words), last_mask};
+  const dim3 grid((lg.n + kThreads * kPer - 1) / (kThreads * kPer));
+  auto* o = static_cast<uint32_t*>(out);
+  const auto* p = static_cast<const uint32_t*>(pt);
+  const auto* kk = static_cast<const uint4*>(k);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_words && scalar) {
+    lift_kernel<true, true><<<grid, kThreads, 0, st>>>(o, p, kk, lg, cbd);
+  } else if (n_words) {
+    lift_kernel<true, false><<<grid, kThreads, 0, st>>>(o, p, kk, lg, cbd);
+  } else if (scalar) {
+    lift_kernel<false, true><<<grid, kThreads, 0, st>>>(o, p, kk, lg, cbd);
+  } else {
+    lift_kernel<false, false><<<grid, kThreads, 0, st>>>(o, p, kk, lg, cbd);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+// The CTAs of an encrypt_kernel launch over `units` units on the current
+// device: those it keeps resident (its SMs times the CTAs an SM holds, read
+// from the runtime once a process), at most one a unit; 0 where the runtime
+// cannot say.  Every word is written once whatever the grid, so the grid
+// moves no result.
+template <bool kC1>
+uint64_t encrypt_grid(uint64_t units) {
+  static const int per_sm = [] {
+    int n = 0;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, encrypt_kernel<kC1>, kEncThreads,
+                                                         0) == cudaSuccess ? n : 0;
+  }();
+  int dev = 0, sms = 0;
+  if (per_sm < 1 || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+    return 0;
+  }
+  const uint64_t resident = static_cast<uint64_t>(sms) * per_sm;
+  return resident < units ? resident : units;
+}
+
+}  // namespace
+
+// c0 (and c1 unless it is null): uint32 [rows, A, C, I]; u: the same; s:
+// (value, Shoup) pairs [L, C, I]; table: host uint32 [C, 8], span = Q_c; I
+// a power of two.
+extern "C" int ringsnark_prng_encrypt(void* c0, void* c1, const void* u, const void* s,
+                                      const void* table, int C, int L, long long n_axis,
+                                      long long lo, long long rows, long long A, long long I,
+                                      void* stream) {
+  Geo g;
+  if (L < 1 || A % L != 0 || (I & (I - 1)) != 0 ||
+      !make_geo(1, n_axis, lo, rows, A, I, C, L, false, true, g)) {
     return static_cast<int>(refused(cudaErrorInvalidValue));
   }
   const uint32_t* words = static_cast<const uint32_t*>(table);
@@ -256,10 +467,23 @@ extern "C" int ringsnark_prng_encrypt(void* c0, void* c1, const void* m, const v
     const uint32_t span = words[8 * c + 4];
     if (span < 2 || span > (1u << 31)) return static_cast<int>(refused(cudaErrorInvalidValue));
   }
+  const uint32_t slices = (g.I + kEncTile - 1) / kEncTile;
+  const EncGeo eg{g.base, static_cast<uint64_t>(g.A) * g.C * slices * g.R, g.R, g.A, g.C, g.I,
+                  g.L, slices};
+  const uint64_t grid = c1 ? encrypt_grid<true>(eg.units) : encrypt_grid<false>(eg.units);
+  if (grid < 1) return static_cast<int>(refused(cudaErrorInvalidValue));
   const Columns cols = columns_of(words, C);
-  encrypt_kernel<<<grid_of(g), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(c0), static_cast<uint32_t*>(c1), static_cast<const uint32_t*>(m),
-      static_cast<const uint32_t*>(e), static_cast<const uint2*>(s),
-      static_cast<const uint2*>(tq), cols, g);
+  auto* o0 = static_cast<uint32_t*>(c0);
+  auto* o1 = static_cast<uint32_t*>(c1);
+  const auto* uu = static_cast<const uint32_t*>(u);
+  const auto* ss = static_cast<const uint2*>(s);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (o1) {
+    encrypt_kernel<true><<<static_cast<unsigned>(grid), kEncThreads, 0, st>>>(o0, o1, uu, ss,
+                                                                              cols, eg);
+  } else {
+    encrypt_kernel<false><<<static_cast<unsigned>(grid), kEncThreads, 0, st>>>(o0, o1, uu, ss,
+                                                                               cols, eg);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,8 @@
 // Threefry-2x32 draws shared by the kernels that draw (prng.cu: draw_kernel,
-// encrypt_kernel; mac.cu: mac_drawn_kernel), so every draw on the card is
-// one copy of the hash and of JAX's uint32 randint reduction.  The contract
-// (a draw's words, counters and key columns) is set out in prng.cu.
+// cbd_kernel, lift_kernel, encrypt_kernel; mac.cu: mac_drawn_kernel), so
+// every draw on the card is one copy of the hash, of JAX's uint32 randint
+// reduction and of the centred-binomial error.  The contract (a draw's
+// words, counters and key columns) is set out in prng.cu.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -26,11 +27,13 @@ struct Columns {
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) { return __funnelshift_l(x, x, r); }
 
-// threefry2x32 with 20 rounds (jax's _threefry2x32_lowering; utils/prng.py).
-__device__ __forceinline__ uint32_t threefry_word(uint32_t k0, uint32_t k1, uint64_t ctr) {
+// threefry2x32 with 20 rounds (jax's _threefry2x32_lowering; utils/prng.py)
+// of the counter (hi, lo), as y0 ^ y1.
+__device__ __forceinline__ uint32_t threefry_hl(uint32_t k0, uint32_t k1, uint32_t hi,
+                                                uint32_t lo) {
   const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  uint32_t x0 = static_cast<uint32_t>(ctr >> 32) + k0;
-  uint32_t x1 = static_cast<uint32_t>(ctr) + k1;
+  uint32_t x0 = hi + k0;
+  uint32_t x1 = lo + k1;
 #define RINGSNARK_ROUND(r) \
   x0 += x1;                \
   x1 = rotl(x1, r);        \
@@ -58,22 +61,46 @@ __device__ __forceinline__ uint32_t threefry_word(uint32_t k0, uint32_t k1, uint
   return x0 ^ x1;
 }
 
+__device__ __forceinline__ uint32_t threefry_word(uint32_t k0, uint32_t k1, uint64_t ctr) {
+  return threefry_hl(k0, k1, static_cast<uint32_t>(ctr >> 32), static_cast<uint32_t>(ctr));
+}
+
 // w mod span for any w < 2^32, span in [1, 2^31]: q = umulhi(w, mu) is
 // floor(w / span) or one less, so w - q * span lies in [0, 2 span).
 __device__ __forceinline__ uint32_t mod_span(uint32_t w, uint32_t span, uint32_t mu) {
   return reduce_once(w - __umulhi(w, mu) * span, span);
 }
 
-// The word or value of column col at counter ctr (see prng.cu's contract).
-__device__ __forceinline__ uint32_t draw_value(const Column& col, uint64_t ctr) {
-  const uint32_t lo = threefry_word(col.lo0, col.lo1, ctr);
-  if (col.span == 0) return lo;
-  uint32_t off = mod_span(lo, col.span, col.mu);
+// The word or value of column col at the counter (hi, lo) (see prng.cu's
+// contract).
+__device__ __forceinline__ uint32_t draw_value_hl(const Column& col, uint32_t hi, uint32_t lo) {
+  const uint32_t w = threefry_hl(col.lo0, col.lo1, hi, lo);
+  if (col.span == 0) return w;
+  uint32_t off = mod_span(w, col.span, col.mu);
   if (col.mult != 0) {
-    const uint32_t hi = mod_span(threefry_word(col.hi0, col.hi1, ctr), col.span, col.mu);
-    off = mod_span(hi * col.mult + off, col.span, col.mu);
+    const uint32_t h = mod_span(threefry_hl(col.hi0, col.hi1, hi, lo), col.span, col.mu);
+    off = mod_span(h * col.mult + off, col.span, col.mu);
   }
   return off + col.minval;
+}
+
+__device__ __forceinline__ uint32_t draw_value(const Column& col, uint64_t ctr) {
+  return draw_value_hl(col, static_cast<uint32_t>(ctr >> 32), static_cast<uint32_t>(ctr));
+}
+
+// The centred-binomial error of one coefficient (bgv._sample_error_coeffs):
+// the key's words (side, w) at the counters (side * n_words + w) * step +
+// ctr, the last word of a side masked to last_mask, popcounts of side 0
+// minus side 1.  |e| <= 32 * n_words.
+__device__ __forceinline__ int cbd_value(uint32_t k0, uint32_t k1, uint64_t ctr, uint64_t step,
+                                         uint32_t n_words, uint32_t last_mask) {
+  int e = 0;
+  for (uint32_t w = 0; w < n_words; ++w) {
+    const uint32_t mask = w + 1 == n_words ? last_mask : 0xFFFFFFFFu;
+    e += __popc(threefry_word(k0, k1, w * step + ctr) & mask);
+    e -= __popc(threefry_word(k0, k1, (n_words + w) * step + ctr) & mask);
+  }
+  return e;
 }
 
 // The host's table of C columns (uint32 [C, 8], ops/cuda_prng._table) as

@@ -10,9 +10,17 @@ error from a threefry key (``utils/prng.py``) exactly as the JAX package
 draws them from a ``jax.random`` key, so one key gives one ciphertext in
 both packages.  A draw may be made for a row range ``rows=(lo, hi)`` of its
 leading batch axis: those rows get the bits they get in the whole draw.
-On a CUDA device the draws and the encryption's arithmetic are kernels
-(``ops/cuda_prng.py``); elsewhere they run their plain versions here
-(``_uniform_plain``, ``_error_coeffs_plain``, ``_encrypt_from_m``).
+On a CUDA device the draws, the plaintext's lift and the encryption's
+arithmetic are kernels (``ops/cuda_prng.py``); elsewhere they run their
+plain versions here (``_uniform_plain``, ``_error_coeffs_plain``,
+``_lift_centered``, ``_lift_error_plain``, ``_encrypt_from_u``).
+
+An encryption is one schedule on every device: the plaintext's
+coefficients, their lift into each Q_j with t*e added (``_lift_error``),
+one forward NTT, then c0 = u - a*s (``encrypt``).  The NTT is linear mod
+Q_j and every residue is canonical, so NTT(lift(pt) + t*e) - a*s is the
+JAX package's m - a*s + t*NTT(e) bit for bit; the lift must stay before
+the NTT, and nothing that is not linear mod Q_j may come between them.
 """
 
 from __future__ import annotations
@@ -64,18 +72,32 @@ def _lift_centered(ctx: EncodingContext, pt_coeffs, level: int):
     return torch.where(lifted >= Q, lifted - Q, lifted)
 
 
+def _scalar(ctx: EncodingContext, slots) -> bool:
+    """The Z_q backend's slots (N == 1): a constant polynomial, its one
+    coefficient the slot value."""
+    return ctx.ring.N == 1 and slots.shape[-1] == 1
+
+
+def _lift(ctx: EncodingContext, pt_coeffs, level: int):
+    """`_lift_centered` as int32 [*, L, L'_lvl, I]: a CUDA context launches
+    the kernel (``cuda_prng.lift``); any other runs the plain version."""
+    if _on_card(ctx):
+        return cuda_prng.lift(ctx, pt_coeffs, level)
+    return _lift_centered(ctx, pt_coeffs, level).to(_I32)
+
+
 def plain_to_inner_ntt(ctx: EncodingContext, slots, level: int = 0):
     """Outer slot values -> inner-NTT plaintext operand int32[*, L, L'_lvl, N'].
 
     Scalar fast path (N == 1, the Z_q backend): the value is encoded as the
     constant polynomial, whose NTT form is the constant itself — no
-    transforms.
+    transforms; the lift's [*, L, L', 1] is expanded over N' (stride 0).
     """
-    if ctx.ring.N == 1 and slots.shape[-1] == 1:
-        lifted = _lift_centered(ctx, slots, level).to(_I32)  # [*, L, L', 1]
+    if _scalar(ctx, slots):
+        lifted = _lift(ctx, slots, level)  # [*, L, L', 1]
         return lifted.expand(*lifted.shape[:-1], ctx.n_inner)
-    lifted = _lift_centered(ctx, _slots_to_plain_coeffs(ctx, slots), level)
-    return _ntt.negacyclic_ntt_rev(lifted.to(_I32), ctx.inner_plan(level))
+    lifted = _lift(ctx, _slots_to_plain_coeffs(ctx, slots), level)
+    return _ntt.negacyclic_ntt_rev(lifted, ctx.inner_plan(level))
 
 
 def _cbd_k(stddev: float) -> int:
@@ -153,34 +175,61 @@ def sample_a_e(ctx: EncodingContext, key, batch_shape, rows=None):
     return a, e
 
 
-def _encrypt_from_m(ctx: EncodingContext, s_ntt, m, a, e):
-    """c1 = a,  c0 = m - a*s + t*e  (mod Q_j), all in inner-NTT form."""
+def _lift_error(ctx: EncodingContext, pt, key, batch_shape, rows=None):
+    """u = lift(pt) + t * e mod Q_j at level 0, int32 [*, L, L', N'], for
+    the centred-binomial error `_sample_error_coeffs(ctx, key, batch_shape,
+    rows)`; `pt` is [*, L, N'] or the Z_q slots [*, L, 1] (coefficient 0).
+    A CUDA context launches the kernel, which draws the error in its
+    registers (``cuda_prng.lift_error``); any other runs
+    `_lift_error_plain`."""
+    if _on_card(ctx):
+        return cuda_prng.lift_error(ctx, pt, key, batch_shape, rows, _cbd_k(ctx.error_stddev))
+    return _lift_error_plain(ctx, pt, key, batch_shape, rows)
+
+
+def _lift_error_plain(ctx: EncodingContext, pt, key, batch_shape, rows=None):
+    """`_lift_error` as int64 torch ops on the context's device:
+    `_lift_centered` + t * `_error_coeffs_plain` mod Q_j."""
+    lifted = _lift_centered(ctx, pt, 0)
+    if lifted.shape[-1] != ctx.n_inner:  # the Z_q slot: zero past coefficient 0
+        lifted = torch.nn.functional.pad(lifted, (0, ctx.n_inner - lifted.shape[-1]))
+    e = _error_coeffs_plain(ctx, key, batch_shape, rows).to(_I64)
+    return torch.remainder(lifted + e * ctx.t_mod_Q, ctx.inner_consts(0)).to(_I32)
+
+
+def _encrypt_from_u(ctx: EncodingContext, s_ntt, u, a):
+    """c1 = a,  c0 = u - a*s  (mod Q_j), all in inner-NTT form, from u =
+    NTT(lift(m) + t*e): the encryption kernel's plain version."""
     Q = ctx.inner_consts(0)
-    As = torch.remainder(a.to(_I64) * s_ntt.to(_I64), Q)
-    te = torch.remainder(e.to(_I64) * ctx.t_mod_Q, Q)
-    c0 = torch.remainder(m.to(_I64) - As + te, Q)
+    c0 = torch.remainder(u.to(_I64) - a.to(_I64) * s_ntt.to(_I64), Q)
     return c0.to(_I32), a
 
 
-def encrypt(ctx: EncodingContext, sk: SecretKey, slots, key, draw_rows=None, lo: int = 0):
+def encrypt(ctx: EncodingContext, sk: SecretKey, slots, key, draw_rows=None, lo: int = 0,
+            c0_out=None):
     """Symmetric BGV encryption of a batch of outer-slot vectors.
 
     slots: int32[*batch, L, n] -> (c0, c1): int32[*batch, L, L', N'] with
     c0 + c1*s = m + t*e (mod Q).  With `draw_rows`, `slots` are rows
     ``[lo, lo + len(slots))`` of a batch of `draw_rows` rows encrypted with
-    `key`: they get the randomness those rows get in the whole batch.  On
-    a CUDA device the uniform mask and c0 come from one kernel
-    (``cuda_prng.encrypt``) after the error's NTT.
+    `key`: they get the randomness those rows get in the whole batch.
+    ``k_a, k_e = split(key)``: the plaintext's coefficients are lifted with
+    t*e added (`_lift_error`, the error from k_e), taken to inner-NTT form
+    by one forward NTT, and c0 = u - a*s for the uniform a of k_a.  With
+    `c0_out` (a contiguous int32 tensor of c0's shape), c0 is written there
+    and c1 is neither written nor returned: ``(c0_out, None)``.  Each step
+    launches its kernel on a CUDA device and runs its plain version on any
+    other.
     """
-    m = plain_to_inner_ntt(ctx, slots, level=0)
-    batch, rows = ((m.shape[:-3], None) if draw_rows is None
-                   else ((draw_rows,), (lo, lo + m.shape[0])))
-    if not _on_card(ctx):
-        a, e = sample_a_e(ctx, key, batch, rows)
-        return _encrypt_from_m(ctx, sk.s_ntt, m, a, e)
+    batch, rows = ((slots.shape[:-2], None) if draw_rows is None
+                   else ((draw_rows,), (lo, lo + slots.shape[0])))
     k_a, k_e = prng.split(key)
-    e = _ntt.negacyclic_ntt_rev(_sample_error_coeffs(ctx, k_e, batch, rows), ctx.inner_plan(0))
-    return cuda_prng.encrypt(ctx, sk, m, e, k_a, batch, rows)
+    pt = slots if _scalar(ctx, slots) else _slots_to_plain_coeffs(ctx, slots)
+    u = _ntt.negacyclic_ntt_rev(_lift_error(ctx, pt, k_e, batch, rows), ctx.inner_plan(0))
+    if _on_card(ctx):
+        return cuda_prng.encrypt(ctx, sk, u, k_a, batch, rows, c0_out)
+    c0, c1 = _encrypt_from_u(ctx, sk.s_ntt, u, _uniform_plain(ctx, k_a, batch, rows))
+    return (c0, c1) if c0_out is None else (c0_out.copy_(c0), None)
 
 
 def ct_add(ctx: EncodingContext, ct_a, ct_b, level: int):

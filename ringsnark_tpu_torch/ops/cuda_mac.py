@@ -18,8 +18,9 @@ seeded.py:295-389``, `_seeded_mac_kernel` and its scan body
   counters (ROADMAP trap k).
 
 What bounds them: ``mac`` reads c0, c1 and each operand once as int32, so
-its bytes at 3.35 TB/s; ``mac_drawn`` reads c0 and the operands, and hashes
-one threefry word a residue, so its operations at 16.75 T/s (int32).  The
+its bytes at 3.35 TB/s; ``mac_drawn`` reads c0 and the operands and hashes
+one threefry word a residue (41 operations on the ALU), so its bytes or
+its operations, as the shape says (``chip_smoke.py``'s ``Ops``).  The
 design: one thread owns ``VEC`` adjacent columns (16-byte loads) and walks
 the rows of its split, ``plan`` splits the rows so the grid fills the
 card; both components are read once for up to ``MAX_OPERANDS`` operands; a

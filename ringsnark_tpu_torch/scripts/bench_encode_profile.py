@@ -6,10 +6,12 @@ N' and L' primes:
 
 * a_only: the uniform c1 of every slab (``bgv._sample_uniform`` from the
   slab's key, as the seeded MAC regenerates it);
-* err_only: the CBD error of every slab and its negacyclic NTT;
+* err_only: the CBD error of every slab and its negacyclic NTT (the
+  error as its own tensor, which the encryption no longer makes: it draws
+  the error inside the plaintext's lift);
 * errntt_only: that NTT alone, on one fixed slab of residues, once a slab;
-* encrypt: the whole seeded encode (``seeded.encode_seeded``: the draws,
-  the error's NTT, c0 = m - a s + t e);
+* encrypt: the whole seeded encode (``seeded.encode_seeded``: the lift with
+  t e added, one NTT, c0 = u - a s with a drawn in the kernel);
 * mac2: the seeded MAC of the encoded rows against two plaintext batches
   (``seeded.seeded_inner_product``, c1 regenerated), the prove side.
 

@@ -114,14 +114,15 @@ class SeededEncoding:
 def encode_seeded(ctx: EncodingContext, sk, rs: RingElem, key: prng.Key,
                   slab: int = DEFAULT_SLAB) -> SeededEncoding:
     """Encrypt a RingElem batch slab by slab (slab i with fold_in(key, i)),
-    keeping only c0 and the key."""
+    keeping only c0 and the key: each sub-chunk's c0 is written into its
+    rows of the batch, and its c1 is never written."""
     slots = rs.res
     B = slots.shape[0]
     slab = min(slab, max(8, B))
     c0 = torch.empty((B, ctx.L, ctx.L_inner, ctx.n_inner), dtype=torch.int32, device=ctx.device)
     for i, lo, hi in _sub_chunks(B, slab, _sub_rows(ctx)):
-        c0[lo:hi], _ = bgv.encrypt(ctx, sk, slots[lo:hi], prng.fold_in(key, i),
-                                   draw_rows=slab, lo=lo - i * slab)
+        bgv.encrypt(ctx, sk, slots[lo:hi], prng.fold_in(key, i), draw_rows=slab,
+                    lo=lo - i * slab, c0_out=c0[lo:hi])
     return SeededEncoding(ctx=ctx, c0=c0, key=key, slab=slab, batch=B)
 
 

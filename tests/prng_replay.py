@@ -6,9 +6,21 @@ tables (`cuda_prng.column`, `uniform_columns`, `shoup_pairs`, `t_pairs`):
 the lines of a launch and their split into (o, r, a, c), the words a
 thread writes, each word's 64-bit counter, threefry2x32 as the kernel
 unrolls it in uint32 arithmetic (uint64 with a 32-bit mask), the reduction
-mod the span by a multiply-high with mu, the CBD popcounts, and the
-encryption's Shoup products.
+mod the span by a multiply-high with mu, the CBD popcounts, the lift's two
+conditional steps in signed 32-bit words with its Shoup product t * e
+(`lift_consts`), and the encryption kernel's walk over a given number of
+resident CTAs (`enc_walk`): each CTA's run of (tile, row) units, a
+thread's words kEncThreads apart with their s pairs, the row counter's low
+word advanced with one carry test a row, and its Shoup products.
+
+`lib(ctas)` gives an object with the library's C functions
+`ringsnark_prng_lift` and `ringsnark_prng_encrypt` over host memory (the
+tensors' pointers read with `np.ctypeslib`; the encryption as if `ctas`
+CTAs were resident), so the wrappers and every prover run through them on
+the CPU.
 """
+
+import ctypes
 
 import numpy as np
 
@@ -16,6 +28,7 @@ from ntt_replay import add, shoup, sub
 
 MASK = np.uint64(0xFFFFFFFF)
 THREADS, PER = 256, 4  # kThreads, kPer in csrc/prng.cu
+ENC_THREADS, ENC_WORDS = 256, 8  # kEncThreads, kEncWords
 EVEN, ODD = (13, 15, 26, 6), (17, 29, 16, 24)
 
 
@@ -117,27 +130,156 @@ def cbd(moduli, key, k: int, geo) -> np.ndarray:
     return out.reshape(geo.rows, geo.A, len(moduli), geo.I)
 
 
-def encrypt(columns, geo, L: int, m, e, s_pairs, tq_pairs):
-    """`encrypt_kernel`: (c0, c1) uint32 [rows, A, C, I] from m, e
-    ([rows, A, C, I] residues), s pairs [L, C, I, 2] and t pairs [L, C, 2]
-    (uint64 words)."""
-    C = len(columns)
-    c, a, r, o = _lines(geo, C, False, True)
-    ctr, i = _counters(geo, a, r, o)
-    ii = i.astype(np.int64)
-    limb = ((a % np.uint64(L)) * np.uint64(C) + c).astype(np.int64)
-    m = m.reshape(-1, geo.I)[:, ii]
-    e = e.reshape(-1, geo.I)[:, ii]
-    s = s_pairs.reshape(L * C, geo.I, 2)[limb][:, ii]
-    tq = tq_pairs.reshape(L * C, 2)[limb][:, None, :]
-    c0 = np.zeros((len(c), geo.I), np.uint64)
-    c1 = np.zeros_like(c0)
-    for j, col in enumerate(columns):
-        sel = c == j
+def lift_centered(v, t, q):
+    """`lift_centered`: the two conditional steps in signed 32-bit words."""
+    x = np.where(v > (t >> np.uint64(1)), (v + q - t) & MASK, v).astype(np.int64)
+    x = np.where(x >= 1 << 31, x - (1 << 32), x)  # the int32 the kernel compares
+    x = np.where(x >= q.astype(np.int64), x - q.astype(np.int64), x)
+    return x.astype(np.uint64) & MASK
+
+
+def lift(pt, consts, C: int, geo, scalar: bool, cbd=None) -> np.ndarray:
+    """`lift_kernel`: uint32 words [rows, A, C, I] from pt ([rows, A, I], or
+    [rows, A] where `scalar`) and consts [A, Cs, 4] (uint64 words); `cbd` =
+    (key, k) adds t * e for the error at the draw's counters (`geo` the
+    error's geometry, else the launch's)."""
+    A, I = geo.A, geo.I
+    assert I & (I - 1) == 0 and consts.shape[1] >= C
+    n = geo.rows * A * I
+    x = words_of_a_line(n)  # the flat grid's coefficients, each once
+    line, i = x >> np.uint64(I.bit_length() - 1), x & np.uint64(I - 1)
+    pt = pt.reshape(-1)
+    v = np.where(i == 0, pt[line.astype(np.int64)], 0) if scalar else pt[x.astype(np.int64)]
+    e = None
+    if cbd is not None:
+        key, k = cbd
+        n_words = -(-k // 32)
+        last_mask = np.uint64((1 << (k - 32 * (n_words - 1))) - 1)
+        step = np.uint64(geo.n_axis * A * I)
+        ctr = np.uint64(geo.lo * A * I) + x
+        e = np.zeros(x.shape, np.int64)
+        for w in range(n_words):
+            mask = last_mask if w == n_words - 1 else MASK
+            for side, sign in ((w, 1), (n_words + w, -1)):
+                u = threefry_word(key[0], key[1], np.uint64(side) * step + ctr) & mask
+                e += sign * np.bitwise_count(u).astype(np.int64)
+    k4 = consts[(line % np.uint64(A)).astype(np.int64)]  # [n, Cs, 4]
+    out = np.zeros((geo.rows * A, C, I), np.uint64)
+    for c in range(C):
+        t, q, tq = k4[:, c, 0], k4[:, c, 1], k4[:, c, 2:]
+        y = lift_centered(v, t, q)
+        if e is not None:
+            er = np.where(e < 0, q.astype(np.int64) + e, e).astype(np.uint64)
+            y = add(y, shoup(er, tq, q), q)
+        out[line.astype(np.int64), c, i.astype(np.int64)] = y
+    return out.reshape(geo.rows, A, C, I)
+
+
+def enc_walk(rows: int, A: int, C: int, I: int, ctas: int):  # noqa: E741
+    """The launcher's walk with `ctas` resident CTAs: (slices of
+    kEncThreads * kEncWords words along I, then the (tile, first row, rows)
+    runs of every CTA in CTA order, each (tile, row) unit once).  Units are
+    A * C * slices * rows, unit = tile * rows + r, tile = (a * C + c) *
+    slices + slice; min(units, ctas) CTAs, CTA b taking units [b * units //
+    grid, (b + 1) * units // grid)."""
+    slices = -(-I // (ENC_THREADS * ENC_WORDS))
+    units = A * C * slices * rows
+    grid = max(1, min(units, ctas))
+    runs, seen = [], 0
+    for b in range(grid):
+        unit, end = units * b // grid, units * (b + 1) // grid
+        assert unit == seen, "the CTAs' runs tile the units"
+        while unit < end:
+            tile, r = divmod(unit, rows)
+            n = min(rows - r, end - unit)
+            runs.append((tile, r, n))
+            unit += n
+        seen = end
+    assert seen == units
+    return slices, runs
+
+
+def encrypt(columns, geo, L: int, u, s_pairs, ctas: int, with_c1: bool = True):
+    """`encrypt_kernel` over `ctas` resident CTAs: (c0, c1 or None) uint32
+    [rows, A, C, I] from u ([rows, A, C, I] residues) and s pairs [L, C, I,
+    2] (uint64 words)."""
+    C, A, I, R = len(columns), geo.A, geo.I, geo.rows
+    assert I & (I - 1) == 0
+    c0 = np.full((R, A, C, I), MASK, np.uint64)  # words no thread writes stay all ones
+    c1 = np.full_like(c0, MASK) if with_c1 else None
+    j = np.arange(ENC_WORDS, dtype=np.uint64)[:, None] * np.uint64(ENC_THREADS)
+    tid = np.arange(ENC_THREADS, dtype=np.uint64)[None, :]
+    slices, runs = enc_walk(R, A, C, I, ctas)
+    for tile, r, n in runs:
+        slc, c, a = tile % slices, (tile // slices) % C, tile // slices // C
+        col = columns[c]
         Q = np.uint64(col[4])
-        av = draw_value(col, ctr[sel])
-        c1[np.ix_(sel, ii)] = av
-        c0[np.ix_(sel, ii)] = add(sub(m[sel], shoup(av, s[sel], Q), Q),
-                                  shoup(e[sel], tq[sel], Q), Q)
-    shape = (geo.rows, geo.A, C, geo.I)
-    return c0.reshape(shape), c1.reshape(shape)
+        i0 = np.uint64(slc * ENC_THREADS * ENC_WORDS) + tid  # each thread's word 0
+        i = i0 + j  # [words, threads]
+        ok = i < np.uint64(I)
+        ii = i[ok].astype(np.int64)
+        sv = s_pairs[a % L, c][ii]  # read once a tile
+        ctr = np.uint64(geo.lo * A * I) + np.uint64((r * A + a) * I) + i0
+        lo, hi = ctr & MASK, ctr >> np.uint64(32)
+        for k in range(r, r + n):
+            ctr_w = (hi << np.uint64(32)) | ((lo + j) & MASK)  # no word of a line carries
+            av = draw_value(col, ctr_w)[ok]
+            v = sub(u[k, a, c][ii], shoup(av, sv, Q), Q)
+            assert (c0[k, a, c][ii] == MASK).all(), "a word is written once"
+            c0[k, a, c, ii] = v
+            if with_c1:
+                c1[k, a, c, ii] = av
+            lo = lo + np.uint64(A * I)
+            hi = hi + (lo >> np.uint64(32))  # the row's carry test
+            lo &= MASK
+    assert (c0 != MASK).all(), "every word is written"
+    return c0, c1
+
+
+def _words(ptr: int, count: int, ctype=ctypes.c_uint32) -> np.ndarray:
+    return np.ctypeslib.as_array(ctypes.cast(ptr, ctypes.POINTER(ctype)), shape=(count,))
+
+
+class _Lib:
+    """`ringsnark_prng_lift` and `ringsnark_prng_encrypt` over host memory,
+    with the C functions' arguments; the encryption walks as if `ctas` CTAs
+    were resident."""
+
+    def __init__(self, ctas: int = 7):
+        self.ctas, self.calls = ctas, []
+
+    def ringsnark_prng_lift(self, out, pt, k, C, Cs, scalar, k0, k1, n_words, last_mask, n_axis,
+                            lo, rows, A, I, stream):
+        from types import SimpleNamespace
+
+        assert 1 <= C <= Cs and I & (I - 1) == 0 and 0 <= n_words <= 64
+        geo = SimpleNamespace(n_axis=n_axis, lo=lo, rows=rows, A=A, I=I)
+        consts = _words(k, A * Cs * 4).astype(np.uint64).reshape(A, Cs, 4)
+        src = _words(pt, rows * A * (1 if scalar else I)).astype(np.uint64)
+        k = None
+        if n_words:
+            k = 32 * (n_words - 1) + int(last_mask).bit_length()
+            assert last_mask == (1 << (k - 32 * (n_words - 1))) - 1
+        got = lift(src, consts, C, geo, bool(scalar), None if k is None else ((k0, k1), k))
+        _words(out, got.size)[:] = got.reshape(-1).astype(np.uint32)
+        self.calls.append(("lift", bool(n_words), bool(scalar), rows))
+        return 0
+
+    def ringsnark_prng_encrypt(self, c0, c1, u, s, table, C, L, n_axis, lo, rows, A, I, stream):
+        from types import SimpleNamespace
+
+        geo = SimpleNamespace(n_axis=n_axis, lo=lo, rows=rows, A=A, I=I)
+        cols = [tuple(int(w) for w in row) for row in _words(table, 8 * C).reshape(C, 8)]
+        n = rows * A * C * I
+        uu = _words(u, n).astype(np.uint64).reshape(rows, A, C, I)
+        sp = _words(s, 2 * L * C * I).astype(np.uint64).reshape(L, C, I, 2)
+        r0, r1 = encrypt(cols, geo, L, uu, sp, self.ctas, c1 is not None)
+        _words(c0, n)[:] = r0.reshape(-1).astype(np.uint32)
+        if c1 is not None:
+            _words(c1, n)[:] = r1.reshape(-1).astype(np.uint32)
+        self.calls.append(("encrypt", c1 is not None, rows))
+        return 0
+
+
+def lib(ctas: int = 7) -> _Lib:
+    return _Lib(ctas)

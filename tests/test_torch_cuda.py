@@ -418,12 +418,12 @@ def test_zq_three_limbs_on_card_equal_cpu(cuda):
             assert np.array_equal(g[1], w[1])
 
 
-# The draws and the encryption (csrc/prng.cu, ops/cuda_prng.py) against
-# their plain torch-op versions on the card, bit for bit, at the shapes the
-# paths give them: the north star's encryption sub-chunk (rows 1024-1536 of
-# a 4096-row slab, L=1, L'=4, N'=16384), Z_q's short last sub-chunk (rows
-# 2730-4096, L=1, L'=3, N'=4096), logistic regression's encode chunk (L=2,
-# L'=4, N'=16384).
+# The draws, the lift and the encryption (csrc/prng.cu, ops/cuda_prng.py)
+# against their plain torch-op versions on the card, bit for bit, at the
+# shapes the paths give them (chip_smoke.py phase 2d): the north star's
+# encryption sub-chunk (rows 1024-1536 of a 4096-row slab, L=1, L'=4,
+# N'=16384), Z_q's short last sub-chunk (rows 2730-4096, L=1, L'=3,
+# N'=4096), logistic regression's encode chunk (L=2, L'=4, N'=16384).
 PRNG_SHAPES = {
     "north_star": dict(params=(1, 8192, 16384, 18, 10), slab=4096, rows=(1024, 1536), L_inner=4),
     "zq": dict(params=(1, 1, 4096, 18, 4), slab=4096, rows=(2730, 4096), L_inner=3),
@@ -446,10 +446,20 @@ def _prng_params(shape):
     return params, sk, cfg
 
 
+# kernel as a test names it -> its launch count
+PRNG_COUNTS = {"uniform": "uniform", "cbd_error": "cbd_error", "lift": "lift",
+               "lift_error": "lift", "encrypt": "encrypt", "encrypt_c0": "encrypt"}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("kernel", ["uniform", "cbd_error", "encrypt"])
+@pytest.mark.parametrize("kernel", list(PRNG_COUNTS))
 @pytest.mark.parametrize("shape", list(PRNG_SHAPES))
 def test_prng_kernels_equal_plain(cuda, shape, kernel):
+    """Each kernel of csrc/prng.cu against its plain version on the same
+    inputs: the draws; the lift alone (the plaintext operand's: Z_q's slots
+    of width 1) and with the error (the encryption's: Z_q's slot lifted to
+    N' coefficients); `bgv.encrypt` (lift, NTT, encrypt) against the plain
+    schedule, with c1 and with c0 alone written into a given tensor."""
     from ringsnark_tpu_torch.encoding import bgv
     from ringsnark_tpu_torch.ops import cuda_prng
     from ringsnark_tpu_torch.utils import prng
@@ -458,6 +468,13 @@ def test_prng_kernels_equal_plain(cuda, shape, kernel):
     ctx = params.enc
     key, batch, rows = prng.key(32), (cfg["slab"],), cfg["rows"]
     n = cfg["slab"] if rows is None else rows[1] - rows[0]
+    k_a, k_e = prng.split(key)
+    g = torch.Generator(device=cuda).manual_seed(33)
+    slots = torch.cat([torch.randint(0, p, (n, 1, ctx.ring.N), generator=g,
+                                     dtype=torch.int32, device=cuda)
+                       for p in ctx.ring.primes], dim=1)
+    pt = slots if bgv._scalar(ctx, slots) else bgv._slots_to_plain_coeffs(ctx, slots)
+    count = PRNG_COUNTS[kernel]
     before = dict(cuda_prng.launch_counts)
     if kernel == "uniform":
         got = bgv._sample_uniform(ctx, key, batch, rows)
@@ -465,21 +482,27 @@ def test_prng_kernels_equal_plain(cuda, shape, kernel):
     elif kernel == "cbd_error":
         got = bgv._sample_error_coeffs(ctx, key, batch, rows)
         want = bgv._error_coeffs_plain(ctx, key, batch, rows)
+    elif kernel == "lift":
+        got = bgv._lift(ctx, pt, 0)
+        want = bgv._lift_centered(ctx, pt, 0).to(torch.int32)
+    elif kernel == "lift_error":
+        got = bgv._lift_error(ctx, pt, k_e, batch, rows)
+        want = bgv._lift_error_plain(ctx, pt, k_e, batch, rows)
     else:
-        g = torch.Generator(device=cuda).manual_seed(33)
-        slots = torch.cat([torch.randint(0, p, (n, 1, ctx.ring.N), generator=g,
-                                         dtype=torch.int32, device=cuda)
-                           for p in ctx.ring.primes], dim=1)
         lo = 0 if rows is None else rows[0]
-        got = torch.stack(bgv.encrypt(ctx, sk, slots, key, draw_rows=cfg["slab"], lo=lo))
-        k_a, k_e = prng.split(key)
-        m = bgv.plain_to_inner_ntt(ctx, slots, 0)
-        e = tntt.negacyclic_ntt_rev(bgv._error_coeffs_plain(ctx, k_e, batch, rows or (0, n)),
+        u = tntt.negacyclic_ntt_rev(bgv._lift_error_plain(ctx, pt, k_e, batch, rows),
                                     ctx.inner_plan(0))
-        want = torch.stack(bgv._encrypt_from_m(ctx, sk.s_ntt, m,
-                                               bgv._uniform_plain(ctx, k_a, batch, rows), e))
+        want = bgv._encrypt_from_u(ctx, sk.s_ntt, u, bgv._uniform_plain(ctx, k_a, batch, rows))
+        if kernel == "encrypt":
+            got = torch.stack(bgv.encrypt(ctx, sk, slots, key, draw_rows=cfg["slab"], lo=lo))
+            want = torch.stack(want)
+        else:
+            out = torch.full_like(want[0], -1)
+            got, c1 = bgv.encrypt(ctx, sk, slots, key, draw_rows=cfg["slab"], lo=lo, c0_out=out)
+            assert c1 is None and got is out
+            want = want[0]
     torch.cuda.synchronize()
-    assert cuda_prng.launch_counts[kernel] == before[kernel] + 1
+    assert cuda_prng.launch_counts[count] == before[count] + 1
     assert got.shape == want.shape and torch.equal(got, want)
 
 

@@ -1,7 +1,10 @@
 """ringsnark_tpu_torch encodings against the JAX package, on the CPU, bit
-for bit: keygen from one numpy seed, encrypt with the same a and e,
-ct x pt, ct + ct, modswitch, the inner product, and decode (slots and the
-float64 noise-budget integers)."""
+for bit: keygen from one numpy seed, encrypt with the same a and e (the
+port's schedule NTT(lift + t*e) - a*s against JAX's m - a*s + t*NTT(e)),
+encrypt under one key (whole batches, row ranges, one element), ct x pt,
+ct + ct, modswitch, the inner product, and decode (slots and the float64
+noise-budget integers); and the lift and encryption kernels replayed in
+numpy against their plain versions."""
 
 from functools import partial
 
@@ -104,8 +107,19 @@ def cts(pair):
     assert np.array_equal(_u(tm), np.asarray(m))
     te_ntt = tntt.negacyclic_ntt_rev(_t(e_res), tctx.inner_plan(0))
     assert np.array_equal(_u(te_ntt), np.asarray(e_ntt))
-    tc0, tc1 = bgv._encrypt_from_m(tctx, tsk.s_ntt, tm, _t(a), te_ntt)
+    tu = tntt.negacyclic_ntt_rev(_lift_plus_te(tctx, _t(slots), e_res), tctx.inner_plan(0))
+    tc0, tc1 = bgv._encrypt_from_u(tctx, tsk.s_ntt, tu, _t(a))
     return slots, (jc0, a), (tc0, tc1)
+
+
+def _lift_plus_te(ctx, slots, e_res):
+    """The port's u before its NTT, for a given error: the plaintext's
+    coefficients (the Z_q slot at coefficient 0) lifted, plus t * e mod Q_j."""
+    pt = slots if bgv._scalar(ctx, slots) else bgv._slots_to_plain_coeffs(ctx, slots)
+    lifted = bgv._lift_centered(ctx, pt, 0)
+    lifted = torch.nn.functional.pad(lifted, (0, ctx.n_inner - lifted.shape[-1]))
+    te = torch.from_numpy(e_res.astype(np.int64)) * ctx.t_mod_Q
+    return torch.remainder(lifted + te, ctx.inner_consts(0)).to(torch.int32)
 
 
 def test_keygen_same_secret(pair):
@@ -132,6 +146,44 @@ def test_encrypt_same_a_e_and_decrypt(pair, cts):
     ts, tb = bgv.decrypt_to_slots(tctx, tsk, (tc0, tc1), 0)
     assert np.array_equal(_u(ts), js) and np.array_equal(tb.numpy(), jb)
     assert np.array_equal(_u(ts)[..., : tctx.ring.N], slots)
+
+
+ENCRYPTIONS = {  # (batch rows, draw_rows, lo)
+    "whole_batch": (5, None, 0),
+    "one_element": (None, None, 0),
+    "rows_lo_not_0": (4, 16, 5),
+    "short_last_rows": (3, 16, 13),
+}
+
+
+@pytest.mark.parametrize("case", list(ENCRYPTIONS))
+def test_encrypt_schedule_equals_jax(pair, case):
+    """The port's schedule (lift with t*e, one NTT, c0 = u - a*s), on the
+    CPU's plain versions, gives the JAX package's c0 and c1 under one key:
+    a whole batch and one element against `jbgv.encrypt`; rows [lo, lo + n)
+    of a draw of draw_rows rows against `j_encrypt_from_m` with JAX's own a
+    and e drawn for the whole draw and sliced."""
+    jctx, jsk, tctx, tsk = pair
+    B, draw_rows, lo = ENCRYPTIONS[case]
+    slots = _slots(jctx, B or 1, seed=17 + len(case))
+    slots = slots if B else slots[0]
+    jkey, tkey = jax.random.PRNGKey(18), prng.key(18)
+    if draw_rows is None:
+        jc0, jc1 = jbgv.encrypt(jctx, jsk, jnp.asarray(slots), jkey)
+        tc0, tc1 = bgv.encrypt(tctx, tsk, _t(slots), tkey)
+    else:
+        k_a, k_e = jax.random.split(jkey)
+        hi = lo + B
+        jc1 = jbgv._sample_uniform(jctx, k_a, (draw_rows,))[lo:hi]
+        e_ntt = jbgv._sample_error_ntt(jctx, k_e, (draw_rows,))[lo:hi]
+        m = j_plain_to_inner_ntt(jctx, jnp.asarray(slots), 0)
+        jc0 = j_encrypt_from_m(jctx, jsk.s_ntt, m, jc1, e_ntt)
+        tc0, tc1 = bgv.encrypt(tctx, tsk, _t(slots), tkey, draw_rows=draw_rows, lo=lo)
+    assert tc0.shape == tuple(np.shape(jc0))
+    assert np.array_equal(_u(tc0), np.asarray(jc0)) and np.array_equal(_u(tc1), np.asarray(jc1))
+    out = torch.empty_like(tc0)
+    c0, c1 = bgv.encrypt(tctx, tsk, _t(slots), tkey, draw_rows=draw_rows, lo=lo, c0_out=out)
+    assert c1 is None and c0 is out and torch.equal(c0, tc0)
 
 
 def test_ct_mul_plain_and_add(pair, cts):
@@ -306,10 +358,12 @@ def test_kernel_replay_equals_plain_uniform_and_error(pair, case):
 
 @pytest.mark.parametrize("case", ["whole_batch", "sub_chunk_lo_not_0"])
 def test_kernel_constants_and_encrypt_replay_equal_plain(pair, case):
-    """The host's tables for the encryption kernel equal the plain
-    version's constants (s_ntt and t mod Q_j beside floor(v 2^32 / Q_j),
-    the key columns of split(k_a, L')), and the kernel replayed with them
-    gives the plain encryption's c0 and c1."""
+    """The host's tables for the lift and encryption kernels equal the plain
+    versions' constants (s_ntt beside floor(s 2^32 / Q_j); t_l, Q_j, t_l mod
+    Q_j and its Shoup constant; the key columns of split(k_a, L')), and the
+    two kernels replayed with them (the lift with its error, the forward
+    NTT between them) give the plain encryption's c0 and c1, with c1 and
+    without, at one CTA, a few and more CTAs than units."""
     import prng_replay
 
     from ringsnark_tpu_torch.ops import cuda_prng
@@ -317,14 +371,16 @@ def test_kernel_constants_and_encrypt_replay_equal_plain(pair, case):
     jctx, _, ctx, sk = pair
     batch, rows, _ = ENC_DRAWS[case]
     Qs = np.array(ctx.inner_primes, dtype=object)
-    s_pairs, tq = _host(sk.s_pairs), _host(cuda_prng.t_pairs(ctx))
+    s_pairs, k4 = _host(sk.s_pairs), _host(cuda_prng.lift_consts(ctx))
     s = _host(sk.s_ntt)
     assert np.array_equal(s_pairs[..., 0], s)
     assert np.array_equal(s_pairs[..., 1].astype(object),
                           (s.astype(object) << 32) // Qs[None, :, None])
     tmq = ctx.t_mod_Q[..., 0].numpy()
-    assert np.array_equal(tq[..., 0], tmq)
-    assert np.array_equal(tq[..., 1].astype(object), (tmq.astype(object) << 32) // Qs[None, :])
+    assert np.array_equal(k4[..., 0], np.broadcast_to(ctx.t_np[:, None], tmq.shape))
+    assert np.array_equal(k4[..., 1], np.broadcast_to(ctx.Q_np[None, :], tmq.shape))
+    assert np.array_equal(k4[..., 2], tmq)
+    assert np.array_equal(k4[..., 3].astype(object), (tmq.astype(object) << 32) // Qs[None, :])
 
     key = prng.key(70)
     k_a, k_e = prng.split(key)
@@ -334,14 +390,90 @@ def test_kernel_constants_and_encrypt_replay_equal_plain(pair, case):
         assert col == (*k_lo, *k_hi, Q, 0, (1 << 32) // Q, 0)
 
     n = (rows[1] - rows[0]) if rows else batch[0]
-    slots = _slots(jctx, n, seed=71)
-    m = bgv.plain_to_inner_ntt(ctx, _t(slots), 0)
-    a, e = bgv.sample_a_e(ctx, key, batch, rows)
-    c0, c1 = bgv._encrypt_from_m(ctx, sk.s_ntt, m, a, e)
+    slots = _t(_slots(jctx, n, seed=71))
+    pt = slots if bgv._scalar(ctx, slots) else bgv._slots_to_plain_coeffs(ctx, slots)
+    geo, _ = cuda_prng._enc_geometry(ctx, batch, rows)
+    u = bgv._lift_error_plain(ctx, pt, k_e, batch, rows)
+    got = prng_replay.lift(_host(pt), k4, ctx.L_inner, geo, bgv._scalar(ctx, slots),
+                           (k_e, bgv._cbd_k(ctx.error_stddev)))
+    assert np.array_equal(got.reshape(u.shape), _host(u))
+    u = tntt.negacyclic_ntt_rev(u, ctx.inner_plan(0))
+    c0, c1 = bgv._encrypt_from_u(ctx, sk.s_ntt, u, bgv._uniform_plain(ctx, k_a, batch, rows))
     if rows is None:
-        assert all(torch.equal(x, y) for x, y in zip((c0, c1), bgv.encrypt(ctx, sk, _t(slots),
-                                                                          key)))
-    geo = cuda_prng.geometry((*batch, ctx.L, ctx.n_inner), rows, 0)
-    r0, r1 = prng_replay.encrypt(cols, geo, ctx.L, _host(m), _host(e), s_pairs, tq)
-    assert np.array_equal(r0.reshape(c0.shape), _host(c0))
-    assert np.array_equal(r1.reshape(c1.shape), _host(c1))
+        assert all(torch.equal(x, y) for x, y in zip((c0, c1), bgv.encrypt(ctx, sk, slots, key)))
+    for ctas, with_c1 in ((1, True), (3, False), (1000, True)):
+        r0, r1 = prng_replay.encrypt(cols, geo, ctx.L, _host(u), s_pairs, ctas, with_c1)
+        assert np.array_equal(r0.reshape(c0.shape), _host(c0))
+        assert (r1 is None) if not with_c1 else np.array_equal(r1.reshape(c1.shape), _host(c1))
+
+
+def _lift_ctx(ts: tuple, inner: tuple, N: int = 16, n_inner: int = 64):
+    return EncodingContext(ring=RingContext(primes=ts, N=N, device="cpu"), n_inner=n_inner,
+                           inner_primes=inner)
+
+
+def _primes(count, below, n_inner=64):
+    from ringsnark_tpu_torch.ops.primes import find_ntt_primes as tfind
+
+    return tuple(tfind(count, 2 * n_inner, bits=(below - 1).bit_length(), below=below))
+
+
+TOP = _primes(3, 1 << 31)  # the largest NTT primes below 2^31
+# (plain moduli t_l, inner primes, rows, level, scalar, t against Q_j): t
+# above every Q_j with primes just under 2^31; Q_j just above t / 2; t above
+# 2 Q_j (the lift alone: the kernel adds t*e only where t <= 2 Q_j); two
+# limbs at level 1 (the lift alone: the error is a fresh encryption's); the
+# Z_q slots of three limbs
+LIFTS = {
+    "t_above_q_near_2e31": (TOP[:1], _primes(3, TOP[0]), 3, 0, False, "q < t <= 2q"),
+    "q_just_above_t_half": (TOP[:1], _primes(2, TOP[0] // 2 + (1 << 20)), 2, 0, False,
+                            "q < t <= 2q"),
+    "t_above_2q": (TOP[:1], _primes(2, 1 << 29), 2, 0, False, "2q < t"),
+    "two_limbs_level1": (_primes(2, 1 << 20), TOP, 3, 1, False, "t < q"),
+    "zq_scalar": (TOP, _primes(3, TOP[-1]), 5, 0, True, "q < t <= 2q"),
+}
+ORDER = {"t < q": lambda t, q: t < q, "q < t <= 2q": lambda t, q: q < t <= 2 * q,
+         "2q < t": lambda t, q: 2 * q < t}
+
+
+@pytest.mark.parametrize("case,error", [
+    (case, error) for case in LIFTS for error in (False, True)
+    if not (error and (LIFTS[case][3] or LIFTS[case][5] == "2q < t"))
+], ids=lambda v: {False: "lift", True: "lift_error"}.get(v, v) if isinstance(v, bool) else v)
+def test_kernel_replay_equals_plain_lift(case, error):
+    """The lift kernel replayed in numpy with the wrapper's constants and
+    geometry equals `_lift_centered` (as int32) and, with the error, the
+    plain `_lift_error_plain` (the error's rows 9 to 9 + rows of a 16-row
+    draw): coefficients 0, t/2, t/2 + 1 and t - 1 besides random ones, t_l
+    above Q_j, primes just under 2^31, the Z_q slot at coefficient 0."""
+    import prng_replay
+
+    from ringsnark_tpu_torch.ops import cuda_prng
+
+    ts, inner, rows, level, scalar, order = LIFTS[case]
+    ctx = _lift_ctx(ts, inner, N=1 if scalar else 16)
+    L = ctx.L
+    assert all(ORDER[order](ti, q) for ti in ctx.ring.primes for q in inner)
+    assert cuda_prng._error_lift_ok(ctx) == (order != "2q < t")
+    rng = np.random.default_rng(len(case))
+    width = 1 if scalar else ctx.n_inner
+    ts = np.array(ctx.ring.primes, np.int64)
+    pt = rng.integers(0, ts[:, None], (rows, L, width))
+    edges = np.stack([0 * ts, ts // 2, ts // 2 + 1, ts - 1], axis=-1)  # [L, 4]
+    if scalar:
+        pt[:4, :, 0] = edges.T
+    else:
+        pt[0, :, :4] = edges
+    pt = torch.from_numpy(pt.astype(np.int32))
+    k4 = _host(cuda_prng.lift_consts(ctx))
+    C = ctx.L_inner - level
+    if error:
+        key, batch, draw = prng.key(72), (16,), (9, 9 + rows)
+        geo, _ = cuda_prng._enc_geometry(ctx, batch, draw)
+        want = bgv._lift_error_plain(ctx, pt, key, batch, draw)
+        got = prng_replay.lift(_host(pt), k4, C, geo, scalar, (key, bgv._cbd_k(ctx.error_stddev)))
+    else:
+        want = bgv._lift_centered(ctx, pt, level).to(torch.int32)
+        geo = cuda_prng.geometry((rows, L, width))
+        got = prng_replay.lift(_host(pt), k4, C, geo, False)
+    assert np.array_equal(got.reshape(want.shape), _host(want))

@@ -14,7 +14,10 @@ the CPU, exact (`==`: the arithmetic is modular integer):
 * a rehearsal: with `cuda_mac._lib()` replaced by the replay over host
   memory, the resident, seeded and streamed provers (ringGroth16 and
   Rinocchio) at L = 1, 2 and the Z_q provers run through the wrappers and
-  give the plain proofs;
+  give the plain proofs; and with `cuda_prng._lib()` replaced by the lift
+  and encryption kernels' replay (`tests/prng_replay.py`) as well, every
+  generator and prover encrypts and lifts through the card's schedule (one
+  forward NTT an encryption) and gives the plain keys and proofs;
 * a tensor on the card never reaches `mac_plain`, and the wrapper refuses
   what the kernels do not take.
 """
@@ -27,9 +30,11 @@ import pytest
 import torch
 
 import mac_replay
+import prng_replay
 from ringsnark_tpu_torch.encoding import EncodingContext, bgv, mac
 from ringsnark_tpu_torch.encoding.context import default_inner_primes
 from ringsnark_tpu_torch.ops import cuda_mac, cuda_prng
+from ringsnark_tpu_torch.ops import ntt as tntt
 from ringsnark_tpu_torch.rings.context import default_context
 from ringsnark_tpu_torch.utils import interop, prng
 
@@ -290,6 +295,99 @@ def test_rehearsal_zq_broadcast_operand(replayed, system):
     for g, w in zip(interop.proof_to_numpy(got), interop.proof_to_numpy(plain)):
         assert g[2] == w[2] and np.array_equal(g[0], w[0]) and np.array_equal(g[1], w[1])
     assert fake.calls and all(bcast for _, bcast, *_ in fake.calls)
+
+
+@pytest.fixture
+def replayed_prng(monkeypatch, replayed):
+    """The card's encryption schedule on CPU tensors: `bgv` takes the
+    context for the card's, so the lift (with its error) and the encryption
+    go through `cuda_prng`'s wrappers (checks, constants, geometry,
+    the C functions' arguments) to the numpy replay, the NTT between them
+    runs its plain twin; the MAC's library is replayed too.  Returns the
+    installer and the forward NTTs each `bgv.encrypt` call made."""
+    per_call = []
+
+    def install(ctas: int = 5):
+        replayed()
+        fake = prng_replay.lib(ctas)
+        monkeypatch.setattr(cuda_prng, "_lib", lambda: fake)
+        monkeypatch.setattr(cuda_prng, "_check_device", lambda d, name: torch.device(d))
+        monkeypatch.setattr(bgv, "_on_card", lambda ctx: True)
+        fwd, encrypt = tntt.negacyclic_ntt_rev, bgv.encrypt
+        calls = [0]
+
+        def counted_fwd(*a, **k):
+            calls[0] += 1
+            return fwd(*a, **k)
+
+        def counted_encrypt(*a, **k):
+            before = calls[0]
+            out = encrypt(*a, **k)
+            per_call.append(calls[0] - before)
+            return out
+
+        monkeypatch.setattr(tntt, "negacyclic_ntt_rev", counted_fwd)
+        monkeypatch.setattr(bgv, "encrypt", counted_encrypt)
+        cuda_prng.reset_launch_counts()
+        return fake
+
+    yield install, per_call
+
+
+def _generate_and_prove(system: str, params, seed: int):
+    """(keypair arrays or None, proof, verifier's verdict) of one system,
+    generator and prover both run (the streamed systems in one pass)."""
+    kp, prove, verifier, primary = _prove(system, params, seed)
+    got = prove()
+    if kp is None:
+        proof, vk = got
+        return None, proof, verifier(vk, primary, proof)
+    return interop.keypair_to_numpy(kp), got, verifier(kp.vk, primary, got)
+
+
+@pytest.mark.parametrize("system,L,N", [
+    ("resident", 1, 16), ("resident", 2, 16), ("seeded", 1, 16), ("seeded", 2, 16),
+    ("streamed", 1, 16), ("streamed_rinocchio", 2, 16), ("seeded", 3, 1), ("streamed", 3, 1),
+], ids=lambda v: v if isinstance(v, str) else None)
+def test_rehearsal_encryption_through_replayed_kernels(replayed_prng, system, L, N):
+    """Each system's generator and prover with the lift, the encryption and
+    the MAC through the wrappers over the replayed libraries give the plain
+    keys and proof bit for bit (Z_q at N = 1 with its scalar lift); every
+    encryption makes one forward NTT, and launches `lift` and `encrypt`
+    and no `cbd_error` or `uniform`; the seeded batches' encryptions keep
+    no c1."""
+    install, per_call = replayed_prng
+    params = _params(L, N=N)
+    plain_kp, plain, _ = _generate_and_prove(system, params, 50 + L)
+    fake = install()
+    got_kp, got, ok = _generate_and_prove(system, params, 50 + L)
+    assert ok
+    for g, w in zip(interop.proof_to_numpy(got), interop.proof_to_numpy(plain)):
+        assert g[2] == w[2] and np.array_equal(g[0], w[0]) and np.array_equal(g[1], w[1])
+    if plain_kp is not None:
+        flat = [(k, np.asarray(v)) for k, v in _flatten(got_kp)]
+        assert [k for k, _ in flat] == [k for k, _ in _flatten(plain_kp)]
+        assert all(np.array_equal(v, w) for (_, v), (_, w) in zip(flat, _flatten(plain_kp)))
+    counts = cuda_prng.launch_counts
+    assert per_call and all(n == 1 for n in per_call), per_call
+    assert counts["encrypt"] == len(per_call) and counts["lift"] >= len(per_call)
+    assert counts["cbd_error"] == counts["uniform"] == 0
+    kinds = {(kind, err, scalar) for kind, err, scalar, *_ in fake.calls if kind == "lift"}
+    # Z_q's encryption lifts its slot to N' coefficients (the scalar mode);
+    # its operand stays [rows, L, L', 1] (a lift of width 1) under a broadcast
+    assert kinds == {("lift", True, N == 1), ("lift", False, False)}
+    # the seeded batches keep c0 alone; alpha, beta and gamma_io both halves
+    with_c1 = {c1 for kind, c1, *_ in fake.calls if kind == "encrypt"}
+    assert with_c1 == ({False, True} if system == "seeded" else {True})
+
+
+def _flatten(tree, prefix=""):
+    """(path, leaf) of a nested dict / list / tuple of arrays, in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flatten(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in _flatten(v, f"{prefix}/{i}")]
+    return [(prefix, tree)]
 
 
 # ---------------------------------------------------------------------------

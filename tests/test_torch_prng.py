@@ -151,3 +151,61 @@ def test_kernel_replay_equals_plain_draw(case):
     assert np.array_equal(got.reshape(want.shape), want)
     if math.prod(shape) > 0xFFFFFFFF:
         assert (geo.outer * geo.n_axis * geo.A * geo.I) > 1 << 32 and want.size < 1 << 16
+
+
+SASS = """
+        Function : _ZN39_GLOBAL__N__cd773981_7_prng_cu_7401b96114encrypt_kernelILb0EEEvPjS1_
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   IADD3 R4, R2, R3, RZ ;
+        /*0020*/              @!P0 BRA 0x60 ;
+        /*0030*/                   SHF.L.W.U32.HI R5, R4, 0xd, R4 ;
+        /*0040*/                   IMAD.IADD R6, R5, 0x1, R4 ;
+        /*0050*/                   POPC R7, R6 ;
+        /*0060*/                   LOP3.LUT R5, R6, R5, RZ, 0x3c, !PT ;
+        /*0070*/                   STG.E desc[UR4][R8.64], R5 ;
+        /*0080*/               @P1 BRA 0x30 ;
+        /*0090*/                   EXIT ;
+        /*00a0*/                   BRA 0xa0 ;
+        Function : _ZN38_GLOBAL__N__e8257140_6_ntt_cu_650b0a3510ntt_kernelILb1EEEvPKj
+        /*0000*/                   EXIT ;
+"""
+
+
+def test_sass_mix_reads_kernels_and_loops():
+    """scripts/sass_mix on a listing in cuobjdump's form: the kernels it
+    reads by name and template arguments (not the NTT's), the innermost
+    loop of a backward branch (not the trap that branches to itself), the
+    instructions by pipe, rotations and stores."""
+    from ringsnark_tpu_torch.scripts import sass_mix
+
+    funcs = sass_mix.functions(SASS)
+    assert list(funcs) == ["encrypt_kernel<0>"]
+    insns = funcs["encrypt_kernel<0>"]
+    assert sass_mix.innermost_loops(insns) == [(0x30, 0x80)]
+    loop = sass_mix.mix([(a, t) for a, t in insns if 0x30 <= a <= 0x80])
+    assert loop == {"instructions": 6, "alu": 2, "fma": 1, "xu": 1, "mem": 1, "uniform": 0,
+                    "control": 1, "other": 0, "rotations": 1, "stores": 1}
+    assert sass_mix.mix(insns)["instructions"] == 11
+
+
+@pytest.mark.parametrize("ops,nbytes,want", [
+    (dict(alu=44, fma=5, either=33), 8, "alu"),  # the encryption a word: the ALU binds
+    (dict(alu=1, fma=7), 0, "fma"),  # a MAC term: the multiplier binds
+    (dict(alu=30, fma=30, either=60), 0, "issue"),  # balanced: one instruction a lane a clock
+    (dict(popc=8), 0, "popc"),
+    (dict(alu=1), 4000, "bytes"),
+], ids=["alu", "fma", "issue", "popc", "bytes"])
+def test_chip_smoke_bound_takes_the_busiest_pipe(ops, nbytes, want):
+    """chip_smoke's bound: the larger of the bytes at the memory rate and
+    the busiest of the ALU, the FMA pipe's multiplier, popcount and the
+    issue rate, two-input adds spread over both pipes."""
+    import chip_smoke as cs
+
+    o = cs.Ops(**ops)
+    times = {"alu": o.alu / cs.ALU_OPS_PER_S, "fma": o.fma / cs.FMA_OPS_PER_S,
+             "popc": o.popc / cs.POPC_OPS_PER_S, "issue": sum(o) / cs.ISSUE_OPS_PER_S,
+             "bytes": nbytes / cs.HBM_BYTES_PER_S}
+    assert max(times, key=times.get) == want
+    ms, by = cs.prng_bound(o, nbytes)
+    assert ms == max(times.values()) * 1e3 and by == ("bytes" if want == "bytes" else "operations")
+    assert 2 * cs.HASH + cs.MOD == cs.Ops(alu=83, fma=2, either=62)
