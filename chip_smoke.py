@@ -55,7 +55,8 @@ traceback and exits nonzero without the final line:
 2e. the MAC kernels (`csrc/mac.cu`: `mac` with c1 given, `mac_drawn` with
    c1 drawn in registers) against `encoding.mac.mac_plain` on the same
    inputs (equal, max abs err 0) at the north star's row sub-chunk (512
-   rows, L=1, L'=4, N'=16384, two operands), Z_q's seeded sub-chunk with
+   rows, L=1, L'=4, N'=16384) with two operands and with one (the seeded
+   prove's `delta_ts` and `delta_mid`), Z_q's seeded sub-chunk with
    its broadcast operand (910 rows, L=3, L'=3, N'=4096) and logistic
    regression's resident chunk (128 rows, L=2, L'=4, N'=16384); each timed
    as in 2d beside its bound and the plain version's time.
@@ -925,10 +926,15 @@ ADD_MOD = Ops(alu=1, either=1)  # add, min
 LIFT_COLUMN = Ops(alu=3, either=2)
 LIFT_COEFF = Ops(alu=1)  # v > t/2
 ERROR_COLUMN = Ops(alu=1, either=1)  # e's residue: Q + e, select (e < 0 once a coefficient)
-# a MAC term: the 32 x 32 -> 64-bit product (1), the 64-bit multiply-high
-# of the Barrett step (4), the product by Q_j fused with the subtract (1),
-# the 64-bit add into the accumulator (1, IMAD.WIDE); min(r, r - Q_j)
-MAC_TERM = Ops(alu=1, fma=7)
+# a canonical MAC term a * w mod Q_j (a < 2^31, w < Q_j) with the operand
+# word's Shoup constant w_sh: umulhi(a, w_sh), a * w, and the product of
+# the quotient by Q_j fused with the subtract (3); r - Q_j and min(r, r -
+# Q_j); half of a pair's 32-bit add and half of its 64-bit add into the
+# accumulator (one IMAD.WIDE a pair)
+MAC_TERM = Ops(alu=1, fma=3, either=2)
+# an operand word's Shoup constant from mu_j = floor(2^64 / Q_j)'s halves:
+# w * mu_hi + umulhi(w, mu_lo), once a word for both components
+MAC_OPERAND = Ops(fma=2)
 
 
 def cbd_ops(n_words: int) -> Ops:
@@ -1040,7 +1046,11 @@ def prng_vs_plain(small: bool) -> dict:
                               ctx, sk.s_ntt, u, bgv._uniform_plain(ctx, k_a, batch, rows)))),
               f"bgv.encrypt != the plain schedule at {label}")
         del params, ctx, sk, slots, pt, u, out
+    held = set()
     for name, (make, P, _) in (SMALL_MAC_SHAPES if small else MAC_SHAPES).items():
+        if name.split("_P")[0] in held:  # one operand shape a configuration
+            continue
+        held.add(name)
         params = make()
         ring, ctx = params.ring, params.enc
         n = (encoding._chunk_rows(ctx, ctx.L_inner) if name == "logreg"
@@ -1068,17 +1078,21 @@ def prng_vs_plain(small: bool) -> dict:
 
 # phase 2e: the MAC kernels at the shapes the paths give them, rows from the
 # paths' own rules: the north star's row sub-chunk (seeded._sub_rows: 512
-# rows, L=1, L'=4, N'=16384; A and B together), Z_q's seeded sub-chunk with
-# its broadcast operand (910 rows at L=3, L'=3, N'=4096), logistic
-# regression's resident chunk (encoding._chunk_rows: 128 rows, L=2, L'=4,
-# N'=16384; one operand); (parameters, operands, the drawn c1's slab row lo)
+# rows, L=1, L'=4, N'=16384) with A and B together (`s_pows`) and with one
+# operand (`delta_ts`, `delta_mid`: two thirds of the seeded prove's
+# launches), Z_q's seeded sub-chunk with its broadcast operand (910 rows at
+# L=3, L'=3, N'=4096), logistic regression's resident chunk
+# (encoding._chunk_rows: 128 rows, L=2, L'=4, N'=16384; one operand);
+# (parameters, operands, the drawn c1's slab row lo)
 MAC_SHAPES = {
     "north_star": (lambda: make_params(FULL_STREAMED, "cuda"), 2, 1024),
+    "north_star_P1": (lambda: make_params(FULL_STREAMED, "cuda"), 1, 1536),
     "zq": (lambda: zq_params(3, 4096, 18), 2, 2730),
     "logreg": (lambda: make_circuit_params(REFERENCE_CIRCUITS["logreg"], "cuda"), 1, 0),
 }
 SMALL_MAC_SHAPES = {
     "north_star": (lambda: make_params(SMALL_STREAMED, "cuda"), 2, 64),
+    "north_star_P1": (lambda: make_params(SMALL_STREAMED, "cuda"), 1, 96),
     "zq": (lambda: zq_params(3, 512, 11), 2, 170),
     "logreg": (lambda: make_circuit_params(SMALL_CIRCUITS["logreg"], "cuda"), 1, 0),
 }
@@ -1130,12 +1144,12 @@ def mac_vs_plain(small: bool) -> dict:
         drawn = mac.Drawn(prng.key(47), (max(MAC_SLAB, lo + n),), (lo, lo + n))
         label = (f"{name} {n} rows, L={ctx.L} L'={ctx.L_inner} N'={ctx.n_inner}, P={P}"
                  f"{', broadcast operand' if bcast else ''}")
-        terms = 2 * P * n * width
-        nbytes = (P * 4 * n * (ctx.L * ctx.L_inner if bcast else width)
-                  + 2 * 2 * P * 8 * width)  # the operands; the accumulators in and out
+        words = P * n * (ctx.L * ctx.L_inner if bcast else width)  # the operands'
+        nbytes = 4 * words + 2 * 2 * P * 8 * width  # the accumulators in and out
+        mac_ops = 2 * P * n * width * MAC_TERM + words * MAC_OPERAND
         for kernel, c, ops, cbytes in (
-            ("mac", c1, terms * MAC_TERM, 8 * n * width),
-            ("mac_drawn", drawn, terms * MAC_TERM + n * width * (HASH + MOD), 4 * n * width),
+            ("mac", c1, mac_ops, 8 * n * width),
+            ("mac_drawn", drawn, mac_ops + n * width * (HASH + MOD), 4 * n * width),
         ):
             run = cuda_mac.mac if kernel == "mac" else cuda_mac.mac_drawn
 

@@ -51,7 +51,13 @@ def mac_rows(ctx: EncodingContext, level: int, c0: torch.Tensor, c1, pts, accs):
     (int64 ``[L, L'_lvl, N']`` pairs) in place, at `level`.  c0: int32 ``[n,
     L, L'_lvl, N']``; c1: the same, or `Drawn`; `pts`: inner-NTT operands
     ``[n_k, L, L'_lvl, N']`` (``bgv.plain_to_inner_ntt``; a Z_q operand is
-    broadcast over N'), 1 <= n_k <= n: rows past n_k pair with zero."""
+    broadcast over N'), 1 <= n_k <= n: rows past n_k pair with zero.
+
+    Every producer must hand over canonical operands: each word of `pts`
+    below Q_j and each word of c0, c1 in [0, 2^31).  On the card the
+    kernels' reduction is exact only there and nothing checks it, so a word
+    outside (a lazily reduced NTT output, say) gives a wrong sum where
+    `mac_plain` stays exact."""
     if _on_card(c0):
         if isinstance(c1, Drawn):
             cuda_mac.mac_drawn(ctx, level, c0, c1, pts, accs)

@@ -144,10 +144,11 @@ def column(k: prng.Key, span: int = 0, minval: int = 0) -> tuple:
             minval & _MASK)
 
 
-def uniform_columns(ctx, key: prng.Key) -> list:
-    """The columns of an encryption's uniform mask under `key` (its k_a):
-    inner prime j draws ``randint(split(key, L')[j], ..., Q_j)``."""
-    return [column(k, Q) for k, Q in zip(prng.split(key, ctx.L_inner), ctx.inner_primes)]
+def uniform_columns(primes, key: prng.Key) -> list:
+    """The columns of an encryption's uniform mask under `key` (its k_a)
+    over the context's inner primes: prime j draws ``randint(split(key,
+    L')[j], ..., Q_j)``."""
+    return [column(k, int(Q)) for k, Q in zip(prng.split(key, len(primes)), primes)]
 
 
 def _table(columns) -> np.ndarray:
@@ -261,7 +262,7 @@ def uniform(ctx, key: prng.Key, batch_shape, rows=None) -> torch.Tensor:
     """``bgv._sample_uniform`` on the card: int32 ``[*, L, L', N']``."""
     device = _check_device(ctx.device, "uniform")
     geo, sub = _enc_geometry(ctx, batch_shape, rows)
-    out = _draw(uniform_columns(ctx, key), geo, device)
+    out = _draw(uniform_columns(ctx.inner_primes, key), geo, device)
     return out.reshape(*sub[:-1], ctx.L_inner, ctx.n_inner)
 
 
@@ -352,7 +353,7 @@ def encrypt(ctx, sk, u: torch.Tensor, k_a: prng.Key, batch_shape, rows=None,
     if c0.shape != u.shape:
         raise ValueError(f"cuda_prng.encrypt (c0_out): shape {tuple(c0.shape)}, want {want}")
     if u.numel():
-        table = _table(uniform_columns(ctx, k_a))
+        table = _table(uniform_columns(ctx.inner_primes, k_a))
         _launch("encrypt", "ringsnark_prng_encrypt", device, c0.data_ptr(),
                 None if c1 is None else c1.data_ptr(), u.data_ptr(), sk.s_pairs.data_ptr(),
                 table.ctypes.data, ctx.L_inner, ctx.L, *geo.args())

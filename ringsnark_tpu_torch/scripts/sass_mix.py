@@ -14,7 +14,12 @@ multiplier), ``xu`` (POPC, FLO, BREV), ``mem`` (loads and stores),
 ``uniform`` (the uniform datapath, U*), ``control`` (branches and the
 like) and ``other``; beside them the funnel-shift rotations (``SHF.L.W``:
 20 a threefry2x32 word) and the global stores of a pass.  Conditional code
-inside a loop is counted whether it runs or not.  Needs ``nvcc`` and
+inside a loop is counted whether it runs or not.  The MAC kernels'
+(``mac_kernel<P,bcast>``, ``mac_drawn_kernel<P,bcast>``) loops that load
+rows are labelled ``rows``, with the rows a pass takes (its 16-byte loads
+over the ones a row needs: c0, c1 unless drawn, and each operand unless
+it is a broadcast) and the instructions per column and row (a thread
+takes four columns); any other loop of theirs is ``other``.  Needs ``nvcc`` and
 ``cuobjdump`` (PATH or $CUDA_HOME/bin); the card is not used.
 """
 
@@ -102,6 +107,23 @@ def mix(insns) -> dict:
         "stores": sum(o.startswith("STG") for o in ops)}
 
 
+def row_loop(name: str, loop: dict, insns) -> dict:
+    """The label of a MAC kernel's loop and, for a loop over rows, the rows
+    of a pass and the classes per column and row."""
+    m = re.fullmatch(r"(mac_kernel|mac_drawn_kernel)<(\d+),(\d+)>", name)
+    if not m:
+        return {}
+    P, bcast = int(m.group(2)), int(m.group(3))
+    per_row = (1 if m.group(1) == "mac_drawn_kernel" else 2) + (0 if bcast else P)
+    wide = sum(_opcode(t).startswith("LDG") and ".128" in _opcode(t) for _, t in insns)
+    if not wide or wide % per_row:
+        return {"label": "other"}
+    rows = wide // per_row
+    return {"label": "rows", "rows": rows,
+            "per_column_row": {k: loop[k] / (4 * rows) for k in (
+                "instructions", "alu", "fma", "xu", "mem", "uniform", "control", "other")}}
+
+
 def innermost_loops(insns) -> list:
     """(first, last) addresses of every loop with no loop inside it."""
     loops = []
@@ -118,9 +140,11 @@ def report(lib_path) -> dict:
                           text=True, check=True).stdout
     out = {}
     for name, insns in sorted(functions(sass).items()):
-        loops = [{"first": hex(a), "last": hex(b),
-                  **mix([(x, t) for x, t in insns if a <= x <= b])}
-                 for a, b in innermost_loops(insns)]
+        loops = []
+        for a, b in innermost_loops(insns):
+            body = [(x, t) for x, t in insns if a <= x <= b]
+            loop = {"first": hex(a), "last": hex(b), **mix(body)}
+            loops.append({**loop, **row_loop(name, loop, body)})
         out[name] = {**mix(insns), "loops": loops}
     return out
 

@@ -551,12 +551,14 @@ def test_prng_refused_launch_raises(cuda, monkeypatch):
 
 # The MAC (csrc/mac.cu, ops/cuda_mac.py) against encoding.mac.mac_plain on
 # the card, bit for bit, at the shapes the paths give it: the north star's
-# row sub-chunk (512 rows, L=1, L'=4, N'=16384, A and B together), Z_q's
+# row sub-chunk (512 rows, L=1, L'=4, N'=16384) with A and B together and
+# with one operand (the seeded prove's delta_ts and delta_mid), Z_q's
 # seeded sub-chunk with its broadcast operand (910 rows at L=3, L'=3,
 # N'=4096), logistic regression's resident chunk (128 rows, L=2, L'=4,
 # N'=16384); and at level 1 with five operands (two launches) of unequal rows.
 MAC_SHAPES = {
     "north_star": dict(params=(1, 8192, 16384, 18, 10), rows=(512, 512), L_inner=4),
+    "north_star_P1": dict(params=(1, 8192, 16384, 18, 10), rows=(512,), L_inner=4),
     "zq": dict(params=(3, 1, 4096, 18, 4), rows=(910, 910), L_inner=3),
     "logreg": dict(circuit=(2048, 16384, 2050), rows=(128,), L_inner=4),
     "level1_five": dict(params=(2, 64, 4096, 6, 4), rows=(300, 300, 299, 5, 1), L_inner=3,
@@ -625,6 +627,36 @@ def test_mac_kernels_equal_plain(cuda, shape, drawn):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["north_star", "zq", "logreg"])
+def test_mac_takes_its_producers_words(cuda, shape):
+    """The kernels' reduction is exact only for canonical words (csrc/mac.cu's
+    head): the operands as plain_to_inner_ntt gives them and c0, c1 as the
+    encryption gives them, at the paths' full shapes, lie in [0, Q_j), and
+    the kernels' sums over them are mac_plain's.  A lazily reduced NTT or
+    encryption fails here, not in a proof."""
+    import numpy as np
+
+    from ringsnark_tpu_torch.encoding import bgv, keygen, mac
+    from ringsnark_tpu_torch.utils import prng
+
+    ctx, level, _, _, pts = _mac_inputs(shape, seed=11)
+    n, ring = pts[0].shape[0], ctx.ring
+    g = torch.Generator(device="cuda").manual_seed(12)
+    slots = torch.cat([torch.randint(0, p, (n, 1, ring.N), generator=g, dtype=torch.int32,
+                                     device="cuda") for p in ring.primes], dim=1)
+    _, sk = keygen(ctx, np.random.default_rng(13))
+    c0, c1 = bgv.encrypt(ctx, sk, slots, prng.key(14))
+    Q = torch.tensor(ctx.level_primes(level), dtype=torch.int32, device="cuda")[:, None]
+    for x in (*pts, c0, c1):
+        assert bool((x >= 0).all()) and bool((x < Q).all())
+    got, want = _mac_accs(ctx, level, len(pts)), _mac_accs(ctx, level, len(pts))
+    mac.mac_rows(ctx, level, c0, c1, pts, got)
+    mac.mac_plain(ctx, level, c0, c1, pts, want)
+    for (g0, g1), (w0, w1) in zip(got, want):
+        assert torch.equal(g0, w0) and torch.equal(g1, w1)
+
+
+@pytest.mark.gpu
 def test_mac_drawn_equals_mac_over_the_uniform_draw(cuda):
     """The c1 that mac_drawn draws in registers is cuda_prng.uniform's: the
     same sums as mac over the draw_kernel's words."""
@@ -662,6 +694,28 @@ def test_mac_refused_launch_raises(cuda, monkeypatch):
     cuda_mac.mac(ctx, level, c0, c1, pts, got)
     mac.mac_plain(ctx, level, c0, c1, pts, want)
     assert all(torch.equal(g, w) for g, w in zip(got[0], want[0]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("field", [5, 7], ids=["multiplier", "minval"])
+def test_mac_drawn_launcher_refuses_a_two_word_column(cuda, monkeypatch, field):
+    """The C launcher takes only key columns drawn with one word and no
+    offset (every inner prime's): a table that slips past the wrapper with
+    a multiplier or a minval raises and counts nothing."""
+    from ringsnark_tpu_torch.encoding import mac
+    from ringsnark_tpu_torch.ops import cuda_mac
+    from ringsnark_tpu_torch.utils import prng
+
+    ctx, level, c0, _, pts = _mac_inputs("logreg", seed=4)
+    n = c0.shape[0]
+    table = cuda_mac._drawn_table(tuple(ctx.inner_primes), tuple(prng.key(53))).copy()
+    table[0, field] = 225
+    before = dict(cuda_mac.launch_counts)
+    monkeypatch.setattr(cuda_mac, "_drawn_table", lambda primes, key: table)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cuda_mac.mac_drawn(ctx, level, c0, mac.Drawn(prng.key(53), (n,), (0, n)), pts,
+                           _mac_accs(ctx, level, 1))
+    assert cuda_mac.launch_counts == before
 
 
 @pytest.mark.gpu

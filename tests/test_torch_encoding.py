@@ -346,7 +346,7 @@ def test_kernel_replay_equals_plain_uniform_and_error(pair, case):
     geo = cuda_prng.geometry(shape, rows, 0)
 
     a = bgv._sample_uniform(ctx, key, batch, rows)
-    got = prng_replay.draw(cuda_prng.uniform_columns(ctx, key), geo)
+    got = prng_replay.draw(cuda_prng.uniform_columns(ctx.inner_primes, key), geo)
     assert np.array_equal(got.reshape(a.shape), _host(a))
 
     e = bgv._sample_error_coeffs(ctx, key, batch, rows)
@@ -384,7 +384,7 @@ def test_kernel_constants_and_encrypt_replay_equal_plain(pair, case):
 
     key = prng.key(70)
     k_a, k_e = prng.split(key)
-    cols = cuda_prng.uniform_columns(ctx, k_a)
+    cols = cuda_prng.uniform_columns(ctx.inner_primes, k_a)
     for kj, Q, col in zip(prng.split(k_a, ctx.L_inner), ctx.inner_primes, cols):
         k_hi, k_lo = prng.split(kj)
         assert col == (*k_lo, *k_hi, Q, 0, (1 << 32) // Q, 0)

@@ -6,11 +6,14 @@ the CPU, exact (`==`: the arithmetic is modular integer):
   provers themselves stay held to the JAX package by test_torch_seeded.py,
   test_torch_streamed.py and test_torch_rinocchio.py;
 * both kernels' schedules replayed in numpy (`tests/mac_replay.py`, with
-  the wrapper's own row split, column tiling and Barrett constants, and
-  `prng_replay` for the drawn c1) equal `mac_plain`: primes just under
-  2^31 with terms near p^2, a row count that is not a multiple of the
-  split and one row, a level above 0, one and two operands, the Z_q
-  broadcast operand;
+  the launcher's persistent walk at 1 to 1000 resident CTAs, the column
+  tiling, the operand's Shoup constant and the pair sums in 32 bits, and
+  `prng_replay` for the drawn c1 at the 32-bit counter halves) equal
+  `mac_plain`: primes just under 2^31 with terms near p^2, every word at
+  Q_j - 1, the smallest and largest primes the contexts make, a row count
+  that is odd and one row, a level above 0, one to four operands, the Z_q
+  broadcast operand, and the seeded prove's one-operand sub-chunk at a
+  slab's offset (its last short sub-chunk);
 * a rehearsal: with `cuda_mac._lib()` replaced by the replay over host
   memory, the resident, seeded and streamed provers (ringGroth16 and
   Rinocchio) at L = 1, 2 and the Z_q provers run through the wrappers and
@@ -19,10 +22,12 @@ the CPU, exact (`==`: the arithmetic is modular integer):
   generator and prover encrypts and lifts through the card's schedule (one
   forward NTT an encryption) and gives the plain keys and proofs;
 * a tensor on the card never reaches `mac_plain`, and the wrapper refuses
-  what the kernels do not take.
+  what the kernels do not take, a modulus the reduction does not take
+  among it.
 """
 
 import contextlib
+import functools
 from types import SimpleNamespace
 
 import numpy as np
@@ -32,27 +37,41 @@ import torch
 import mac_replay
 import prng_replay
 from ringsnark_tpu_torch.encoding import EncodingContext, bgv, mac
-from ringsnark_tpu_torch.encoding.context import default_inner_primes
+from ringsnark_tpu_torch.encoding.context import _HE_STD_128, default_inner_primes
 from ringsnark_tpu_torch.ops import cuda_mac, cuda_prng
 from ringsnark_tpu_torch.ops import ntt as tntt
 from ringsnark_tpu_torch.rings.context import default_context
 from ringsnark_tpu_torch.utils import interop, prng
 
 
-def _ctx(L: int, n_inner: int, L_inner: int, N: int = 8) -> EncodingContext:
-    """Inner primes just under 2^31 (the largest = 1 mod 2N')."""
-    ring = default_context(L=L, N=N, order=2 * n_inner, device="cpu")
-    return EncodingContext(ring=ring, n_inner=n_inner,
-                           inner_primes=default_inner_primes(n_inner, ring.primes, L_inner))
+def _ctx(L: int, n_inner: int, L_inner: int, N: int = 8, primes=None) -> EncodingContext:
+    """Inner primes just under 2^31 (the largest = 1 mod 2N'), or `primes`
+    (the ring's then = 1 mod 4096, so none is one of them)."""
+    ring = default_context(L=L, N=N, order=4096 if primes else 2 * n_inner, device="cpu")
+    return EncodingContext(ring=ring, n_inner=n_inner, inner_primes=primes or
+                           default_inner_primes(n_inner, ring.primes, L_inner))
 
 
-def _residues(rng, ctx, level: int, rows: int, extreme: bool, width=None) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _context_primes() -> tuple:
+    """(smallest, largest) inner prime that the contexts make: every degree
+    of the security table at its whole budget, and the test degrees."""
+    primes = [p for n in _HE_STD_128 for p in default_inner_primes(n, ())]
+    primes += [p for n in (64, 256, 512) for p in default_inner_primes(n, (), 4)]
+    assert all((p - 1) % 128 == 0 for p in primes)  # an inner prime of N' = 64
+    return min(primes), max(primes)
+
+
+def _residues(rng, ctx, level: int, rows: int, extreme, width=None) -> torch.Tensor:
     """int32 [rows, L, C, width or N'] below each Q_j; `extreme`: half the
-    words within 16 of Q_j - 1, so terms come near Q_j^2."""
+    words within 16 of Q_j - 1, so terms come near Q_j^2; "top": every word
+    Q_j - 1."""
     primes = np.array(ctx.level_primes(level), dtype=np.int64)[None, None, :, None]
     shape = (rows, ctx.L, len(ctx.level_primes(level)), width or ctx.n_inner)
     x = rng.integers(0, primes, shape, dtype=np.int64)
-    if extreme:
+    if extreme == "top":
+        x = np.broadcast_to(primes - 1, shape)
+    elif extreme:
         near = primes - 1 - rng.integers(0, 16, shape, dtype=np.int64)
         x = np.where(rng.random(shape) < 0.5, near, x)
     return torch.from_numpy(x.astype(np.int32))
@@ -134,14 +153,27 @@ def test_mac_rows_drawn_on_cpu_equals_inline_over_the_draw():
 # ---------------------------------------------------------------------------
 
 REPLAY_CASES = {
-    # the north star's width (L=1, L'=4, N'=16384): 40 rows split 3 a split
-    "north_star_P2_ragged": dict(L=1, Lp=4, n_inner=16384, level=0, n=40, rows=(40, 27)),
-    "north_star_one_row": dict(L=1, Lp=4, n_inner=16384, level=0, n=1, rows=(1,)),
-    "level1_P2": dict(L=2, Lp=4, n_inner=512, level=1, n=33, rows=(33, 33)),
-    "narrow_P1_ragged": dict(L=1, Lp=2, n_inner=256, level=0, n=1501, rows=(1501,)),
+    # the north star's width (L=1, L'=4, N'=16384): 40 rows over 7 CTAs
+    "north_star_P2_ragged": dict(L=1, Lp=4, n_inner=16384, level=0, n=40, rows=(40, 27),
+                                 ctas=7),
+    "north_star_one_row": dict(L=1, Lp=4, n_inner=16384, level=0, n=1, rows=(1,), ctas=1000),
+    # the seeded prove's one-operand sub-chunk: a slab's last, short one
+    # (rows 1536..1573 of a 4096-row slab), one CTA a tile and a half
+    "seeded_P1_last_sub_chunk": dict(L=1, Lp=4, n_inner=16384, level=0, n=37, rows=(37,),
+                                     ctas=97, slab=4096, lo=1536),
+    "level1_P2": dict(L=2, Lp=4, n_inner=512, level=1, n=33, rows=(33, 33), ctas=3),
+    "narrow_P1_ragged": dict(L=1, Lp=2, n_inner=256, level=0, n=1501, rows=(1501,), ctas=5),
     "zq_broadcast_P2": dict(L=1, Lp=3, n_inner=4096, level=0, n=50, rows=(50, 37), bcast=True,
-                            N=1),
-    "rinocchio_P4": dict(L=1, Lp=3, n_inner=512, level=0, n=70, rows=(70, 70, 69, 12)),
+                            N=1, ctas=11),
+    "rinocchio_P4": dict(L=1, Lp=3, n_inner=512, level=0, n=70, rows=(70, 70, 69, 12), ctas=1),
+    # every word Q_j - 1: the largest terms, pair sums 2 (Q_j - 1)^2 mod Q_j
+    "every_word_q_minus_1": dict(L=2, Lp=3, n_inner=256, level=0, n=9, rows=(9, 4),
+                                 extreme="top", ctas=4),
+    # the extreme primes the contexts make, with extreme words
+    "smallest_context_prime": dict(L=1, Lp=1, n_inner=64, level=0, n=21, rows=(21, 20),
+                                   prime=0, ctas=2),
+    "largest_context_prime": dict(L=1, Lp=1, n_inner=64, level=0, n=21, rows=(21,),
+                                  prime=1, extreme="top", ctas=6),
 }
 
 
@@ -152,19 +184,16 @@ REPLAY_CASES = {
 def test_kernel_replay_equals_plain(case, drawn):
     cfg = REPLAY_CASES[case]
     rng = np.random.default_rng(sum(map(ord, case)))
-    ctx = _ctx(cfg["L"], cfg["n_inner"], cfg["Lp"], cfg.get("N", 8))
+    primes = (_context_primes()[cfg["prime"]],) if "prime" in cfg else None
+    ctx = _ctx(cfg["L"], cfg["n_inner"], cfg["Lp"], cfg.get("N", 8), primes)
     level, n, bcast = cfg["level"], cfg["n"], cfg.get("bcast", False)
-    width = ctx.L * (ctx.L_inner - level) * ctx.n_inner
-    blocks, splits, rps = cuda_mac.plan(n, width)
-    assert blocks * mac_replay.THREADS * mac_replay.VEC >= width and (splits - 1) * rps < n
-    if case.endswith("ragged"):
-        assert rps > 1 and n % rps, "the last split is short"
+    extreme = cfg.get("extreme", True)
     q, mu = cuda_mac.barrett(ctx.level_primes(level))
-    c0 = _residues(rng, ctx, level, n, True)
-    slab, lo = n + 11, 5
+    c0 = _residues(rng, ctx, level, n, extreme)
+    slab, lo = cfg.get("slab", n + 11), cfg.get("lo", 5)
     c1 = mac.Drawn(prng.key(len(case)), (slab,), (lo, lo + n)) if drawn else \
-        _residues(rng, ctx, level, n, True)
-    pts = [_residues(rng, ctx, level, r, True, 1 if bcast else None) for r in cfg["rows"]]
+        _residues(rng, ctx, level, n, extreme)
+    pts = [_residues(rng, ctx, level, r, extreme, 1 if bcast else None) for r in cfg["rows"]]
     if bcast:
         pts = [pt.expand(*pt.shape[:-1], ctx.n_inner) for pt in pts]
     accs = _accs(rng, ctx, level, len(pts))
@@ -174,32 +203,49 @@ def test_kernel_replay_equals_plain(case, drawn):
     host_pts = [_host(pt[..., 0] if bcast else pt) for pt in pts]
     if drawn:
         geo, _ = cuda_prng._enc_geometry(ctx, c1.batch_shape, c1.rows)
-        table = cuda_prng._table(cuda_prng.uniform_columns(ctx, c1.key)).astype(np.uint64)
-        mac_replay.mac(_host(c0), None, host_pts, bcast, got, q, mu, rps,
+        table = cuda_prng._table(cuda_prng.uniform_columns(ctx.inner_primes, c1.key)).astype(np.uint64)
+        mac_replay.mac(_host(c0), None, host_pts, bcast, got, q, mu, cfg["ctas"],
                        (table, geo.n_axis, geo.lo))
     else:
-        mac_replay.mac(_host(c0), _host(c1), host_pts, bcast, got, q, mu, rps)
+        mac_replay.mac(_host(c0), _host(c1), host_pts, bcast, got, q, mu, cfg["ctas"])
     for (g0, g1), (w0, w1) in zip(got, want):
         assert np.array_equal(g0, w0.numpy()) and np.array_equal(g1, w1.numpy())
 
 
 def test_plan_and_barrett_constants():
-    """The plan takes at least half of CTAS where the rows allow (rows
-    split evenly, so a split count rounds down) and never exceeds the
-    grid; mu_j = floor(2^64 / Q_j) reduces every product of two words
-    below 2^32 (the extremes of the multiply-high)."""
-    for n, width in ((512, 65536), (2730, 12288), (128, 131072), (1, 64), (10 ** 6, 4)):
-        blocks, splits, rps = cuda_mac.plan(n, width)
-        assert splits <= 65535 and (splits - 1) * rps < n <= splits * rps
-        assert 2 * blocks * splits >= min(cuda_mac.CTAS, blocks * n)
-    primes = default_inner_primes(16384, (), 4) + (3, 65537)
+    """The launcher's walk takes every (tile, row) unit once at any number
+    of CTAs, a run never crossing a tile; mu_j = floor(2^64 / Q_j); each
+    operand word's Shoup constant is floor(w 2^32 / Q_j) or one less, and
+    the term's reduction is exact at the extreme words (0, 1, Q_j - 1, c
+    words up to 2^31 - 1) for the smallest and largest primes the contexts
+    make and across the moduli it takes, [2, 2^31); `barrett` refuses any
+    other modulus by name."""
+    for n, width, ctas in ((512, 65536, 264), (37, 65536, 97), (910, 36864, 396),
+                           (1, 64, 8), (7, 3 * mac_replay.TILE, 1000), (10 ** 4, 4, 3)):
+        runs = mac_replay.walk(n, width, ctas)
+        assert all(0 <= r < r + rows <= n for _, r, rows in runs)
+        assert len(runs) <= min(ctas, -(-width // mac_replay.TILE) * n) - 1 + \
+            -(-width // mac_replay.TILE)
+    primes = (*_context_primes(), 2, 3, 65537, (1 << 31) - 1)
     q, mu = cuda_mac.barrett(primes)
-    words = np.array([0, 1, 2, (1 << 31) - 1, (1 << 32) - 1, 65536, 12345678], np.uint64)
-    a, b = np.meshgrid(words, words)
+    assert [int(m) for m in mu] == [(1 << 64) // p for p in primes]
+    rng = np.random.default_rng(6)
     for p, m in zip(q.astype(np.uint64), mu):
-        got = mac_replay.mul_mod_exact(a.ravel(), b.ravel(), p, m)
-        want = [int(x) * int(y) % int(p) for x, y in zip(a.ravel(), b.ravel())]
-        assert got.tolist() == want
+        P = int(p)
+        w = np.unique(np.array([0, 1, 2, P // 2, P - 2, P - 1, *rng.integers(0, P, 8)],
+                               np.uint64) % p)
+        a = np.unique(np.array([0, 1, P - 1, (1 << 31) - 1, (1 << 31) - 2,
+                                *rng.integers(0, 1 << 31, 8)], np.uint64))
+        w_sh = mac_replay.shoup_of(w, m)
+        exact = np.array([(int(x) << 32) // P for x in w], np.uint64)
+        assert ((w_sh == exact) | (w_sh + np.uint64(1) == exact)).all()
+        aa, ww = np.meshgrid(a, w)
+        hh = np.broadcast_to(w_sh[:, None], ww.shape)
+        got = mac_replay.mul_mod(aa.ravel(), ww.ravel(), hh.ravel(), p)
+        assert got.tolist() == [int(x) * int(y) % P for x, y in zip(aa.ravel(), ww.ravel())]
+    for bad in (0, 1, 1 << 31, (1 << 31) + 11, (1 << 32) - 5):
+        with pytest.raises(ValueError, match=f"modulus {bad} "):
+            cuda_mac.barrett((_context_primes()[1], bad))
 
 
 # ---------------------------------------------------------------------------
@@ -457,6 +503,41 @@ def test_wrapper_refuses(monkeypatch, case):
     assert cuda_mac.launch_counts == before
 
 
+_OUTSIDE = "is outside"
+_TWO_WORDS = "draws two words"
+
+
+@pytest.mark.parametrize("modulus, drawn, refusal", [
+    pytest.param((1 << 31) + 11, False, _OUTSIDE, id="mac-prime_above_2^31"),
+    pytest.param(1 << 31, False, _OUTSIDE, id="mac-2^31"),
+    pytest.param((1 << 31) + 11, True, _OUTSIDE, id="mac_drawn-prime_above_2^31"),
+    pytest.param(1 << 31, True, _OUTSIDE, id="mac_drawn-2^31"),
+    # a span up to 2^16 draws a high word too (JAX's multiplier 225 here)
+    pytest.param(65521, True, _TWO_WORDS, id="mac_drawn-prime_below_2^16"),
+])
+def test_wrapper_refuses_a_modulus_the_reduction_does_not_take(monkeypatch, modulus, drawn,
+                                                              refusal):
+    """A modulus outside [2, 2^31) (2 Q_j would not fit 32 bits), or for a
+    drawn c1 one whose draw takes two words, is refused by name before any
+    launch: nothing switches to another reduction or draw."""
+    rng = np.random.default_rng(8)
+    ctx = _ctx(1, 64, 2)
+    c = _residues(rng, ctx, 0, 4, False)
+    primes = (ctx.inner_primes[0], modulus)
+    wide = SimpleNamespace(L=ctx.L, L_inner=2, n_inner=ctx.n_inner,
+                           inner_primes=primes, level_primes=lambda level: primes[level:])
+    monkeypatch.setattr(cuda_mac, "_check_device", lambda x, name: None)
+    monkeypatch.setattr(cuda_mac, "_lib", lambda: pytest.fail("launched a refused call"))
+    before = dict(cuda_mac.launch_counts)
+    with pytest.raises(ValueError, match=f"modulus {modulus} {refusal}"):
+        if drawn:
+            cuda_mac.mac_drawn(wide, 0, c, mac.Drawn(prng.key(1), (4,), (0, 4)), [c],
+                               _accs(rng, ctx, 0, 1))
+        else:
+            cuda_mac.mac(wide, 0, c, c, [c], _accs(rng, ctx, 0, 1))
+    assert cuda_mac.launch_counts == before
+
+
 def test_drawn_rows_must_be_c0s(monkeypatch):
     rng = np.random.default_rng(3)
     ctx = _ctx(1, 64, 2)
@@ -465,3 +546,44 @@ def test_drawn_rows_must_be_c0s(monkeypatch):
     with pytest.raises(ValueError, match="not c0's"):
         cuda_mac.mac_drawn(ctx, 0, c, mac.Drawn(prng.key(1), (8,), (0, 5)), [c],
                            _accs(rng, ctx, 0, 1))
+
+
+MAC_SASS = """
+        Function : _ZN38_GLOBAL__N__0b7f743a_6_mac_cu_a304b63e16mac_drawn_kernelILi2ELb0EEEvPKj
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0020*/                   LDG.E.128.CONSTANT R8, desc[UR4][R2.64+0x10] ;
+        /*0030*/              @!P0 LDG.E.128.CONSTANT R12, desc[UR4][R2.64+0x20] ;
+        /*0040*/              @!P0 LDG.E.128.CONSTANT R16, desc[UR4][R2.64+0x30] ;
+        /*0050*/                   LDG.E.128.CONSTANT R20, desc[UR4][R2.64+0x40] ;
+        /*0060*/                   LDG.E.128.CONSTANT R24, desc[UR4][R2.64+0x50] ;
+        /*0070*/                   IMAD.HI.U32 R5, R4, R6, RZ ;
+        /*0080*/                   SHF.L.W.U32.HI R7, R4, 0xd, R4 ;
+        /*0090*/                   VIMNMX.U32 R5, R5, R7, PT ;
+        /*00a0*/               @P1 BRA 0x10 ;
+        /*00b0*/                   ATOMG.E.ADD.64.STRONG.GPU PT, R2, desc[UR4][R8.64], R4 ;
+        /*00c0*/               @P2 BRA 0xb0 ;
+        /*00d0*/                   EXIT ;
+"""
+
+
+def test_sass_mix_labels_the_mac_row_loops():
+    """scripts/sass_mix names a MAC kernel's loop over rows `rows`, takes its
+    rows a pass from the 16-byte loads (c0 and two operands a row for
+    mac_drawn_kernel<2,0>: six loads, two rows) and gives its classes per
+    column and row (four columns a thread); a loop with no row loads is
+    `other`."""
+    from ringsnark_tpu_torch.scripts import sass_mix
+
+    insns = sass_mix.functions(MAC_SASS)["mac_drawn_kernel<2,0>"]
+    loops = sass_mix.innermost_loops(insns)
+    assert loops == [(0x10, 0xa0), (0xb0, 0xc0)]
+    got = []
+    for a, b in loops:
+        body = [(x, t) for x, t in insns if a <= x <= b]
+        got.append(sass_mix.row_loop("mac_drawn_kernel<2,0>", sass_mix.mix(body), body))
+    assert got[0]["label"] == "rows" and got[0]["rows"] == 2
+    assert got[0]["per_column_row"]["instructions"] == 10 / 8
+    assert got[0]["per_column_row"]["fma"] == 1 / 8 and got[0]["per_column_row"]["mem"] == 6 / 8
+    assert got[1] == {"label": "other"}
+    assert sass_mix.row_loop("encrypt_kernel<0>", sass_mix.mix(body), body) == {}
