@@ -12,9 +12,9 @@ traceback and exits nonzero without the final line:
 0. environment: torch/CUDA versions, nvcc, the card's name and power limit;
    fails without CUDA.
 1. build the kernels' library from `ringsnark_tpu_torch/csrc/ntt.cu`,
-   `csrc/prng.cu` and `csrc/mac.cu` in one nvcc call (or reuse the library
-   of these exact sources, with the compiler output kept beside it);
-   `ptxas` must report no register spills.
+   `csrc/prng.cu`, `csrc/mac.cu` and `csrc/witness.cu` in one nvcc call (or
+   reuse the library of these exact sources, with the compiler output kept
+   beside it); `ptxas` must report no register spills.
 2. the shared-memory kernel against its plain PyTorch twin, on the card:
    every mode at every shape the resident path uses, and at the streamed
    path's encryption shapes ([512, 1, 4, 16384] forward, [512, 1, 16384]
@@ -60,6 +60,18 @@ traceback and exits nonzero without the final line:
    its broadcast operand (910 rows, L=3, L'=3, N'=4096) and logistic
    regression's resident chunk (128 rows, L=2, L'=4, N'=16384); each timed
    as in 2d beside its bound and the plain version's time.
+2f. the witness map's kernels (`csrc/witness.cu`: `spmv`, `mulmod`) against
+   their plain versions (the int64 `spmv` with the assignment's
+   concatenation and the layout's copy; `modops.mul_mod`, `add_mod`) on the
+   same inputs (equal, max abs err 0): A and B of the north star's slot
+   chunk ([2^18, 1, 1024] slot-major, the assignment read in place as its
+   three row blocks), of the seeded shape ([2^16, 1, 1024]) and of Z_q
+   ([2^18, 3, 1]), logistic regression's three matrices at its published
+   shape, the transposed instance map at n = 1; `mulmod` on the size-2M
+   product [1024, 1, 2^19] (and in place), the ZK patch [1024, 1, 2^16]
+   with b a slot's constant and c added, Z_q's [1, 3, 2^19]; each timed
+   eager and as a CUDA graph with the L2 evicted before every call, beside
+   its bound (the bytes the function needs) and the plain version's time.
 3. the resident main path (M=2^14) through the package API: ringGroth16
    `generator` -> `prover` (cold, then warm: the two proofs must be
    identical) -> `verifier` (True), and `verifier` with one public input
@@ -70,7 +82,10 @@ traceback and exits nonzero without the final line:
    (7, 8, 14b) must launch `lift`, `encrypt` and `mac`, the seeded ones (5,
    14d) `mac_drawn` (c1 drawn in the MAC's registers; no `uniform` draw
    writes it); the frontend's circuits, the keys, the sharded provers and
-   the examples `lift`, `encrypt` and `mac`.  From phase 3 to 14 every
+   the examples `lift`, `encrypt` and `mac`; every prover path `spmv`, and
+   `mulmod` where M > 1 (the resident, seeded, streamed, Rinocchio, Z_q,
+   keys and sharded paths; `spmv` on the frontend's circuits and the
+   examples).  From phase 3 to 14 every
    encryption on the card must launch one forward NTT, one `lift` and one
    `encrypt` (`one_ntt_per_encryption`).
 4. small-input cross-check: a keypair made on the card, carried to the CPU,
@@ -186,16 +201,20 @@ The line before the last is a JSON object with the kernels' launch counts
 (per path, `sharded`, `zq`, `zq_seeded` and `examples` among them; the
 negacyclic entries carry 14a's numbers under `north_star`; the PRNG
 kernels as `prng_<kernel>`, with every phase-2d shape under `shapes`; the
-MAC kernels as `mac` and `mac_drawn`, with every phase-2e shape),
+MAC kernels as `mac` and `mac_drawn`, with every phase-2e shape; the
+witness map's as `spmv` and `mulmod`, with every phase-2f shape; `spmv`
+counts calls, `merge_launches` those of `spmv_merge_kernel`, whose time is
+inside `spmv`'s),
 errors, times (`ms`: CUDA events around eager calls, the host's wrapper
-in them, in every phase; `graph_ms`: the device alone, from a replayed
-CUDA graph, for the PRNG, lift, encryption and MAC kernels and 14a's
+in them, in every phase, one call after an L2 eviction in 2f; `graph_ms`:
+the device alone, from a replayed
+CUDA graph, for the PRNG, lift, encryption, MAC and witness kernels and 14a's
 north-star NTT, null where a phase does not take it), bounds
 (`bound_ms`, `bound_by`, `share_of_bound` of `ms`,
 `graph_share_of_bound`)
 and `library_ms` (null: no PyTorch call computes an NTT modulo a prime,
 nor threefry2x32: `torch`'s generators are Philox, nor sum (c * pt mod
-Q_j));
+Q_j), nor sum (c * z mod p));
 the last line is
 `{"ok": true, "device": {...}}`.  This script imports nothing of JAX.
 """
@@ -208,6 +227,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -300,23 +320,25 @@ def add_counts(total: dict, counts: dict) -> dict:
 
 
 def reset_counts():
-    """Every kernel wrapper's launch count to 0: the NTT's, the PRNG's and
-    the MAC's."""
-    from ringsnark_tpu_torch.ops import cuda_mac, cuda_ntt, cuda_prng
+    """Every kernel wrapper's launch count to 0: the NTT's, the PRNG's, the
+    MAC's and the witness map's."""
+    from ringsnark_tpu_torch.ops import cuda_mac, cuda_ntt, cuda_prng, cuda_witness
 
     cuda_ntt.reset_launch_counts()
     cuda_prng.reset_launch_counts()
     cuda_mac.reset_launch_counts()
+    cuda_witness.reset_launch_counts()
 
 
 def read_counts() -> dict:
     """The launch count of every kernel wrapper, the PRNG's as prng_<kernel>,
-    the MAC's as `mac` and `mac_drawn`."""
-    from ringsnark_tpu_torch.ops import cuda_mac, cuda_ntt, cuda_prng
+    the MAC's as `mac` and `mac_drawn`, the witness map's as `spmv` and
+    `mulmod`."""
+    from ringsnark_tpu_torch.ops import cuda_mac, cuda_ntt, cuda_prng, cuda_witness
 
     return {**cuda_ntt.launch_counts,
             **{f"prng_{k}": n for k, n in cuda_prng.launch_counts.items()},
-            **cuda_mac.launch_counts}
+            **cuda_mac.launch_counts, **cuda_witness.launch_counts}
 
 
 def open_world(card: str):
@@ -594,6 +616,47 @@ def graph_ms(fn, iters=10):
     del graph
     torch.cuda.empty_cache()
     return start.elapsed_time(end) / iters
+
+
+L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
+L2_DRAIN_CYCLES = 1 << 20  # ~0.5 ms of the card's clock
+
+
+def cold_ms(fn, graph: bool, iters=10):
+    """Median time of one call of `fn`, each between two events after a
+    write of L2_FLUSH_BYTES has evicted the L2, so no input is read from the
+    L2 that a caller would find cold: eager (the host's wrapper in it), or
+    where `graph` one call captured in a CUDA graph and replayed (the device
+    alone)."""
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+    if graph:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm up off the capture, as torch asks
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            fn()
+        call = g.replay
+    else:
+        call = fn
+    call()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(iters)]
+    for start, end in pairs:
+        flush.zero_()
+        torch.cuda._sleep(L2_DRAIN_CYCLES)  # the flush's writes drain before the call
+        start.record()
+        call()
+        end.record()
+    torch.cuda.synchronize()
+    out = statistics.median(start.elapsed_time(end) for start, end in pairs)
+    del flush, call
+    if graph:
+        del g
+    torch.cuda.empty_cache()
+    return out
 
 
 def equal_to_plain(label, primes, size, negacyclic, rows, gen, report):
@@ -1183,6 +1246,179 @@ def mac_vs_plain(small: bool) -> dict:
     return report
 
 
+# phase 2f: the witness map's kernels at the shapes the paths give them:
+# (label, parameters, log2 M, the evaluation's slot window, layout or mode)
+WITNESS_SOURCE = "ringsnark_tpu_torch/csrc/witness.cu"
+# the JAX package computes the map with XLA (no Pallas kernel): each names
+# the function it is the counterpart of
+WITNESS_REPLACES = {
+    "spmv": "ringsnark_tpu/relations/r1cs.py:222",  # eval_matrices: gather, mul_mod, segment_sum
+    "mulmod": "ringsnark_tpu/reductions/r1cs_to_qrp.py:444",  # _witness_map_kernel's product
+}
+WITNESS_SHAPES = {
+    "north_star": (lambda: make_params(FULL_STREAMED, "cuda"), 18, 1024),
+    "seeded": (lambda: make_params(FULL_SEEDED, "cuda"), 16, 1024),
+    "zq": (lambda: zq_params(3, 4096, 18), 18, 1),
+}
+SMALL_WITNESS_SHAPES = {
+    "north_star": (lambda: make_params(SMALL_STREAMED, "cuda"), 11, 32),
+    "seeded": (lambda: make_params(SMALL_SEEDED, "cuda"), 9, 32),
+    "zq": (lambda: zq_params(3, 512, 11), 11, 1),
+}
+# a canonical term z * c mod p, the coefficient's Shoup constant made from
+# mu's halves, added into the canonical sum; a product a * b mod p the same
+# way (+ ADD_MOD with c)
+SPMV_TERM = MAC_OPERAND + SHOUP + ADD_MOD
+
+
+def witness_vs_plain(small: bool) -> dict:
+    """Phase 2f: `spmv` and `mulmod` (csrc/witness.cu) == their plain
+    versions (the int64 `spmv` with the assignment's concatenation and the
+    layout's copy, `modops.mul_mod` / `add_mod`) on the same inputs (max abs
+    err 0) at the shapes the paths give them: A and B of the north star's
+    slot chunk (the squaring chain, [2^18, 1, 1024] slot-major) and of the
+    seeded shape ([2^16, 1, 1024]), Z_q's ([2^18, 3, 1]), logistic
+    regression's system at its published shape (a window of 1024 of its
+    2048 slots), the transposed instance map at n = 1 (the north star's
+    system); the size-2M product [1024, 1, 2^19] in place, the ZK patch
+    (b constant along the slots, + c) at Rinocchio's [1024, 1, 2^16] and
+    Z_q's product [1, 3, 2^19].  Each timed with the L2 evicted before
+    every call (`cold_ms`: eager with the host wrapper, and as a CUDA
+    graph), so the bytes' bound is a floor at the shapes that fit the L2,
+    beside its bound (`prng_bound`: the bytes the function needs, each input
+    read once and the output written once, at 3.35 TB/s (for `spmv` an
+    int32 index a nonzero and a pointer a row, whatever the CSR stores), or
+    the terms' operations) and the plain version's time; library call: none
+    (no PyTorch call computes sum c * z mod p).  Launches made here are not
+    a path's."""
+    from ringsnark_tpu_torch.models.synthetic import build_synthetic_square_chain
+    from ringsnark_tpu_torch.ops import cuda_witness
+    from ringsnark_tpu_torch.ops.modops import add_mod, mul_mod
+
+    report = {k: {"max_abs_err": 0, "shapes": []} for k in cuda_witness.KERNELS}
+
+    def hold(kernel, label, fn, plain, ops, nbytes):
+        got, want = fn(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) if g.numel() else 0
+                  for g, w in zip(got, want))
+        check(all(g.shape == w.shape and torch.equal(g, w) for g, w in zip(got, want)),
+              f"witness {kernel} kernel != its plain version at {label}")
+        del got, want
+        ms, gms, pms = cold_ms(fn, False), cold_ms(fn, True), cuda_ms(plain, iters=2)
+        bms, by = prng_bound(ops, nbytes)
+        r = report[kernel]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["shapes"].append(dict(shape=label, ms=ms, graph_ms=gms, plain_ms=pms, bound_ms=bms,
+                                bound_by=by, share_of_bound=bms / ms,
+                                graph_share_of_bound=bms / gms, max_abs_err=err,
+                                library_ms=None))
+        print(f"  {kernel:6s} {label:62s}: equal; kernel {ms:.4f} ms (graph {gms:.4f}), "
+              f"plain {pms:.4f} ms, bound {bms:.4f} ms by {by} ({100 * bms / ms:.1f} %; "
+              f"graph {100 * bms / gms:.1f} %); library call: none", flush=True)
+
+    def spmv_case(label, comp, blocks, rows, lo, width, slot_major, which=(0, 1),
+                  transposed=False):
+        """A and B (or `which`) of `comp` over the window, both matrices in
+        one timed call, as the map runs them."""
+        L = comp.ctx.L
+        n = max([b.shape[-1] for b in blocks] + [comp.coeffs[w].shape[-1] for w in which])
+        n = n if width is None else (width if n > 1 else 1)
+        # the CSRs derived before the timed calls (the transposed one is
+        # derived a setup and dropped; no read of the card in a CUDA graph)
+        plans = [(csr, comp.csr_coeffs(w, csr)) for w, csr in
+                 ((w, comp.csr(w, transposed)) for w in which)]
+        nbytes, ops = 0, Ops()
+        for csr, coeffs in plans:  # what the sum needs, whatever the CSR stores
+            nnz, nc = csr.idx.numel(), coeffs.shape[-1]
+            cols = torch.unique(csr.idx).numel()  # the assignment rows it reads
+            nbytes += (4 * (cols * L * n + nnz * L * (n if nc > 1 else 1) + rows * L * n)
+                       + 4 * nnz + 4 * (csr.rows + 1))  # an int32 index a nonzero, a pointer a row
+            ops = ops + nnz * L * n * SPMV_TERM
+        hold("spmv", label,
+             lambda: tuple(cuda_witness.spmv(csr, coeffs, blocks, comp.ctx.primes, rows, lo, n,
+                                             slot_major) for csr, coeffs in plans),
+             lambda: tuple(comp._evaluate_plain(blocks, rows, w, lo, width, slot_major,
+                                                transposed) for w in which), ops, nbytes)
+
+    for name, (make, log_m, width) in (SMALL_WITNESS_SHAPES if small
+                                       else WITNESS_SHAPES).items():
+        params = make()
+        ring, M = params.ring, 1 << log_m
+        comp, primary, aux = build_synthetic_square_chain(ring, M, np.random.default_rng(5))
+        blocks = (torch.ones((1, ring.L, 1), dtype=torch.int32, device="cuda"), primary.res,
+                  aux.res)
+        n = ring.N
+        win = None if n <= width else width
+        spmv_case(f"{name} A, B [{M}, {ring.L}, {min(n, width)}] of {n} slots, slot-major",
+                  comp, blocks, M, 0, win, True)
+        if name == "north_star":
+            gen = torch.Generator(device="cuda").manual_seed(6)
+            u = torch.cat([torch.randint(0, p, (M, 1, 1), generator=gen, dtype=torch.int32,
+                                         device="cuda") for p in ring.primes], dim=1)
+            spmv_case(f"{name} instance map A, B, C at n = 1, transposed", comp, (u,),
+                      comp.num_variables + 1, 0, None, False, (0, 1, 2), True)
+        del comp, primary, aux, blocks
+        torch.cuda.empty_cache()
+
+    cfg = (SMALL_CIRCUITS if small else REFERENCE_CIRCUITS)["logreg"]
+    ring = make_circuit_params(cfg, "cuda").ring
+    pb = build_circuit("logreg", cfg, ring, 7)
+    comp, z = pb.compile(), pb.full_assignment_batch().res
+    from ringsnark_tpu_torch.utils.domain import RootsDomain
+
+    M = RootsDomain(ring, comp.num_constraints).m
+    width = min(1024, ring.N)
+    spmv_case(f"logreg A, B, C [{M}, {ring.L}, {width}] of {ring.N} slots, slot-major", comp,
+              (z,), M, 0, width if ring.N > width else None, True, (0, 1, 2))
+    del pb, comp, z
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for label, make, shape, b_shape, add in (
+        ("the size-2M product, in place", lambda: make_params(FULL_STREAMED, "cuda"),
+         (1024, 1, 1 << 19), None, False),
+        ("the ZK patch (b a slot's constant, + c)", lambda: make_params(FULL_RINOCCHIO, "cuda"),
+         (1024, 1, 1 << 16), (1024, 1, 1), True),
+        ("Z_q's size-2M product, in place", lambda: zq_params(3, 4096, 18),
+         (1, 3, 1 << 19), None, False),
+    ):
+        ring = make().ring
+        if small:
+            shape = (min(shape[0], 32), shape[1], shape[2] >> 6)
+            b_shape = b_shape and (shape[0], shape[1], 1)
+
+        def words(sh):
+            return torch.cat([torch.randint(0, p, (sh[0], 1, sh[2]), generator=gen,
+                                            dtype=torch.int32, device="cuda")
+                              for p in ring.primes], dim=1)
+
+        a, b = words(shape), words(b_shape or shape)
+        c = words(shape) if add else None
+        y = torch.empty_like(a)
+        numel = a.numel()
+        nbytes = 4 * (numel * (2 + add) + b.numel())
+        ops = numel * (SHOUP + (ADD_MOD if add else Ops())) + b.numel() * MAC_OPERAND
+
+        def plain(a=a, b=b, c=c, ring=ring):
+            t = mul_mod(a, b, ring.p)
+            return add_mod(t, c, ring.p) if c is not None else t
+
+        hold("mulmod", f"{label} {list(shape)}",
+             lambda a=a, b=b, c=c, y=y, ring=ring: cuda_witness.mulmod(a, b, ring.primes, c,
+                                                                       out=y),
+             plain, ops, nbytes)
+        if not add:  # in place, as the product runs: into a
+            x = a.clone()
+            cuda_witness.mulmod(x, b, ring.primes, out=x)
+            check(torch.equal(x, plain()), f"witness mulmod in place != plain at {label}")
+        del a, b, c, y
+        torch.cuda.empty_cache()
+    for r in report.values():
+        r.update({k: v for k, v in r["shapes"][0].items() if k != "max_abs_err"})
+    return report
+
+
 def main_path(params, cfg, meshes, card):
     """Phase 3: generator -> prover x2 -> verifier (+ tampered); then, its
     launch counts read, the sharded prover on both meshes (phase 13)."""
@@ -1227,7 +1463,7 @@ def main_path(params, cfg, meshes, card):
     for e in (proof.A, proof.B, proof.C):
         check(tuple(e.c0.shape) == (ring.L, params.enc.floor_limbs, params.enc.n_inner),
               f"proof element shape {tuple(e.c0.shape)}")
-    for mode in (*cuda_ntt.MODES, *(f"prng_{k}" for k in ENCRYPTION), "mac"):
+    for mode in (*cuda_ntt.MODES, *(f"prng_{k}" for k in ENCRYPTION), "mac", *WITNESS):
         check(counts[mode] > 0, f"kernel {mode} never launched on the main path")
     sharded_counts, sharded_times = sharded_groth16(kp, primary, aux, proof, meshes, card)
     return counts, times, crs_bytes, peak, sharded_counts, sharded_times
@@ -1328,6 +1564,7 @@ def small_seeded_cross_check():
 
 
 ENCRYPTION = ("lift", "encrypt")  # the kernels of every encryption on the card
+WITNESS = ("spmv", "mulmod")  # the kernels of every prover's witness map
 
 
 @contextlib.contextmanager
@@ -1368,14 +1605,15 @@ SEEDED_MAC = ("mac_drawn",)
 
 def _launch_check(counts, M, path, draws=ENCRYPTION, macs=("mac",)):
     """Both negacyclic shared-memory modes, both cyclic modes of the
-    witness map (split past MAX_KERNEL_M), the PRNG kernels `draws` and the
-    MAC kernels `macs` must have launched."""
+    witness map (split past MAX_KERNEL_M), the PRNG kernels `draws`, the
+    MAC kernels `macs` and the witness map's `spmv` (and `mulmod`, the
+    size-2M product's, where M > 1) must have launched."""
     from ringsnark_tpu_torch.ops import ntt as nttm
 
     inv = "split_cyclic_inv" if M > nttm.MAX_KERNEL_M else "cyclic_inv"
     fwd = "split_cyclic_fwd" if 2 * M > nttm.MAX_KERNEL_M else "cyclic_fwd"
     for mode in ("negacyclic_fwd", "negacyclic_inv", fwd, inv, *(f"prng_{k}" for k in draws),
-                 *macs):
+                 *macs, *(WITNESS if M > 1 else WITNESS[:1])):
         check(counts[mode] > 0, f"kernel {mode} never launched on the {path} path")
 
 
@@ -1592,7 +1830,8 @@ def frontend_path(circuits, kernel_report, mesh, card):
             del kp, proof, proof2, prove
         counts = add_counts(read_counts(), carried)
         print(f"  {name}: launches {counts}", flush=True)
-        for mode in ("negacyclic_fwd", "negacyclic_inv", "prng_lift", "prng_encrypt", "mac"):
+        for mode in ("negacyclic_fwd", "negacyclic_inv", "prng_lift", "prng_encrypt", "mac",
+                     "spmv"):
             check(counts[mode] > 0, f"kernel mode {mode} never launched for {name}")
         entry["launches"] = counts
         for m, c in counts.items():
@@ -1774,7 +2013,7 @@ def keys_on_disk(cfg, north_star):
     counts = read_counts()
     print(f"  launches {counts}", flush=True)
     for mode in ("negacyclic_fwd", "negacyclic_inv", "cyclic_fwd", "cyclic_inv", "prng_lift",
-                 "prng_encrypt", "mac"):
+                 "prng_encrypt", "mac", *WITNESS):
         check(counts[mode] > 0, f"kernel mode {mode} never launched on the keys path")
     return counts, report
 
@@ -2076,7 +2315,7 @@ def examples(small: bool, report, split_report):
                 out[name] = {k: v for k, v in res.items() if k != "card"}
     counts = read_counts()
     print(f"  examples: all verify; launches {counts}", flush=True)
-    for mode in ("negacyclic_fwd", "negacyclic_inv", "prng_lift", "prng_encrypt", "mac"):
+    for mode in ("negacyclic_fwd", "negacyclic_inv", "prng_lift", "prng_encrypt", "mac", "spmv"):
         check(counts[mode] > 0, f"kernel mode {mode} never launched by the examples")
     hold_recorded_shapes("14e", seen, report, split_report, 1403)
     return counts, out
@@ -2164,13 +2403,17 @@ def main() -> int:
     phase("2e", "MAC kernels vs plain", t0)
 
     t0 = time.perf_counter()
+    witness_report = witness_vs_plain(args.small)
+    phase("2f", "witness map kernels vs plain", t0)
+
+    t0 = time.perf_counter()
     meshes = open_world(card)
     phase("13a", "world of one rank over NCCL, meshes", t0)
     try:
         with one_ntt_per_encryption() as encryptions:
             return run_phases(args, (cfg, cfg5, cfg7, cfg8), (params, params5, params7), report,
-                              split_report, prng_report, mac_report, orders, meshes, card,
-                              encryptions)
+                              split_report, prng_report, (mac_report, witness_report), orders,
+                              meshes, card, encryptions)
     finally:
         import torch.distributed as dist
 
@@ -2192,12 +2435,14 @@ def north_star_entry(row: dict, mode: str) -> dict:
                            "max_abs_err": row["max_abs_err"]}}
 
 
-def run_phases(args, cfgs, params_all, report, split_report, prng_report, mac_report, orders,
+def run_phases(args, cfgs, params_all, report, split_report, prng_report, more_reports, orders,
                meshes, card, encryptions) -> int:
     """Phases 3 to 14 on the world of one rank (every encryption on the card
     checked by `one_ntt_per_encryption` into `encryptions`); the last lines
-    of output."""
-    from ringsnark_tpu_torch.ops import cuda_mac, cuda_ntt, cuda_prng
+    of output.  more_reports: phases 2e's and 2f's."""
+    from ringsnark_tpu_torch.ops import cuda_mac, cuda_ntt, cuda_prng, cuda_witness
+
+    mac_report, witness_report = more_reports
 
     cfg, cfg5, cfg7, cfg8 = cfgs
     params, params5, params7 = params_all
@@ -2266,7 +2511,7 @@ def run_phases(args, cfgs, params_all, report, split_report, prng_report, mac_re
         meshes, *SHARDED_NTT["small" if args.small else "full"], report, split_report, card)
     add_counts(sharded, c13)
     for mode in ("split_cyclic_fwd", "split_cyclic_inv", "negacyclic_fwd", "negacyclic_inv",
-                 "prng_lift", "prng_encrypt", "mac"):
+                 "prng_lift", "prng_encrypt", "mac", *WITNESS):
         check(sharded[mode] > 0, f"kernel mode {mode} never launched on the sharded path")
     print(f"  sharded path: launches {sharded}; seconds {sharded_s}", flush=True)
     phase(13, "multi-device layer: sharded NTT, unscaled inverse", t0)
@@ -2341,6 +2586,20 @@ def run_phases(args, cfgs, params_all, report, split_report, prng_report, mac_re
                                                  "graph_share_of_bound", "shape", "shapes")},
          "library_ms": None}
         for k in cuda_mac.KERNELS
+    ] + [
+        # no PyTorch call computes sum (c * z mod p) nor a * b mod p: library_ms is null
+        {"name": k, "route": "cuda", "source": WITNESS_SOURCE, "replaces": WITNESS_REPLACES[k],
+         "launches": sum(by_path[k].values()), "launches_by_path": by_path[k],
+         # spmv counts its calls; spmv_merge_kernel's launches (calls that cut
+         # a row into segments) beside them, its time inside spmv's
+         **({"merge_launches": sum(by_path["spmv_merge"].values()),
+             "merge_launches_by_path": by_path["spmv_merge"]} if k == "spmv" else {}),
+         **{key: witness_report[k][key] for key in ("max_abs_err", "ms", "graph_ms",
+                                                     "plain_ms", "bound_ms", "bound_by",
+                                                     "share_of_bound", "graph_share_of_bound",
+                                                     "shape", "shapes")},
+         "library_ms": None}
+        for k in cuda_witness.KERNELS
     ]
     summary = {"resident": {"config": cfg, "stage_s": times, "crs_gib": crs_bytes / 2**30,
                             "peak_allocated_gib": peak / 2**30},

@@ -88,7 +88,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "modarith.cuh"  // reduce_once, refused
+#include "modarith.cuh"  // reduce_once, shoup_of, mul_mod, refused
 #include "threefry.cuh"  // Column, Columns, kMaxCols, threefry_hl, mod_span
 
 namespace {
@@ -123,17 +123,6 @@ struct Shape {
   uint32_t lc;      // L * C: a broadcast operand's words a row
   uint32_t row_ctr;  // mac_drawn: the counter's step between rows, L * I
 };
-
-// w's Shoup constant floor(w 2^32 / q), or one less, for w < q (the file's
-// head proves it).
-__device__ __forceinline__ uint32_t shoup_of(uint32_t w, uint32_t mu_hi, uint32_t mu_lo) {
-  return w * mu_hi + __umulhi(w, mu_lo);
-}
-
-// a * w mod q, canonical, for a < 2^31, w < q < 2^31 and w_sh = shoup_of(w).
-__device__ __forceinline__ uint32_t mul_mod(uint32_t a, uint32_t w, uint32_t w_sh, uint32_t q) {
-  return reduce_once(a * w - __umulhi(a, w_sh) * q, q);  // r in [0, 2q): exact in 32 bits
-}
 
 __device__ __forceinline__ uint4 load4(const uint32_t* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));

@@ -1,6 +1,7 @@
 // Modular arithmetic on 31-bit residues, shared by the kernels of this
-// package (ntt.cu, prng.cu): p < 2^31, residues in [0, p), unsigned 32-bit
-// words throughout (Hopper has a native 32-bit multiply-high, __umulhi).
+// package (ntt.cu, prng.cu, mac.cu, witness.cu): p < 2^31, residues in [0,
+// p), unsigned 32-bit words throughout (Hopper has a native 32-bit
+// multiply-high, __umulhi).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -34,6 +35,18 @@ __device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b, uint32_t p) 
 __device__ __forceinline__ uint32_t shoup_mul(uint32_t a, uint2 w, uint32_t p) {
   const uint32_t q = __umulhi(a, w.y);
   return reduce_once(a * w.x - q * p, p);
+}
+
+// w's Shoup constant floor(w 2^32 / q), or one less, for w < q < 2^31,
+// from the halves of mu = floor(2^64 / q) (csrc/mac.cu's head proves it):
+// for an operand word that is not a constant of the launch.
+__device__ __forceinline__ uint32_t shoup_of(uint32_t w, uint32_t mu_hi, uint32_t mu_lo) {
+  return w * mu_hi + __umulhi(w, mu_lo);
+}
+
+// a * w mod q, canonical, for a < 2^31, w < q < 2^31 and w_sh = shoup_of(w).
+__device__ __forceinline__ uint32_t mul_mod(uint32_t a, uint32_t w, uint32_t w_sh, uint32_t q) {
+  return reduce_once(a * w - __umulhi(a, w_sh) * q, q);  // r in [0, 2q): exact in 32 bits
 }
 
 }  // namespace

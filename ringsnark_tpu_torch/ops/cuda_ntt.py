@@ -6,11 +6,12 @@ four modes, ``ntt``) and the split large-M path `ntt_split_pallas` with its
 ``sm_90a`` at first use, from the sources in this package, into
 ``ringsnark_tpu_torch/_build/`` (a shared library with a plain C interface,
 loaded with ctypes).  Nothing is built or loaded at import time.  ``build``
-compiles every CUDA source of the package (``csrc/ntt.cu``, ``csrc/prng.cu``
-and ``csrc/mac.cu``, which share ``csrc/modarith.cuh``; the last two also
-``csrc/threefry.cuh``) into that one library, so each build of the NTT
-kernels also builds the draws and the encryption of ``ops/cuda_prng.py``
-and the MAC of ``ops/cuda_mac.py``.
+compiles every CUDA source of the package (``csrc/ntt.cu``, ``csrc/prng.cu``,
+``csrc/mac.cu`` and ``csrc/witness.cu``, which share ``csrc/modarith.cuh``;
+``prng.cu`` and ``mac.cu`` also ``csrc/threefry.cuh``) into that one
+library, so each build of the NTT kernels also builds the draws and the
+encryption of ``ops/cuda_prng.py``, the MAC of ``ops/cuda_mac.py`` and the
+witness map's kernels of ``ops/cuda_witness.py``.
 
 ``ntt`` is one launch of the register-radix shared-memory kernel; its
 schedule (``geometry``, ``kernel_passes``, ``swizzle``, ``outer_passes``)
@@ -54,7 +55,8 @@ __all__ = ["build", "ntt", "ntt_split", "geometry", "kernel_passes", "outer_pass
 
 _PKG = Path(__file__).resolve().parent.parent
 # every source of the library, and the header they include (hashed with them)
-SOURCES = (_PKG / "csrc" / "ntt.cu", _PKG / "csrc" / "prng.cu", _PKG / "csrc" / "mac.cu")
+SOURCES = (_PKG / "csrc" / "ntt.cu", _PKG / "csrc" / "prng.cu", _PKG / "csrc" / "mac.cu",
+           _PKG / "csrc" / "witness.cu")
 HEADERS = (_PKG / "csrc" / "modarith.cuh", _PKG / "csrc" / "threefry.cuh")
 BUILD_DIR = _PKG / "_build"
 

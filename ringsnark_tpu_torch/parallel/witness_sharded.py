@@ -9,7 +9,9 @@ are gathered over 'coeff' (where the JAX package's GSPMD reshards
 implicitly), so every rank returns the whole map.  The constraint
 evaluations and every elementwise step are those of the single-device map;
 the sharded transforms are bit-identical to the single-device ones, so the
-map, and the proof, are too.
+map, and the proof, are too.  The batches are slot-major, ``[n, L, M]``, as
+in the single-device map, and the product is its `_mulmod` (on the card
+``mulmod_kernel``).
 """
 
 from __future__ import annotations
@@ -18,8 +20,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops import ntt as _ntt
-from ..ops.modops import mul_mod
-from ..reductions.r1cs_to_qrp import WitnessTransforms, witness_map_kernel_chunked
+from ..reductions.r1cs_to_qrp import WitnessTransforms, _mulmod, witness_map_kernel_chunked
 from ..utils.domain import RootsDomain
 from .mesh import axis_group, axis_rank, axis_size
 from .ntt_sharded import make_sharded_ntt
@@ -51,24 +52,26 @@ def _sharded_transforms(domain: RootsDomain, mesh, axis: str = "coeff") -> Witne
     inv_2M = make_sharded_ntt(plan2, mesh, axis, negacyclic=False, inverse=True)
 
     def interp(_domain, evals):
-        """[M, L, n] domain-order evaluations -> [M, L, n] coefficients."""
-        x = evals.permute(2, 1, 0)[..., idx * (M // D):(idx + 1) * (M // D)]  # [n, L, Mc]
-        return _gather_last(intt_M(x.contiguous()), group, D).permute(2, 1, 0)
+        """[n, L, M] domain-order evaluations -> [n, L, M] coefficients."""
+        x = evals[..., idx * (M // D):(idx + 1) * (M // D)]  # [n, L, Mc]
+        return _gather_last(intt_M(x.contiguous()), group, D)
 
     def h_main(_ctx, aA, aB, _M):
-        """The upper half of coeffs(A*B): the size-2M product of the
-        zero-padded coefficient batches, this rank's block of 2M/D."""
+        """The upper half of coeffs(A*B), [n, L, M]: the size-2M product of
+        the zero-padded [n, L, M] coefficient batches, this rank's block of
+        2M/D."""
         w = 2 * M // D
         lo, hi = idx * w, min((idx + 1) * w, M)  # the coefficients in the block
 
         def fwd2(a):
-            x = torch.zeros((a.shape[-1], ctx.L, w), dtype=torch.int32, device=a.device)
+            x = torch.zeros((a.shape[0], ctx.L, w), dtype=torch.int32, device=a.device)
             if hi > lo:
-                x[..., :hi - lo] = a[lo:hi].permute(2, 1, 0)
+                x[..., :hi - lo] = a[..., lo:hi]
             return fwd_2M(x)
 
-        prod = inv_2M(mul_mod(fwd2(aA), fwd2(aB), ctx.p))
-        return _gather_last(prod, group, D)[..., M:].permute(2, 1, 0)
+        x = fwd2(aA)
+        prod = inv_2M(_mulmod(ctx, x, fwd2(aB), out=x))
+        return _gather_last(prod, group, D)[..., M:]
 
     return WitnessTransforms(interp, h_main)
 

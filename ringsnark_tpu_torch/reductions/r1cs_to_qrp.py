@@ -22,6 +22,15 @@ Port of ``ringsnark_tpu/reductions/r1cs_to_qrp.py``:
 The io/mid split of the repo counts the constant column once, on the io
 side (not the C++ reference's double count); the prover-mode map needs only
 the full assignment, since io + mid = full and the map is linear.
+
+Inside the maps every batch is slot-major, ``[n, L, M]``: the constraint
+evaluations come that way from ``CompiledR1CS.evaluate`` (on the card
+``spmv_kernel`` writes them so, reading the slot window of the assignment
+in place), go through the interpolating inverse NTTs and the size-2M
+product without a transposing copy, and are written into the ``[M, L, n]``
+outputs once.  Every modular product of the maps is `_mulmod`: on the card
+``ops/cuda_witness.mulmod`` (``mulmod_kernel``, the ZK patch's add fused),
+elsewhere ``ops/modops``' int64 ``mul_mod`` and ``add_mod``.
 """
 
 from __future__ import annotations
@@ -31,10 +40,11 @@ from typing import Callable
 
 import torch
 
+from ..ops import cuda_witness
 from ..ops import ntt as _ntt
 from ..ops.modops import add_mod, mul_mod, neg_mod, sub_mod
 from ..relations.qrp import QRPInstance, QRPInstanceEvaluation, QRPWitness
-from ..relations.r1cs import CompiledR1CS, R1CSConstraintSystem, spmv
+from ..relations.r1cs import CompiledR1CS, R1CSConstraintSystem
 from ..rings.elem import RingElem
 from ..utils import poly as _poly
 from ..utils.domain import RootsDomain
@@ -104,10 +114,7 @@ def eval_instance_arrays(comp, t_res, domain):
     t = RingElem(ctx, t_res)
     u = domain.evaluate_all_lagrange_polynomials(t).res  # [M, L, 1]
     Zt = domain.compute_vanishing_polynomial(t)
-    At, Bt, Ct = (
-        spmv(u, coeffs, rows, cols, comp.num_variables + 1, ctx.p)
-        for rows, cols, coeffs in zip(comp.rows, comp.cols, comp.coeffs)
-    )
+    At, Bt, Ct = comp.evaluate(u, comp.num_variables + 1, transposed=True)
     return At, Bt, Ct, Zt.res
 
 
@@ -146,71 +153,49 @@ def _assignment_batches(ctx, primary, auxiliary):
     return RingElem(ctx, full), RingElem(ctx, io), RingElem(ctx, mid)
 
 
-def _interp(domain: RootsDomain, evals_bln):
-    """[M, L, n] domain-order evals -> [M, L, n] coefficients (via iNTT)."""
-    c = domain.interpolate_arr(evals_bln.permute(2, 1, 0))  # [n, L, M]
-    return c.permute(2, 1, 0)
+def _mulmod(ctx, a, b, c=None, out=None):
+    """a * b (+ c) mod p_l, b and c broadcasting to a: on the card one
+    ``cuda_witness.mulmod`` (into `out`, which may be a or c), elsewhere
+    the int64 ``mul_mod`` and ``add_mod``, its plain version."""
+    if cuda_witness.on_card(a):
+        return cuda_witness.mulmod(a, b, ctx.primes, c, out)
+    y = mul_mod(a, b, ctx.p)
+    y = y if c is None else add_mod(y, c, ctx.p)
+    return y if out is None else out.copy_(y)
 
 
-def _comp_slot_slice(comp, lo, slot_chunk):
-    """Slot-slice dense (per-slot) constraint coefficients alongside the
-    assignment chunk; scalar (nc == 1) coefficients broadcast."""
-    if all(c.shape[-1] == 1 for c in comp.coeffs):
-        return comp
-    return CompiledR1CS(
-        ctx=comp.ctx,
-        num_constraints=comp.num_constraints,
-        num_variables=comp.num_variables,
-        primary_input_size=comp.primary_input_size,
-        rows=comp.rows,
-        cols=comp.cols,
-        coeffs=tuple(
-            c if c.shape[-1] == 1 else c[..., lo:lo + slot_chunk] for c in comp.coeffs
-        ),
-    )
-
-
-def _witness_map_prover(comp, z_full, domain):
-    """(a_full, b_full, H) for the non-ZK prover (d1 = d2 = d3 = 0).
-
-    The "prover" mode of the JAX `_witness_map_kernel`: with zero d's the ZK
-    patch vanishes, so H is the upper half of coeffs(A*B) plus a zero row
-    for X^M.  C·z never reaches these outputs (deg C < M leaves the
-    quotient's source coefficients alone), so it is not interpolated.
-    """
-    M = domain.m
-    az, bz, _ = comp.eval_matrices(z_full, num_rows=M)  # [M, L, n]
-    aA, aB = _interp(domain, az), _interp(domain, bz)
-    h_main = _h_main(comp.ctx, aA, aB, M)
-    H = torch.cat([h_main, torch.zeros_like(h_main[:1])], dim=0)  # [M+1, L, n]
-    return aA, aB, H
+def _interp(domain: RootsDomain, evals):
+    """[n, L, M] slot-major domain-order evals -> [n, L, M] coefficients (via iNTT)."""
+    return domain.interpolate_arr(evals)
 
 
 def _h_main(ctx, aA, aB, M: int):
-    """The upper half of coeffs(A*B), [M, L, n]: a size-2M cyclic NTT
-    product of the zero-padded coefficient batches.  (A*B - C is divisible
-    by Z = X^M - 1, and C, of degree < M, never reaches these coefficients.)"""
+    """The upper half of coeffs(A*B), slot-major [n, L, M]: a size-2M cyclic
+    NTT product of the zero-padded slot-major coefficient batches.  (A*B - C
+    is divisible by Z = X^M - 1, and C, of degree < M, never reaches these
+    coefficients.)"""
     if M == 1:
         # A, B constants; A*B - C = q * (X - x_0) requires q = 0
         return torch.zeros_like(aA)
-    n = aA.shape[-1]
     plan2 = _ntt.get_plan(ctx.primes, 2 * M)
 
-    def fwd2(a):  # [M, L, n] coefficients -> zero-padded [n, L, 2M] evals
-        x = torch.zeros((n, ctx.L, 2 * M), dtype=torch.int32, device=a.device)
-        x[..., :M] = a.permute(2, 1, 0)
+    def fwd2(a):  # [n, L, M] coefficients -> zero-padded [n, L, 2M] evals
+        x = torch.zeros((a.shape[0], ctx.L, 2 * M), dtype=torch.int32, device=a.device)
+        x[..., :M] = a
         return _ntt.cyclic_ntt_rev(x, plan2)
 
-    prod = _ntt.cyclic_intt_nat(mul_mod(fwd2(aA), fwd2(aB), ctx.p), plan2)
-    return prod[..., M:].permute(2, 1, 0)  # q_{M-1} = 0
+    x = fwd2(aA)
+    prod = _ntt.cyclic_intt_nat(_mulmod(ctx, x, fwd2(aB), out=x), plan2)
+    return prod[..., M:]  # q_{M-1} = 0
 
 
 @dataclass(frozen=True)
 class WitnessTransforms:
-    """The transforms of the witness map: ``interp(domain, evals)`` takes
-    [M, L, n] domain-order evaluations to coefficients, ``h_main(ctx, aA, aB,
-    M)`` gives the upper half of coeffs(A*B).  `LOCAL` runs them on one
-    device; ``parallel/witness_sharded.py`` coefficient-sharded."""
+    """The transforms of the witness map, slot-major: ``interp(domain,
+    evals)`` takes [n, L, M] domain-order evaluations to coefficients,
+    ``h_main(ctx, aA, aB, M)`` gives the upper half of coeffs(A*B) as [n, L,
+    M].  `LOCAL` runs them on one device; ``parallel/witness_sharded.py``
+    coefficient-sharded."""
 
     interp: Callable
     h_main: Callable
@@ -219,15 +204,40 @@ class WitnessTransforms:
 LOCAL = WitnessTransforms(_interp, _h_main)
 
 
-def _witness_map_kernel(comp, z_full, z_io, z_mid, d1r, d2r, d3r, domain, outputs: str = "all",
-                        tf: WitnessTransforms = LOCAL):
-    """The ZK witness map (`r1cs_to_qrp.tcc:148-259`) of one slot chunk:
-    constraint evaluations and iNTTs of the io and mid legs, H from the full
-    assignment, and the patch H += d2*A + d1*B, H[0] -= d3 + d1*d2,
-    H[M] = d1*d2 (that is, + d1*d2*Z).  d's are [L, 1] or [L, n].
+def _windows(n: int, slot_chunk: int):
+    """The (lo, width) slot windows of a map over n slots: one window of all
+    of them (width None) up to `slot_chunk`, else chunks of `slot_chunk`."""
+    if n <= slot_chunk:
+        return [(0, None)]
+    assert n % slot_chunk == 0, (n, slot_chunk)
+    return [(lo, slot_chunk) for lo in range(0, n, slot_chunk)]
 
-      "all" -> (a_io, b_io, c_io, a_mid, b_mid, c_mid, Z, H)
-      "mid" -> (a_mid, b_mid, c_mid, H)
+
+def _outputs(ctx, rows, w: int, width, n: int, device):
+    """Empty [r, L, n'] outputs for rows `rows`: n' the window's slots w for
+    one window of everything (width None), else all n."""
+    nw = w if width is None else n
+    return [torch.empty((r, ctx.L, nw), dtype=torch.int32, device=device) for r in rows]
+
+
+def _write(o, piece, lo: int):
+    """The slot-major [w, L, r] piece into rows [0, r) of the [M', L, n]
+    output o at slots [lo, lo + w)."""
+    o[:piece.shape[2], :, lo:lo + piece.shape[0]] = piece.permute(2, 1, 0)
+
+
+def _witness_map_kernel(comp, z_full, z_io, z_mid, d1r, d2r, d3r, domain, outputs: str = "all",
+                        tf: WitnessTransforms = LOCAL, lo: int = 0, width: int | None = None):
+    """The ZK witness map (`r1cs_to_qrp.tcc:148-259`) of the slot window
+    [lo, lo + width) (all slots where width is None): constraint evaluations
+    and iNTTs of the io and mid legs, H from the full assignment, and the
+    patch H += d2*A + d1*B, H[0] -= d3 + d1*d2, H[M] = d1*d2 (that is, +
+    d1*d2*Z).  d's are [L, 1] or [L, n] (sliced to the window here).
+
+    Returns (legs, H_main, head, d1d2, Z): the legs slot-major [w, L, M]
+    ("all": a_io, b_io, c_io, a_mid, b_mid, c_mid; "mid": the mid three),
+    H's rows 0..M-1 slot-major with the patch, its row 0 [L, w] and row M
+    (d1*d2, [L, 1 or w]), and Z ([M+1, L, 1], "all" only).
 
     Only the legs an output needs are run (C of the full assignment never
     is; the io legs only for "all", so "mid" takes z_io = None).  `tf` holds
@@ -236,23 +246,27 @@ def _witness_map_kernel(comp, z_full, z_io, z_mid, d1r, d2r, d3r, domain, output
     ctx, M, p = comp.ctx, domain.m, comp.ctx.p
 
     def legs(z, k=3):
-        return tuple(tf.interp(domain, e) for e in comp.eval_matrices(z, num_rows=M)[:k])
+        return [tf.interp(domain, e)
+                for e in comp.evaluate(z, M, range(k), lo, width, slot_major=True)]
 
+    def window(d):
+        return d if width is None or d.shape[-1] == 1 else d[..., lo:lo + width]
+
+    d1r, d2r, d3r = (window(d) for d in (d1r, d2r, d3r))
     aA, aB = legs(z_full, 2)
-    patch = add_mod(mul_mod(aA, d2r, p), mul_mod(aB, d1r, p), p)  # [M, L, n]
-    H = add_mod(tf.h_main(ctx, aA, aB, M), patch, p)
-    del aA, aB, patch
-    d1d2 = mul_mod(d1r, d2r, p)
-    n = H.shape[-1]
-    head = sub_mod(sub_mod(H[0], d3r, p), d1d2, p)
-    H = torch.cat([head[None], H[1:], d1d2[None].expand(1, ctx.L, n)], dim=0)  # [M+1, L, n]
+    # the patch on the slot-major batches: d [L, 1 or w] as [1 or w, L, 1]
+    H = _mulmod(ctx, aB, d1r.t()[:, :, None], c=tf.h_main(ctx, aA, aB, M))
+    H = _mulmod(ctx, aA, d2r.t()[:, :, None], c=H, out=H)
+    del aA, aB
+    d1d2 = _mulmod(ctx, d1r.expand(ctx.L, max(d1r.shape[-1], d2r.shape[-1])).contiguous(), d2r)
+    head = sub_mod(sub_mod(H[:, :, 0].t(), d3r, p), d1d2, p)  # [L, w]
     mids = legs(z_mid)
     if outputs == "mid":
-        return (*mids, H)
+        return mids, H, head, d1d2, None
     Z = torch.zeros((M + 1, ctx.L, 1), dtype=torch.int32, device=H.device)  # X^M - 1
     Z[0] = neg_mod(torch.ones_like(Z[0]), p)
     Z[M] = 1
-    return (*legs(z_io), *mids, Z, H)
+    return legs(z_io) + mids, H, head, d1d2, Z
 
 
 def r1cs_to_qrp_witness_map(comp: CompiledR1CS, primary, auxiliary, d1: RingElem,
@@ -286,73 +300,62 @@ def r1cs_to_qrp_witness_map(comp: CompiledR1CS, primary, auxiliary, d1: RingElem
 def witness_map_kernel_chunked(comp, z_full, z_io, z_mid, d1r, d2r, d3r, domain,
                                slot_chunk: int = 1024, outputs: str = "all",
                                tf: WitnessTransforms = LOCAL):
-    """`_witness_map_kernel` over chunks of `slot_chunk` slots (slots never
-    interact), the pieces written into preallocated outputs.  d1r/d2r/d3r
-    are [L, 1] constants or [L, n] per-slot vectors, sliced with the chunk;
-    Z ("all") is a slot-independent [M+1, L, 1] constant, taken once."""
-    n = z_full.shape[-1]
+    """`_witness_map_kernel` over windows of `slot_chunk` slots (slots never
+    interact; the assignment is read in place at each window), the pieces
+    written into [M(+1), L, n] outputs.  d1r/d2r/d3r are [L, 1] constants or
+    [L, n] per-slot vectors; Z ("all") is a slot-independent [M+1, L, 1]
+    constant, taken once."""
+    ctx, n, M = comp.ctx, z_full.shape[-1], domain.m
     for d in (d1r, d2r, d3r):
         assert d.shape[-1] in (1, n), (tuple(d.shape), n)
-    if n <= slot_chunk:
-        return _witness_map_kernel(comp, z_full, z_io, z_mid, d1r, d2r, d3r, domain, outputs,
-                                   tf)
-    assert n % slot_chunk == 0, (n, slot_chunk)
-    z_idx = 6 if outputs == "all" else None
-
     out = None
-    for lo in range(0, n, slot_chunk):
-        sl = slice(lo, lo + slot_chunk)
-        ds = (d if d.shape[-1] == 1 else d[..., sl] for d in (d1r, d2r, d3r))
-        pieces = _witness_map_kernel(
-            _comp_slot_slice(comp, lo, slot_chunk), z_full[..., sl],
-            None if z_io is None else z_io[..., sl], z_mid[..., sl], *ds, domain, outputs, tf)
+    for lo, width in _windows(n, slot_chunk):
+        legs, h, head, d1d2, Z = _witness_map_kernel(comp, z_full, z_io, z_mid, d1r, d2r, d3r,
+                                                     domain, outputs, tf, lo, width)
+        w = h.shape[0]
         if out is None:
-            out = [pc if i == z_idx else
-                   torch.empty((*pc.shape[:-1], n), dtype=pc.dtype, device=pc.device)
-                   for i, pc in enumerate(pieces)]
-        for i, (o, pc) in enumerate(zip(out, pieces)):
-            if i != z_idx:
-                o[..., sl] = pc
-    return tuple(out)
+            out = _outputs(ctx, [M] * len(legs) + [M + 1], w, width, n, h.device)
+        for o, pc in zip(out, legs + [h]):
+            _write(o, pc, lo)
+        H = out[-1]
+        H[0, :, lo:lo + w] = head
+        H[M, :, lo:lo + w] = d1d2
+        del legs, h
+    if outputs == "mid":
+        return tuple(out)
+    return (*out[:6], Z, out[6])
 
 
 def prover_witness_map_chunked(comp, p_res, a_res, domain, slot_chunk: int = 1024):
-    """(a_full, b_full, H) for the non-ZK prover, assembled per slot chunk.
+    """(a_full, b_full, H) for the non-ZK prover (d1 = d2 = d3 = 0), over
+    windows of `slot_chunk` slots.
 
-    Slots never interact, so each chunk of `slot_chunk` slots runs the whole
-    map on its own slice of z_full = [1, primary, auxiliary]; the pieces are
-    written into preallocated outputs.  The chunk bounds the int64
-    temporaries of the SpMVs and the size-2M product (at Rq N = 8192,
-    M = 2^14 an unchunked [n, L, 2M] product alone is 2 GiB in int64).
-    """
-    ctx = comp.ctx
+    Slots never interact, so each window runs the whole map on its slots of
+    z_full = [1, primary, auxiliary], read in place as three row blocks (a
+    one-slot block broadcasts); the pieces are written into [M(+1), L, n]
+    outputs.  With zero d's the ZK patch vanishes: H is the upper half of
+    coeffs(A*B) plus a zero row for X^M, and C·z never reaches these outputs
+    (deg C < M leaves the quotient's source coefficients alone), so it is
+    not evaluated.  The window bounds the temporaries of the size-2M product
+    (at Rq N = 8192, M = 2^14 an unchunked [n, L, 2M] product alone is 1
+    GiB)."""
+    ctx, M = comp.ctx, domain.m
     n = max(p_res.shape[-1], a_res.shape[-1], 1)
-
-    def widen(x):
-        if x.shape[-1] == n:
-            return x
-        assert x.shape[-1] == 1, (tuple(x.shape), n)
-        return x.expand(*x.shape[:-1], n)
-
-    one_w = RingElem.one(ctx).res.expand(1, ctx.L, n)
-    p_w, a_w = widen(p_res), widen(a_res)
-
-    if n <= slot_chunk:
-        return _witness_map_prover(comp, torch.cat([one_w, p_w, a_w], dim=0), domain)
-    assert n % slot_chunk == 0, (n, slot_chunk)
-
+    for x in (p_res, a_res):
+        assert x.shape[-1] in (1, n), (tuple(x.shape), n)
+    blocks = (torch.ones((1, ctx.L, 1), dtype=torch.int32, device=p_res.device), p_res, a_res)
     out = None
-    for lo in range(0, n, slot_chunk):
-        sl = slice(lo, lo + slot_chunk)
-        z_c = torch.cat([one_w[..., sl], p_w[..., sl], a_w[..., sl]], dim=0)
-        pieces = _witness_map_prover(_comp_slot_slice(comp, lo, slot_chunk), z_c, domain)
+    for lo, width in _windows(n, slot_chunk):
+        az, bz = comp.evaluate(blocks, M, (0, 1), lo, width, slot_major=True)
+        aA, aB = _interp(domain, az), _interp(domain, bz)
+        del az, bz
+        h = _h_main(ctx, aA, aB, M)
         if out is None:
-            out = [
-                torch.empty((*pc.shape[:-1], n), dtype=pc.dtype, device=pc.device)
-                for pc in pieces
-            ]
-        for o, pc in zip(out, pieces):
-            o[..., sl] = pc
+            out = _outputs(ctx, (M, M, M + 1), aA.shape[0], width, n, aA.device)
+            out[2][M] = 0
+        for o, pc in zip(out, (aA, aB, h)):
+            _write(o, pc, lo)
+        del aA, aB, h
     return tuple(out)
 
 

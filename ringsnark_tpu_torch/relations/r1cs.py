@@ -7,26 +7,37 @@ primary/auxiliary sizes, `is_satisfied`, `is_valid`, `add_constraint`,
 round trip in the JAX package's format.
 
 `compile()` lowers the three sparse matrices to COO index/coefficient
-tensors on the context's device; ``eval_matrices`` is a gather, a modular
-multiply and an ``index_add_`` segment sum.  JAX clamps out-of-range gathers
-and drops out-of-range segment ids; torch raises or writes out of bounds,
-so the indices are checked here instead.
+tensors on the context's device.  ``CompiledR1CS.evaluate`` (and
+``eval_matrices``, its public form) dispatches on the assignment's device:
+on the card each matrix goes to ``ops/cuda_witness.spmv`` with the matrix's
+CSR (`derive_csr`: the nonzeros stably sorted by the rows they add into,
+row pointers, each row's first gather index, long rows cut into segments;
+the COO's own index and coefficient tensors where it is in row order),
+derived once per compiled system and kept with it; on any other device `spmv`, a gather, a
+modular multiply and an ``index_add_`` segment sum in int64, runs (the
+kernel's plain version).  JAX clamps out-of-range gathers and drops
+out-of-range segment ids; torch raises or writes out of bounds, so the
+indices are checked: by `spmv` on every call, by `derive_csr` once, where
+an index outside the system's sizes is refused.
 """
 
 from __future__ import annotations
 
 import json
+import math
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from ..ops import cuda_witness
 from ..ops.modops import mul_mod
 from ..rings.context import RingContext
 from ..rings.elem import RingElem
 from .variable import LinearCombination, LinearTerm
 
-__all__ = ["R1CSConstraint", "R1CSConstraintSystem", "CompiledR1CS", "spmv"]
+__all__ = ["R1CSConstraint", "R1CSConstraintSystem", "CompiledR1CS", "CSR", "derive_csr",
+           "spmv", "SEG_MIN"]
 
 
 class R1CSConstraint:
@@ -221,12 +232,116 @@ def spmv(vals, coeffs, gather_idx, scatter_idx, num_out: int, p):
     return torch.remainder(acc, p).to(torch.int32)
 
 
+SEG_MIN = 64  # a row of up to this many nonzeros is never cut into segments
+
+
+@dataclass(frozen=True)
+class CSR:
+    """One matrix's nonzeros in the order of the rows they add into: what
+    ``cuda_witness.spmv`` reads.  Row r's nonzeros are positions [ptr[r],
+    ptr[r + 1]) of the COO's stable sort by row, `idx` their gather
+    indices, `head` each row's first again by row (0 for an empty row), so
+    the kernel reads it beside the row's bounds.  Where the COO is already
+    in row order (`compile` and the models emit it so) `perm` is None and `idx` is
+    the COO's own column tensor; else `perm` holds the COO position of each
+    nonzero.  Where every row is one nonzero (`unit`: row r is nonzero r)
+    there is no `ptr` and `head` is `idx`.  `rows` and `cols` are one past
+    the largest row and gather index (the output rows and assignment rows a
+    call needs).  A row of more than `seg_len` nonzeros is cut into
+    segments of `seg_len`: `seg` their [start, end) ranges,
+    ``seg_of[j]..seg_of[j + 1]`` those of long row `rows_of[j]`."""
+
+    ptr: torch.Tensor | None  # int32 [rows + 1]; None where `unit`
+    idx: torch.Tensor  # int64 [nnz]
+    head: torch.Tensor  # int64 [rows]
+    perm: torch.Tensor | None  # int64 [nnz]; None where the COO is in row order
+    rows: int
+    cols: int
+    seg_len: int
+    seg: torch.Tensor  # int32 [segments, 2]
+    seg_of: torch.Tensor  # int32 [long rows + 1]
+    rows_of: torch.Tensor  # int32 [long rows]
+    max_len: int  # the longest row's nonzeros
+
+    @property
+    def unit(self) -> bool:
+        return self.ptr is None
+
+    @property
+    def nlong(self) -> int:
+        return self.rows_of.numel()
+
+
+def derive_csr(scatter: torch.Tensor, gather: torch.Tensor, n_out: int, n_in: int) -> CSR:
+    """The CSR of a COO matrix whose nonzero k adds into output row
+    scatter[k] from assignment row gather[k].  Every index is checked here,
+    once: one outside [0, n_out) or [0, n_in) raises IndexError (JAX would
+    clamp or drop it, a kernel would read or write out of bounds).  Rows
+    longer than `seg_len` (the longest row's square root rounded up to a
+    power of two, at least SEG_MIN) are cut into segments, so no thread of
+    the kernel adds more than about that many terms.  Two reads of the
+    device, three where a row is cut; none on any later call."""
+    dev, nnz = scatter.device, scatter.numel()
+    if nnz >= 1 << 31:
+        raise ValueError(f"derive_csr: {nnz} nonzeros, the kernel takes fewer than 2^31")
+    scatter, gather = scatter.to(torch.int64), gather.to(torch.int64).contiguous()
+    rows = cols = 0
+    in_order = True
+    if nnz:
+        s_lo, s_hi, g_lo, g_hi, in_order = torch.stack(
+            [scatter.min(), scatter.max(), gather.min(), gather.max(),
+             (scatter[1:] >= scatter[:-1]).all().to(torch.int64)]).tolist()
+        if s_lo < 0 or s_hi >= n_out:
+            raise IndexError(f"scatter index out of range for {n_out} rows")
+        if g_lo < 0 or g_hi >= n_in:
+            raise IndexError(f"gather index out of range for {n_in} rows")
+        rows, cols = s_hi + 1, g_hi + 1
+    perm = None if in_order else torch.sort(scatter, stable=True).indices
+    idx = gather if perm is None else gather[perm]
+    counts = torch.bincount(scatter, minlength=rows)
+    max_len = int(counts.max()) if rows else 0
+    root = math.isqrt(max_len - 1) + 1 if max_len else 0  # ceil(sqrt(max_len))
+    seg_len = max(SEG_MIN, 1 << max(root - 1, 0).bit_length())
+    i32 = torch.int32
+    seg = torch.zeros((0, 2), dtype=i32, device=dev)
+    seg_of = torch.zeros(1, dtype=i32, device=dev)
+    rows_of = torch.zeros(0, dtype=i32, device=dev)
+    if rows == nnz and max_len == 1:  # row r is nonzero r
+        return CSR(None, idx, idx, perm, rows, cols, seg_len, seg, seg_of, rows_of, max_len)
+    ptr = torch.zeros(rows + 1, dtype=torch.int64, device=dev)
+    ptr[1:] = counts.cumsum(0)
+    if max_len > seg_len:
+        rows_of = torch.nonzero(counts > seg_len).flatten()
+        nseg = (counts[rows_of] + seg_len - 1) // seg_len
+        seg_of = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), nseg.cumsum(0)])
+        j = torch.repeat_interleave(torch.arange(rows_of.numel(), device=dev), nseg)
+        start = ptr[rows_of][j] + (torch.arange(j.numel(), device=dev) - seg_of[j]) * seg_len
+        end = torch.minimum(start + seg_len, ptr[rows_of + 1][j])
+        seg = torch.stack([start, end], dim=1).to(i32)
+        seg_of, rows_of = seg_of.to(i32), rows_of.to(i32)
+    head = (torch.where(counts > 0, idx[ptr[:-1].clamp(max=nnz - 1)], 0) if nnz
+            else torch.zeros(rows, dtype=torch.int64, device=dev))
+    return CSR(ptr.to(i32), idx, head, perm, rows, cols, seg_len, seg, seg_of, rows_of,
+               max_len)
+
+
+def _window(x: torch.Tensor, lo: int, width: int | None) -> torch.Tensor:
+    """Slots [lo, lo + width) of x, or x where it is one slot (a broadcast)
+    or width is None (all slots)."""
+    return x if width is None or x.shape[-1] == 1 else x[..., lo:lo + width]
+
+
 @dataclass(frozen=True)
 class CompiledR1CS:
     """COO form of the three R1CS matrices over a concrete ring.
 
     rows/cols: int64[nnz] per matrix (column 0 = constant 1);
     coeffs: int32[nnz, L, nc] with nc ∈ {1, N}.  All on ``ctx.device``.
+
+    `plans` holds each matrix's `CSR` (the prover's orientation), derived
+    from rows and cols at first use on the card; a system made from
+    another's rows and cols (``streamed.limb_compiled``) may share its
+    dict.  Coefficients are read in place where the COO is in row order.
     """
 
     ctx: RingContext
@@ -236,6 +351,8 @@ class CompiledR1CS:
     rows: tuple  # (rows_a, rows_b, rows_c)
     cols: tuple
     coeffs: tuple
+    plans: dict = field(default_factory=dict, compare=False, repr=False)
+    _coeffs: dict = field(default_factory=dict, init=False, compare=False, repr=False)
 
     @classmethod
     def build(cls, cs: R1CSConstraintSystem, ctx: RingContext) -> "CompiledR1CS":
@@ -252,6 +369,68 @@ class CompiledR1CS:
             coeffs=coeffs,
         )
 
+    def csr(self, which: int, transposed: bool = False) -> CSR:
+        """Matrix `which`'s CSR (rows: the constraints; transposed: the
+        variables, gathering from the constraints).  The prover's
+        orientation is derived once and kept; the transposed one (the
+        instance map's, once a setup) is derived for the call and dropped,
+        so it holds no memory of the card past it."""
+        rows, cols = self.rows[which], self.cols[which]
+        nc, nv = self.num_constraints, self.num_variables + 1
+        if transposed:
+            return derive_csr(cols, rows, nv, nc)
+        if which not in self.plans:
+            self.plans[which] = derive_csr(rows, cols, nc, nv)
+        return self.plans[which]
+
+    def csr_coeffs(self, which: int, csr: CSR) -> torch.Tensor:
+        """Matrix `which`'s coefficients in `csr`'s order: its own tensor
+        where the COO is in row order, else a permuted copy (kept for the
+        prover's orientation)."""
+        if csr.perm is None:
+            return self.coeffs[which]
+        if csr is not self.plans.get(which):
+            return self.coeffs[which][csr.perm]
+        if which not in self._coeffs:
+            self._coeffs[which] = self.coeffs[which][csr.perm]
+        return self._coeffs[which]
+
+    def evaluate(self, z, num_rows: int, which=(0, 1, 2), lo: int = 0, width: int | None = None,
+                 slot_major: bool = False, transposed: bool = False) -> tuple:
+        """The evaluations of the matrices `which` over the slot window [lo,
+        lo + width) (all slots where width is None).
+
+        z: the assignment with its leading constant, int32 [1+nv, L, n], or
+        its row blocks in order (e.g. (one, primary, auxiliary)), each
+        [rows, L, 1 or n]; a one-slot block or coefficient broadcasts.
+        transposed: z holds one row per constraint and the result one per
+        variable (the instance map's At·u).  Each result is int32
+        [num_rows, L, n'], or [n', L, num_rows] where `slot_major`; n' the
+        window's slots (1 where nothing is wider).  On the card each
+        matrix is one ``cuda_witness.spmv``; elsewhere `spmv`."""
+        blocks = (z,) if isinstance(z, torch.Tensor) else tuple(z)
+        if not cuda_witness.on_card(blocks[0]):
+            return tuple(self._evaluate_plain(blocks, num_rows, w, lo, width, slot_major,
+                                              transposed) for w in which)
+        widths = [b.shape[-1] for b in blocks] + [self.coeffs[w].shape[-1] for w in which]
+        n = max(widths) if width is None else (width if max(widths) > 1 else 1)
+        outs = []
+        for w in which:
+            csr = self.csr(w, transposed)
+            outs.append(cuda_witness.spmv(csr, self.csr_coeffs(w, csr), blocks, self.ctx.primes,
+                                          num_rows, lo, n, slot_major))
+        return tuple(outs)
+
+    def _evaluate_plain(self, blocks, num_rows, which, lo, width, slot_major, transposed):
+        blocks = [_window(b, lo, width) for b in blocks]
+        n = max(b.shape[-1] for b in blocks)
+        z = torch.cat([b.expand(-1, -1, n) for b in blocks]) if len(blocks) > 1 else blocks[0]
+        rows, cols = self.rows[which], self.cols[which]
+        if transposed:
+            rows, cols = cols, rows
+        out = spmv(z, _window(self.coeffs[which], lo, width), cols, rows, num_rows, self.ctx.p)
+        return out.permute(2, 1, 0).contiguous() if slot_major else out
+
     def eval_matrices(self, full_assignment_with_one, num_rows: int | None = None):
         """(A·z, B·z, C·z) where z includes the leading constant 1.
 
@@ -259,10 +438,7 @@ class CompiledR1CS:
         Returns three int32[num_rows, L, n'] arrays.
         """
         m = num_rows if num_rows is not None else self.num_constraints
-        return tuple(
-            spmv(full_assignment_with_one, coeffs, cols, rows, m, self.ctx.p)
-            for rows, cols, coeffs in zip(self.rows, self.cols, self.coeffs)
-        )
+        return self.evaluate(full_assignment_with_one, m)
 
     def is_satisfied(self, full_assignment_with_one) -> bool:
         az, bz, cz = self.eval_matrices(full_assignment_with_one)

@@ -214,8 +214,9 @@ def _io_terms_via_interpolation(pk, primary_input, s: RingElem):
     ctx = pk.params.ring
     domain = pk.domain
     z_io = _padded_primary_with_one(pk, primary_input)
-    evals = pk.compiled.eval_matrices(z_io.res, num_rows=domain.m)
-    return tuple(eval_coeffs_at(RingElem(ctx, _interp(domain, e)), s) for e in evals)
+    evals = pk.compiled.evaluate(z_io.res, domain.m, slot_major=True)
+    return tuple(eval_coeffs_at(RingElem(ctx, _interp(domain, e).permute(2, 1, 0)), s)
+                 for e in evals)
 
 
 def _padded_primary_with_one(pk, primary_input) -> RingElem:

@@ -122,6 +122,7 @@ def limb_compiled(comp: CompiledR1CS, l: int) -> CompiledR1CS:
         rows=comp.rows,
         cols=comp.cols,
         coeffs=tuple(limb_slice(ctx_l, c, l) for c in comp.coeffs),
+        plans=comp.plans,  # the same rows and cols: the same CSRs
     )
 
 

@@ -246,10 +246,9 @@ def test_tiny_domains_on_card_equal_cpu(cuda, M):
         assert dom.m == M
         x = _residues(ring.primes, M, 5, "cpu", seed=M).to(dev)
         before = dict(cuda_ntt.launch_counts)
-        coeffs = dom.interpolate_arr(x)
+        coeffs = dom.interpolate_arr(x)  # [n, L, M]: the map's slot-major batches
         back = dom.evaluate_arr(coeffs)
-        a = coeffs.permute(2, 1, 0).contiguous()  # [M, L, n]
-        h = _h_main(ring, a, a.flip(0).contiguous(), M)
+        h = _h_main(ring, coeffs, coeffs.flip(-1).contiguous(), M)
         if dev == "cuda":
             ran = 0 if M == 1 else 1
             assert cuda_ntt.launch_counts["cyclic_inv"] == before["cyclic_inv"] + 2 * ran
@@ -746,3 +745,130 @@ def test_seeded_prove_draws_c1_in_the_mac(cuda):
         out[dev] = interop.proof_to_numpy(proof)
     for g, w in zip(out["cuda"], out["cpu"]):
         assert g[2] == w[2] and np.array_equal(g[0], w[0]) and np.array_equal(g[1], w[1])
+
+
+# ---------------------------------------------------------------------------
+# The witness map (csrc/witness.cu, ops/cuda_witness.py) against its plain
+# versions: the int64 spmv (CompiledR1CS._evaluate_plain) and modops
+# ---------------------------------------------------------------------------
+
+def _chain(N: int, L: int, M: int, device: str, seed: int = 0):
+    from ringsnark_tpu_torch.models.synthetic import build_synthetic_square_chain
+    from ringsnark_tpu_torch.rings.context import default_context
+
+    ring = default_context(L=L, N=N, order=1 << 12, device=device)
+    return (ring, *build_synthetic_square_chain(ring, M, __import__("numpy").random
+                                                .default_rng(seed)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slot_major", [False, True], ids=["rows", "slot_major"])
+@pytest.mark.parametrize("n,L", [(1, 3), (1024, 1)])
+def test_spmv_kernel_equals_plain(cuda, n, L, slot_major):
+    """A, B, C of the squaring chain (M = 2048) on the card == the plain
+    int64 spmv on the same tensors, the assignment read in place as three
+    row blocks over a slot window, in both layouts; and a system with
+    rows long enough to be cut into segments (the transposed instance map
+    too)."""
+    from ringsnark_tpu_torch.ops import cuda_witness
+    from ringsnark_tpu_torch.relations.r1cs import CompiledR1CS
+
+    ring, comp, primary, aux = _chain(n, L, 2048, "cuda")
+    one = torch.ones((1, L, 1), dtype=torch.int32, device="cuda")
+    blocks = (one, primary.res, aux.res)
+    lo, width = (256, 512) if n > 1 else (0, None)
+    before = cuda_witness.launch_counts["spmv"]
+    got = comp.evaluate(blocks, 2048 + 64, (0, 1, 2), lo, width, slot_major)
+    torch.cuda.synchronize()
+    assert cuda_witness.launch_counts["spmv"] == before + 3
+    for w, g in enumerate(got):
+        assert torch.equal(g, comp._evaluate_plain(blocks, 2048 + 64, w, lo, width, slot_major,
+                                                   False))
+    # a long row (3000 nonzeros) and the constant column in every constraint
+    rows = torch.cat([comp.rows[0], torch.full((3000,), 7, device="cuda"),
+                      torch.arange(2048, device="cuda")])
+    cols = torch.cat([comp.cols[0], torch.randint(0, 2049, (3000,), device="cuda"),
+                      torch.zeros(2048, dtype=torch.int64, device="cuda")])
+    coeffs = _residues(ring.primes, 1, rows.numel(), cuda, seed=5)
+    wide = CompiledR1CS(ctx=ring, num_constraints=2048, num_variables=comp.num_variables,
+                        primary_input_size=1, rows=(rows,) * 3, cols=(cols,) * 3,
+                        coeffs=(coeffs,) * 3)
+    assert wide.csr(0).nlong == 1 and wide.csr(0, transposed=True).nlong >= 1
+    got = wide.evaluate(blocks, 2048, (0,), lo, width, slot_major)[0]
+    assert torch.equal(got, wide._evaluate_plain(blocks, 2048, 0, lo, width, slot_major, False))
+    u = _residues(ring.primes, 1, 2048, cuda, seed=6)
+    got = wide.evaluate(u, comp.num_variables + 1, (0,), transposed=True)[0]
+    assert torch.equal(got, wide._evaluate_plain((u,), comp.num_variables + 1, 0, 0, None,
+                                                 False, True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b_kind", ["full", "slot_constant", "odd_width"])
+@pytest.mark.parametrize("add", [False, True])
+def test_mulmod_kernel_equals_plain(cuda, b_kind, add):
+    """a * b (+ c) mod p on the card == modops' int64 mul_mod / add_mod,
+    every word p - 1 in half the rows: b full (16-byte words), a slot's
+    constant, and an odd width (one word a thread); in place into a."""
+    from ringsnark_tpu_torch.ops import cuda_witness
+    from ringsnark_tpu_torch.ops.modops import add_mod, mul_mod
+    from ringsnark_tpu_torch.rings.context import default_context
+
+    ring = default_context(L=3, N=1, order=1 << 12, device="cuda")
+    K = 1001 if b_kind == "odd_width" else 4096
+    a = _residues(ring.primes, K, 16, cuda, seed=1)
+    a[:8] = torch.tensor(ring.primes, dtype=torch.int32, device="cuda")[:, None] - 1
+    b = _residues(ring.primes, 1 if b_kind == "slot_constant" else K, 16, cuda, seed=2)
+    c = _residues(ring.primes, K, 16, cuda, seed=3) if add else None
+    want = mul_mod(a, b, ring.p)
+    want = add_mod(want, c, ring.p) if add else want
+    before = cuda_witness.launch_counts["mulmod"]
+    assert torch.equal(cuda_witness.mulmod(a, b, ring.primes, c), want)
+    assert torch.equal(cuda_witness.mulmod(a, b, ring.primes, c, out=a), want)
+    assert torch.equal(a, want) and cuda_witness.launch_counts["mulmod"] == before + 2
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_witness.mulmod(a.cpu(), b.cpu(), ring.primes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("outputs", ["prover", "mid"])
+def test_warm_witness_map_reads_nothing_back(cuda, outputs):
+    """A warm witness map on the card (the CSR and coefficient pairs derived
+    by the cold call) runs under torch.cuda.set_sync_debug_mode("error"):
+    nothing of it reads the card back; its outputs equal the CPU's."""
+    from ringsnark_tpu_torch.ops import cuda_witness
+    from ringsnark_tpu_torch.reductions import r1cs_to_qrp as red
+    from ringsnark_tpu_torch.rings.elem import RingElem
+    from ringsnark_tpu_torch.utils.domain import RootsDomain
+
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        ring, comp, primary, aux = _chain(64, 2, 256, dev, seed=3)
+        dom = RootsDomain(ring, 256)
+        if outputs == "prover":
+            def run():
+                return red.prover_witness_map_chunked(comp, primary.res, aux.res, dom,
+                                                      slot_chunk=32)
+        else:
+            rng = __import__("numpy").random.default_rng(4)
+            ds = [RingElem.random_invertible_element(ring, rng).res for _ in range(3)]
+            full, _, mid = red._assignment_batches(ring, primary, aux)
+
+            def run():
+                return red.witness_map_kernel_chunked(comp, full.res, None, mid.res, *ds, dom,
+                                                      slot_chunk=32, outputs="mid")
+        run()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            before = dict(cuda_witness.launch_counts)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = run()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert all(cuda_witness.launch_counts[k] > before[k] for k in cuda_witness.KERNELS)
+        else:
+            got = run()
+        outs[dev] = [x.cpu() for x in got]
+    for g, w in zip(outs["cuda"], outs["cpu"]):
+        assert torch.equal(g, w)
+
