@@ -45,7 +45,10 @@ traceback and exits nonzero without the final line:
    with its error at the encryption shapes, `encrypt` with c1 and with c0
    alone, `bgv.encrypt` against the plain schedule; the lift alone at phase
    2e's operand shapes (the north star's 512 rows, Z_q's 910 broadcast
-   rows, logreg's 128 rows at L=2); each timed beside its bound and the
+   rows, logreg's 128 rows at L=2); the CBD error and the lift with it
+   drawn two words a side (sigma 5: k = 50, the general draw of a context
+   with a larger sigma) at 64 rows of the north star's sub-chunk; each
+   timed beside its bound and the
    plain version's time: the kernel eagerly (`ms`, with the host's wrapper:
    key columns, geometry, ctypes) and from a replayed CUDA graph
    (`graph_ms`, the device alone).  The bound (`prng_bound`) is the larger
@@ -211,7 +214,9 @@ the device alone, from a replayed
 CUDA graph, for the PRNG, lift, encryption, MAC and witness kernels and 14a's
 north-star NTT, null where a phase does not take it), bounds
 (`bound_ms`, `bound_by`, `share_of_bound` of `ms`,
-`graph_share_of_bound`)
+`graph_share_of_bound`; the lift with its error's shapes also
+`select_bound_ms` and its shares, the bound with the column's steps
+counted as selects)
 and `library_ms` (null: no PyTorch call computes an NTT modulo a prime,
 nor threefry2x32: `torch`'s generators are Philox, nor sum (c * pt mod
 Q_j), nor sum (c * z mod p));
@@ -223,6 +228,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -931,6 +937,11 @@ SMALL_PRNG_SHAPES = {
     "logreg": (lambda: make_circuit_params(SMALL_CIRCUITS["logreg"], "cuda"), 32, None),
 }
 FHE_SPAN = dict(full=(256, 1, 2048), small=(8, 1, 64))  # (rows, 1, N): randint in [-6, 7)
+# the error's general draw, two words a side (k = 50 at sigma = 5: a context
+# with a larger sigma), at 64 rows of the north star's sub-chunk: the CBD
+# error and the lift with it
+TWO_WORDS = dict(full=("north_star", (1024, 1088)), small=("north_star", (64, 72)))
+TWO_WORDS_SIGMA = 5.0
 PRNG_SOURCE = "ringsnark_tpu_torch/csrc/prng.cu"
 # the JAX package draws, lifts and encrypts with jax.random and XLA: it has
 # no Pallas kernel for them, so each names the function it is the
@@ -983,12 +994,23 @@ MOD = Ops(alu=1, fma=2)  # w mod span: multiply-high, multiply-add by -span, min
 SHOUP = Ops(alu=1, fma=3)  # a * w mod p: multiply-high, multiply, multiply-add by -p, min
 SUB_MOD = Ops(alu=1, either=2)  # a - b mod p: add p, subtract, min
 ADD_MOD = Ops(alu=1, either=1)  # add, min
-# the lift's two conditional steps a column (v > t/2 is the limb's, once a
-# coefficient; Q - t a constant): add Q - t, select; subtract Q, compare,
-# select
-LIFT_COLUMN = Ops(alu=3, either=2)
+# the lift's column (v > t/2 taken once a coefficient as big, 0 or 1; Q - t
+# a constant): x = v + big (Q - t), one IMAD; then x >= Q ? x - Q : x on
+# signed words: subtract, compare, select
+LIFT_COLUMN = Ops(alu=2, fma=1, either=1)
 LIFT_COEFF = Ops(alu=1)  # v > t/2
 ERROR_COLUMN = Ops(alu=1, either=1)  # e's residue: Q + e, select (e < 0 once a coefficient)
+# the lift's column with the error (t < 2 Q, so x = v + big (Q - t) is
+# already v's residue): t |e| mod Q, x + neg Q + sgn (t |e| mod Q) as IMADs
+# by neg (0 or 1) and sgn (+-1), subtract Q, min.  Its ALU work is the two
+# minimums.  LIFT_SIGN: sgn = 1 - 2 neg and |e| = sgn e, once a coefficient.
+LIFT_ERROR_COLUMN = Ops(fma=1) + SHOUP + Ops(alu=1, fma=2, either=1)
+LIFT_SIGN = Ops(fma=2)
+# the same column counted with its steps as selects on the ALU (add Q - t,
+# select; subtract Q, compare, select; the error's residue Q + e, select;
+# SHOUP; ADD_MOD), which over-counts what the lift needs; reported beside
+# the bound so that shares taken against it stay comparable
+SELECT_LIFT_ERROR_COLUMN = Ops(alu=3, either=2) + ERROR_COLUMN + SHOUP + ADD_MOD
 # a canonical MAC term a * w mod Q_j (a < 2^31, w < Q_j) with the operand
 # word's Shoup constant w_sh: umulhi(a, w_sh), a * w, and the product of
 # the quotient by Q_j fused with the subtract (3); r - Q_j and min(r, r -
@@ -1026,7 +1048,8 @@ def prng_vs_plain(small: bool) -> dict:
     both timed (CUDA events) beside the bound: the lift with its error
     (`_lift_error_plain`), the encryption from u = NTT(lift + t*e) with c1
     and with c0 alone (`_encrypt_from_u` over `_uniform_plain`); the lift
-    alone (`_lift_centered`) at each plaintext operand shape of MAC_SHAPES.
+    alone (`_lift_centered`) at each plaintext operand shape of MAC_SHAPES;
+    the CBD error and the lift with it at TWO_WORDS, two words a side.
     The first shape's numbers head each kernel's report.  Launches made
     here are not a path's."""
     from ringsnark_tpu_torch.encoding import bgv, encoding, keygen
@@ -1037,11 +1060,12 @@ def prng_vs_plain(small: bool) -> dict:
 
     report = {k: {"max_abs_err": 0, "shapes": []} for k in cuda_prng.KERNELS}
 
-    def hold(kernel, label, fn, plain, ops, nbytes, timed=None):
+    def hold(kernel, label, fn, plain, ops, nbytes, timed=None, select_ops=None):
         """fn() == plain() on the card; then `timed` (fn by default) timed
         eagerly (ms: with the host's wrapper, as every phase times a kernel)
         and from a replayed CUDA graph (graph_ms: the device alone), the
-        plain version eagerly."""
+        plain version eagerly; with `select_ops`, the shares against that
+        count too (select_bound_ms)."""
         got, want = fn(), plain()
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) if got.numel() else 0
         check(got.shape == want.shape and torch.equal(got, want),
@@ -1051,44 +1075,57 @@ def prng_vs_plain(small: bool) -> dict:
         bms, by = prng_bound(ops, nbytes)
         r = report[kernel]
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["shapes"].append(dict(shape=label, ms=ms, graph_ms=gms, plain_ms=pms, bound_ms=bms,
-                                bound_by=by, share_of_bound=bms / ms,
-                                graph_share_of_bound=bms / gms, max_abs_err=err))
+        row = dict(shape=label, ms=ms, graph_ms=gms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                   share_of_bound=bms / ms, graph_share_of_bound=bms / gms, max_abs_err=err)
+        also = ""
+        if select_ops is not None:
+            sms = prng_bound(select_ops, nbytes)[0]
+            row.update(select_bound_ms=sms, select_share_of_bound=sms / ms,
+                       select_graph_share_of_bound=sms / gms)
+            also = (f"; counted as selects {sms:.4f} ms: {100 * sms / ms:.1f} %, "
+                    f"graph {100 * sms / gms:.1f} %")
+        r["shapes"].append(row)
         print(f"  prng {kernel:9s} {label:58s}: equal; kernel {ms:.4f} ms (graph {gms:.4f}), "
               f"plain {pms:.4f} ms, bound {bms:.4f} ms by {by} ({100 * bms / ms:.1f} %; "
-              f"graph {100 * bms / gms:.1f} %)", flush=True)
+              f"graph {100 * bms / gms:.1f} %{also})", flush=True)
 
     def slots_of(ring, n, gen):
         return torch.cat([torch.randint(0, p, (n, 1, ring.N), generator=gen, dtype=torch.int32,
                                         device="cuda") for p in ring.primes], dim=1)
 
-    for name, (make, slab, rows) in (SMALL_PRNG_SHAPES if small else PRNG_SHAPES).items():
-        params = make()
+    def shape(params, name, slab, rows, encrypt=True, note=""):
+        """Every kernel of phase 2d at one shape; the error's draws alone
+        where not `encrypt`."""
         ring, ctx = params.ring, params.enc
         _, sk = keygen(ctx, np.random.default_rng(41))
         k_a, k_e = prng.split(prng.key(42))
         batch, n = (slab,), slab if rows is None else rows[1] - rows[0]
         lo = 0 if rows is None else rows[0]
         label = (f"{name} rows {rows or (0, slab)} of {slab}, L={ctx.L} L'={ctx.L_inner} "
-                 f"N'={ctx.n_inner}")
+                 f"N'={ctx.n_inner}{note}")
         words = n * ctx.L * ctx.L_inner * ctx.n_inner
         coeffs = n * ctx.L * ctx.n_inner
         n_words = -(-bgv._cbd_k(ctx.error_stddev) // 32)
         slots = slots_of(ring, n, torch.Generator(device="cuda").manual_seed(43))
         pt = slots if bgv._scalar(ctx, slots) else bgv._slots_to_plain_coeffs(ctx, slots)
-        u = nttm.negacyclic_ntt_rev(bgv._lift_error_plain(ctx, pt, k_e, batch, rows),
-                                    ctx.inner_plan(0))
-        hold("uniform", label, lambda: bgv._sample_uniform(ctx, k_a, batch, rows),
-             lambda: bgv._uniform_plain(ctx, k_a, batch, rows),
-             words * (HASH + MOD), 4 * words)
+        if encrypt:
+            hold("uniform", label, lambda: bgv._sample_uniform(ctx, k_a, batch, rows),
+                 lambda: bgv._uniform_plain(ctx, k_a, batch, rows),
+                 words * (HASH + MOD), 4 * words)
         hold("cbd_error", label, lambda: bgv._sample_error_coeffs(ctx, k_e, batch, rows),
              lambda: bgv._error_coeffs_plain(ctx, k_e, batch, rows),
              coeffs * (cbd_ops(n_words) + ctx.L_inner * ERROR_COLUMN), 4 * coeffs * ctx.L_inner)
         hold("lift", f"{label}, with the error", lambda: bgv._lift_error(ctx, pt, k_e, batch, rows),
              lambda: bgv._lift_error_plain(ctx, pt, k_e, batch, rows),
-             coeffs * (cbd_ops(n_words) + LIFT_COEFF
-                       + ctx.L_inner * (LIFT_COLUMN + ERROR_COLUMN + SHOUP + ADD_MOD)),
-             4 * pt.numel() + 4 * words)
+             coeffs * (cbd_ops(n_words) + LIFT_COEFF + LIFT_SIGN
+                       + ctx.L_inner * LIFT_ERROR_COLUMN),
+             4 * pt.numel() + 4 * words,
+             select_ops=coeffs * (cbd_ops(n_words) + LIFT_COEFF
+                                  + ctx.L_inner * SELECT_LIFT_ERROR_COLUMN))
+        if not encrypt:
+            return
+        u = nttm.negacyclic_ntt_rev(bgv._lift_error_plain(ctx, pt, k_e, batch, rows),
+                                    ctx.inner_plan(0))
         s_bytes = 8 * ctx.L * ctx.L_inner * ctx.n_inner
         enc_ops = words * (HASH + MOD + SHOUP + SUB_MOD)
         out = torch.empty_like(u)
@@ -1108,7 +1145,18 @@ def prng_vs_plain(small: bool) -> dict:
                           torch.stack(bgv._encrypt_from_u(
                               ctx, sk.s_ntt, u, bgv._uniform_plain(ctx, k_a, batch, rows)))),
               f"bgv.encrypt != the plain schedule at {label}")
-        del params, ctx, sk, slots, pt, u, out
+
+    shapes = SMALL_PRNG_SHAPES if small else PRNG_SHAPES
+    for name, (make, slab, rows) in shapes.items():
+        shape(make(), name, slab, rows)
+    name, rows = TWO_WORDS["small" if small else "full"]
+    params = shapes[name][0]()
+    params = dataclasses.replace(
+        params, enc=dataclasses.replace(params.enc, error_stddev=TWO_WORDS_SIGMA))
+    check(bgv._cbd_k(TWO_WORDS_SIGMA) > 32, "the general draw's shape draws one word a side")
+    shape(params, name, shapes[name][1], rows, encrypt=False,
+          note=f", two words a side (sigma {TWO_WORDS_SIGMA})")
+    del params
     held = set()
     for name, (make, P, _) in (SMALL_MAC_SHAPES if small else MAC_SHAPES).items():
         if name.split("_P")[0] in held:  # one operand shape a configuration

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Profile one warm call of the provers' witness map on one GPU.
+"""Profile one warm call of the provers' witness map on one GPU, or time
+chip_smoke's kernel phases alone.
 
     python3 profile_torch_witness.py                     # all four shapes
     python3 profile_torch_witness.py --only north_star seeded
-    python3 profile_torch_witness.py --kernels           # chip_smoke phase 2f alone
+    python3 profile_torch_witness.py --kernels [2d 2e 2f] [--sass] [--out FILE]
     python3 profile_torch_witness.py --setup             # CSR derivation in setups
     python3 profile_torch_witness.py --row-lengths [--small]   # CPU, no GPU
 
@@ -27,10 +28,17 @@ the warm call must equal the cold call's (their sums and every 4093rd
 word).  One JSON line a shape, and all of them in
 `chiprun_out/profile_witness.json`.
 
-`--kernels`: `chip_smoke.witness_vs_plain` (phase 2f: both kernels against
-their plain versions at the paths' shapes, timed beside their bounds) and
-its report as one JSON line, so two trees of the package compare in turns
-(a copy of this script and `chip_smoke.py` beside each package).
+`--kernels`: chip_smoke's kernel phases alone (all three where none is
+named): 2d (`prng_vs_plain`: the draws, the lift with its error and alone,
+`encrypt_kernel` with c1 and with c0 alone), 2e (`mac_vs_plain`: `mac` and
+`mac_drawn`), 2f (`witness_vs_plain`: `spmv` and `mulmod`), each kernel
+against its plain version at the paths' shapes and timed beside its bound,
+and their reports as one JSON line (also written to `--out`), so two trees
+of the package compare in turns (a copy of this script and `chip_smoke.py`
+beside each package; parent, change, change, parent in one call).  With
+`--sass`, first the build's ptxas lines (registers, spills) and
+`scripts/sass_mix`'s instruction counts for the hash kernels (`SASS`;
+needs `cuobjdump`).
 `--setup`: the resident cell's setup (`rq8192_g16_resident_2e14`, as
 `bench_torch.run` times it, each from a freed card) three times in one
 process, the first cold, with the time of every `relations.r1cs.derive_csr`
@@ -49,6 +57,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
 import time
 from pathlib import Path
@@ -58,6 +67,48 @@ import torch
 
 SHAPES = ("north_star", "seeded", "rinocchio", "zq")
 OUT = Path(__file__).resolve().parent / "chiprun_out" / "profile_witness.json"
+PHASES = {"2d": ("prng", "prng_vs_plain"), "2e": ("mac", "mac_vs_plain"),
+          "2f": ("witness", "witness_vs_plain")}
+SASS = ("lift_kernel", "encrypt_kernel", "mac_drawn_kernel")  # the kernels that hash
+
+
+def ptxas_lines(log: str) -> list:
+    """ptxas's register and spill lines for the kernels of SASS."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = next((k for k in SASS if k in m.group(1)), None)
+            if name:
+                out.append(m.group(1))
+        elif name and ("registers" in line or "spill" in line):
+            out.append("  " + line.strip())
+    return out
+
+
+def kernels(phases, sass: bool) -> dict:
+    """chip_smoke's `phases` on this tree, with the SASS counts where `sass`."""
+    import chip_smoke
+    from ringsnark_tpu_torch.ops import cuda_ntt
+
+    build = chip_smoke.build_kernels()
+    result = {"gpu": chip_smoke.gpu_line(), "tree": str(cuda_ntt.__file__)}
+    if sass:
+        from ringsnark_tpu_torch.scripts import sass_mix
+
+        result["ptxas"] = ptxas_lines(build.log or "")
+        print("\n".join(result["ptxas"]), flush=True)
+        result["sass"] = {k: v for k, v in sass_mix.report(build.path).items()
+                          if k.startswith(SASS)}
+        for name, r in sorted(result["sass"].items()):
+            loops = [{k: v for k, v in lp.items() if k not in ("first", "last")}
+                     for lp in r["loops"]]
+            print(f"sass {name}: {json.dumps({k: r[k] for k in ('instructions', 'alu', 'fma')})} "
+                  f"lift {json.dumps(r.get('lift'))} loops {json.dumps(loops)}", flush=True)
+    for phase in phases:
+        key, fn = PHASES[phase]
+        result[key] = getattr(chip_smoke, fn)(small=False)
+    return result
 
 
 def _setup(name: str):
@@ -265,13 +316,16 @@ def all_row_lengths(small: bool) -> list:
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", nargs="+", choices=SHAPES, default=list(SHAPES))
     mode = ap.add_mutually_exclusive_group()
-    mode.add_argument("--kernels", action="store_true", help="chip_smoke phase 2f alone")
+    mode.add_argument("--kernels", nargs="*", choices=sorted(PHASES), metavar="PHASE",
+                      help="chip_smoke's kernel phases alone: 2d, 2e, 2f (all where none)")
     mode.add_argument("--setup", action="store_true", help="derive_csr in resident setups")
     mode.add_argument("--row-lengths", action="store_true", help="row-length histograms (CPU)")
     ap.add_argument("--small", action="store_true", help="--row-lengths at test sizes")
+    ap.add_argument("--sass", action="store_true", help="--kernels: the hash kernels' SASS")
+    ap.add_argument("--out", help="--kernels: also write the JSON here")
     args = ap.parse_args(argv)
     if args.row_lengths:
         for row in all_row_lengths(args.small):
@@ -283,9 +337,11 @@ def main(argv=None) -> int:
     import chip_smoke
 
     print(f"gpu: {chip_smoke.gpu_line()}", flush=True)
-    if args.kernels:
-        chip_smoke.build_kernels()
-        print(json.dumps(chip_smoke.witness_vs_plain(small=False)), flush=True)
+    if args.kernels is not None:
+        text = json.dumps(kernels(args.kernels or sorted(PHASES), args.sass))
+        if args.out:
+            Path(args.out).write_text(text)
+        print(text, flush=True)
         return 0
     if args.setup:
         for row in setup_cost():

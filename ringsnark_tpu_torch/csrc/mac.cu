@@ -89,7 +89,7 @@
 #include <stdint.h>
 
 #include "modarith.cuh"  // reduce_once, shoup_of, mul_mod, refused
-#include "threefry.cuh"  // Column, Columns, kMaxCols, threefry_hl, mod_span
+#include "threefry.cuh"  // Column, Columns, kMaxCols, HashKey, threefry, mod_span
 
 namespace {
 
@@ -122,6 +122,7 @@ struct Shape {
   uint32_t groups;  // column groups of kVec: width / kVec
   uint32_t lc;      // L * C: a broadcast operand's words a row
   uint32_t row_ctr;  // mac_drawn: the counter's step between rows, L * I
+  uint32_t one;      // 1 (threefry.cuh's add)
 };
 
 __device__ __forceinline__ uint4 load4(const uint32_t* p) {
@@ -191,9 +192,11 @@ __device__ __forceinline__ void mac_body(const uint32_t* __restrict__ c0,
 
     // The rows of the run in pairs.  A drawn word is one hash reduced mod
     // the span (the launcher takes only columns with no high word and minval
-    // 0: every inner prime's uniform mask), with the column's key and mu in
-    // registers.
+    // 0: every inner prime's uniform mask), with the column's key, its
+    // injections' sums and mu in registers and the hash's adds on the FMA
+    // pipe.
     const Column col = kDrawn ? keys->c[j] : Column{};
+    const HashKey key = hash_key(col.lo0, col.lo1);
     uint32_t lo = 0, hi = 0;  // the counter of (row, l, i), 32-bit halves
     if constexpr (kDrawn) {
       const uint64_t ctr = s.base + static_cast<uint64_t>(r0) * s.row_ctr + (lj / s.C) * s.I + i;
@@ -201,7 +204,7 @@ __device__ __forceinline__ void mac_body(const uint32_t* __restrict__ c0,
       hi = static_cast<uint32_t>(ctr >> 32);
     }
     const auto draw = [&](uint32_t h, uint32_t w) {
-      return mod_span(threefry_hl(col.lo0, col.lo1, h, w), col.span, col.mu);
+      return mod_span(threefry<true>(key, h, w, s.one), col.span, col.mu);
     };
     uint32_t off = r0 * s.width + f, boff = r0 * s.lc + lj;
     Row<P, kBcast> cur0, cur1, nxt0, nxt1;
@@ -317,6 +320,7 @@ bool make_launch(int P, const uint64_t* ptrs, const long long* rows, const uint3
   s.groups = groups;
   s.lc = static_cast<uint32_t>(L * C);
   s.row_ctr = static_cast<uint32_t>(L * I);
+  s.one = 1;
   return true;
 }
 

@@ -22,6 +22,14 @@ __device__ __forceinline__ uint32_t reduce_once(uint32_t x, uint32_t p) {
   return min(x, x - p);
 }
 
+// a * b + c as one IMAD on the FMA pipe, whatever ptxas knows of b (a
+// multiply by 0 or 1 it would fold into a select or an add on the ALU).
+__device__ __forceinline__ uint32_t imad(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
 __device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b, uint32_t p) {
   return reduce_once(a + b, p);  // a, b < p < 2^31: no wrap
 }

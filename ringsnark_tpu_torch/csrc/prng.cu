@@ -42,7 +42,10 @@
 //   (bgv._lift_centered's two conditional steps) and, with kError, plus
 //   t_l * e mod Q_j for the CBD error drawn as cbd_kernel draws it (one
 //   draw a coefficient, written as its L' residues): u = lift(pt) + t*e,
-//   which one forward NTT takes to NTT(m) + t*NTT(e).
+//   which one forward NTT takes to NTT(m) + t*NTT(e).  (It replaces a
+//   lift kernel that redid the limb's work in every column: the line and
+//   its limb, v > t/2, the constants' load, a 64-bit offset and the
+//   error's residue from its sign.)
 // * encrypt_kernel: c0 = u_ntt - a*s mod Q_j, c1 = a where the caller keeps
 //   it, the uniform mask a drawn in registers.  The NTT is linear mod Q_j
 //   and every residue canonical, so c0 = NTT(lift(pt) + t*e) - a*s is
@@ -57,7 +60,9 @@
 // word takes 41 ALU slots against 4 bytes of writing it: about twice as
 // long as the bytes.  The lift without error moves 4 + 4 L' bytes a
 // coefficient and is bound by them; with the error it hashes 2 n_words
-// words a coefficient.  The encryption hashes one word, reads u and writes
+// words a coefficient, and each of its L' columns needs a multiply-add by
+// v > t/2, a Shoup product and two minimums.  The encryption hashes one
+// word, reads u and writes
 // c0 (and c1): 44 ALU slots a word against 8 (12) bytes, so the
 // operations bind c0 alone and the bytes c0 with c1 (chip_smoke.py's Ops
 // counts them; scripts/sass_mix.py prints what the compiler issues).
@@ -66,7 +71,19 @@
 // round constants immediates; mod span is a multiply-high with a host
 // constant mu = floor(2^32 / span) and one conditional subtract, never a
 // division; the key table rides in the launch's parameters
-// (__grid_constant__), so a launch needs no copy to the device.  The
+// (__grid_constant__), so a launch needs no copy to the device.  The lift
+// with its error steers the hash's 31 adds onto the FMA pipe
+// (threefry.cuh's add, the key's injections hoisted into HashKey on the
+// host), so the ALU issues only the 41 rotations and xors of a word, and
+// draws one word a side (k <= 32, every context's) with no loop, a
+// thread's 2 kPer hashes in lockstep.  Where a line holds a CTA's block
+// (every path's N'), the thread's kPer coefficients share their line, so
+// the limb's constants, t/2 and the counters' high words are the
+// thread's; v > t/2 and the error's sign are taken once a coefficient and
+// enter every column as multiply-adds (lift_word), and stores use 32-bit
+// offsets and immediates.  The encryption keeps the compiler's adds
+// (threefry_hl): with the injections' sums hoisted for the FMA pipe it
+// spilled 12-16 bytes at its 80 registers a thread.  The
 // encryption kernel is persistent: as many CTAs as the device keeps
 // resident (three an SM at 80 registers a thread; the launcher reads the
 // occupancy) each take an equal run of (tile, row) units, a tile being one
@@ -96,7 +113,7 @@
 #include <type_traits>
 
 #include "modarith.cuh"  // reduce_once, add_mod, sub_mod, shoup_mul, refused
-#include "threefry.cuh"  // Column, Columns, kMaxCols, threefry_word, draw_value, columns_of
+#include "threefry.cuh"  // Column, Columns, HashKey, threefry_n, draw_value, cbd_value, columns_of
 
 namespace {
 
@@ -146,6 +163,7 @@ __global__ void __launch_bounds__(kThreads)
     cbd_kernel(uint32_t* __restrict__ out, const __grid_constant__ Moduli q, uint32_t k0,
                uint32_t k1, uint32_t n_words, uint32_t last_mask, Geo g) {
   // line = r A + a; the outer blocks (side, word) are summed, not written
+  const HashKey key = hash_key(k0, k1);
   for (uint32_t line = blockIdx.y; line < g.lines; line += gridDim.y) {
     const uint32_t a = line % g.A;
     const uint32_t r = line / g.A;
@@ -155,7 +173,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int k = 0; k < kPer; ++k) {
       const uint32_t i = first_word() + k * kThreads;
       if (i >= g.I) continue;
-      const int e = cbd_value(k0, k1, ctr + i, g.step, n_words, last_mask);
+      const int e = cbd_value<false>(key, ctr + i, g.step, n_words, last_mask, 1u);
       for (uint32_t c = 0; c < g.C; ++c) {
         dst[static_cast<size_t>(c) * g.I + i] =
             e < 0 ? q.q[c] - static_cast<uint32_t>(-e) : static_cast<uint32_t>(e);
@@ -164,60 +182,169 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The error of a lift: the key k_e and cbd_kernel's counters (step, base).
+// The error of a lift: the key k_e with its injections hoisted (made on the
+// host) and cbd_kernel's counters (step, base); `one` is 1 (threefry.cuh's
+// add: the hash's adds on the FMA pipe).
 struct Cbd {
   uint64_t step, base;
-  uint32_t k0, k1, n_words, last_mask;
+  HashKey key;
+  uint32_t n_words, last_mask, one;
 };
 
 struct LiftGeo {
-  uint32_t n;      // coefficients of the launch: rows * A * I, below 2^31
+  uint32_t n;      // coefficients of the launch: rows * A * I, below 2^32
   uint32_t log_i;  // I = 2^log_i coefficients a line (r, a)
   uint32_t A, C, Cs;  // outer limbs; columns written; columns of a constants row
 };
 
-// bgv._lift_centered's two conditional steps on v < t < 2^31, Q < 2^31, in
-// signed 32-bit words, where they equal the plain version's int64 bit for
-// bit: v + Q - t and v - Q lie in (-2^31, 2^31).  The result is v's
-// residue mod Q wherever t <= 2 Q.
-__device__ __forceinline__ uint32_t lift_centered(uint32_t v, uint32_t t, uint32_t q) {
-  int32_t x = static_cast<int32_t>(v > (t >> 1) ? v + q - t : v);
-  x = x >= static_cast<int32_t>(q) ? x - static_cast<int32_t>(q) : x;
-  return static_cast<uint32_t>(x);
+constexpr int kLiftLog = 10;  // a CTA's coefficients, kThreads * kPer = 2^kLiftLog
+static_assert((1 << kLiftLog) == kThreads * kPer, "a CTA's block is a power of two");
+
+// The sign of a coefficient's error e, taken once: neg = e < 0 (0 or 1),
+// sgn = 1 - 2 neg (+-1 as a 32-bit word), mag = |e|.
+struct Sign {
+  uint32_t neg, sgn, mag;
+};
+
+__device__ __forceinline__ Sign sign_of(int e) {
+  const uint32_t neg = static_cast<uint32_t>(e) >> 31;
+  const uint32_t sgn = 1u - 2u * neg;
+  return Sign{neg, sgn, static_cast<uint32_t>(e) * sgn};
+}
+
+// One coefficient v < t < 2^31 in one column kk = (Q - t as a 32-bit word,
+// Q, t mod Q, its Shoup constant), with big = (v > t/2), 0 or 1, taken
+// once a coefficient.  x = v + big (Q - t) is bgv._lift_centered's first
+// step; without the error its second, x >= Q ? x - Q : x in signed 32-bit
+// words, where both equal the plain version's int64 bit for bit (x lies in
+// (-2^31, 2^31)).  With the error t <= 2 Q, and t is odd (an EncodingContext's
+// plain moduli are 1 mod 2N'), so t < 2 Q and x is already v's residue, in
+// [0, Q): no second step.  Then t e = sgn (t |e| mod Q) and x + neg Q + sgn
+// (t |e| mod Q) lies in [0, 2 Q): one conditional subtract.  The multiplies
+// by big, neg and sgn are IMADs (imad), so the column's ALU work is the two
+// minimums.
+template <bool kError>
+__device__ __forceinline__ uint32_t lift_word(uint32_t v, uint32_t big, const Sign& s,
+                                              const uint4& kk) {
+  const uint32_t q = kk.y;
+  const uint32_t x = imad(big, kk.x, v);
+  if constexpr (!kError) {
+    return static_cast<int32_t>(x) >= static_cast<int32_t>(q) ? x - q : x;
+  } else {
+    const uint32_t te = shoup_mul(s.mag, make_uint2(kk.z, kk.w), q);  // t |e| mod Q
+    return reduce_once(imad(s.sgn, te, imad(s.neg, q, x)), q);
+  }
+}
+
+// v > t/2 as 0 or 1, for v, t/2 < 2^31: the sign bit of t/2 - v.
+__device__ __forceinline__ uint32_t big_of(uint32_t v, uint32_t half) { return (half - v) >> 31; }
+
+// Where a line holds at least a CTA's block (I >= 2^kLiftLog: every path's
+// N' from 4096 up), the CTA's kPer * kThreads coefficients are one line's:
+// the line, its limb's constants row and t/2 are the thread's, the error's
+// counters of a side share their high word (a line's counters start at a
+// multiple of I, so no word of a block carries), and a thread's column
+// stores are one 32-bit offset and immediates.  The kPer coefficients'
+// 2 kPer hashes (one word a side) run in lockstep; a thread's columns take
+// their constants once, for all kPer coefficients.
+template <bool kError, bool kScalar>
+__device__ __forceinline__ void lift_block(uint32_t* __restrict__ out,
+                                           const uint32_t* __restrict__ pt,
+                                           const uint4* __restrict__ k, const LiftGeo& g,
+                                           const Cbd& cbd) {
+  const uint32_t x0 = blockIdx.x * (kThreads * kPer) + threadIdx.x;  // coefficient j: + j kThreads
+  const uint32_t line = x0 >> g.log_i;
+  const uint32_t i0 = x0 & ((1u << g.log_i) - 1);
+  const uint4* kc = k + (line % g.A) * g.Cs;
+  const uint4 k0 = __ldg(kc);
+  const uint32_t half = (k0.y - k0.x) >> 1;  // t/2: Q - (Q - t)
+  uint32_t v[kPer], big[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    v[j] = kScalar ? (j == 0 && i0 == 0 ? __ldg(pt + line) : 0u) : __ldg(pt + x0 + j * kThreads);
+    big[j] = big_of(v[j], half);
+  }
+  Sign s[kPer] = {};
+  if constexpr (kError) {
+    const uint64_t c0 = cbd.base + x0, c1 = c0 + cbd.step;  // word 0 of sides 0 and 1
+    if (cbd.n_words == 1) {
+      // each side's x0 = hi + k0, added once for its kPer counters
+      const uint32_t h0 = static_cast<uint32_t>(c0 >> 32) + cbd.key.k0;
+      const uint32_t h1 = static_cast<uint32_t>(c1 >> 32) + cbd.key.k0;
+      uint32_t h[2 * kPer], lo[2 * kPer], y[2 * kPer];
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        h[j] = h0;
+        lo[j] = static_cast<uint32_t>(c0) + j * kThreads;
+        h[kPer + j] = h1;
+        lo[kPer + j] = static_cast<uint32_t>(c1) + j * kThreads;
+      }
+      threefry_n<true, 2 * kPer>(cbd.key, h, lo, cbd.one, y);
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        s[j] = sign_of(__popc(y[j] & cbd.last_mask) - __popc(y[kPer + j] & cbd.last_mask));
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        s[j] = sign_of(cbd_value<true>(cbd.key, c0 + j * kThreads, cbd.step, cbd.n_words,
+                                       cbd.last_mask, cbd.one));
+      }
+    }
+  }
+  uint32_t off = ((line * g.C) << g.log_i) + i0;
+  for (uint32_t c = 0; c < g.C; ++c, off += 1u << g.log_i) {
+    const uint4 kk = __ldg(kc + c);
+    uint32_t* __restrict__ dst = out + off;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) dst[j * kThreads] = lift_word<kError>(v[j], big[j], s[j], kk);
+  }
+}
+
+// Lines shorter than a CTA's block (the test sizes, the Z_q operand's I = 1):
+// each coefficient its own line, constants and counter.
+template <bool kError, bool kScalar>
+__device__ __forceinline__ void lift_lines(uint32_t* __restrict__ out,
+                                           const uint32_t* __restrict__ pt,
+                                           const uint4* __restrict__ k, const LiftGeo& g,
+                                           const Cbd& cbd) {
+  const uint32_t mask = (1u << g.log_i) - 1;
+  const uint32_t b = blockIdx.x * (kThreads * kPer);  // below n: no 32-bit wrap past it
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    if (j * kThreads + threadIdx.x >= g.n - b) break;
+    const uint32_t x = b + j * kThreads + threadIdx.x;
+    const uint32_t line = x >> g.log_i;
+    const uint32_t i = x & mask;
+    const uint4* kc = k + (line % g.A) * g.Cs;
+    const uint4 k0 = __ldg(kc);
+    const uint32_t v = kScalar ? (i == 0 ? __ldg(pt + line) : 0u) : __ldg(pt + x);
+    const uint32_t big = big_of(v, (k0.y - k0.x) >> 1);
+    const Sign s = kError ? sign_of(cbd_value<true>(cbd.key, cbd.base + x, cbd.step,
+                                                    cbd.n_words, cbd.last_mask, cbd.one))
+                          : Sign{};
+    uint32_t* __restrict__ dst = out + ((line * g.C) << g.log_i) + i;
+    for (uint32_t c = 0; c < g.C; ++c) {
+      dst[c << g.log_i] = lift_word<kError>(v, big, s, __ldg(kc + c));
+    }
+  }
 }
 
 // out[r][a][c][i] = lift(pt) (+ t_a * e mod Q_c with kError); pt [R, A, I],
 // or [R, A] with kScalar (the coefficient at i = 0, zero beyond); k[a][c] =
-// (t_a, Q_c, t_a mod Q_c, its Shoup constant).  Coefficient x = (r A + a) I
-// + i, the error's counter base + x (cbd_kernel's, the error's rows being
-// the launch's).  The error is drawn once a coefficient and its L' residues
-// written; one thread takes kPer coefficients kThreads apart.
+// (Q_c - t_a as a 32-bit word, Q_c, t_a mod Q_c, its Shoup constant).
+// Coefficient x = (r A + a) I + i, the error's counter base + x
+// (cbd_kernel's, the error's rows being the launch's), drawn once a
+// coefficient and written as its C residues; a thread takes kPer
+// coefficients kThreads apart; 32-bit offsets (fewer than 2^32 words out).
 template <bool kError, bool kScalar>
 __global__ void __launch_bounds__(kThreads)
     lift_kernel(uint32_t* __restrict__ out, const uint32_t* __restrict__ pt,
-                const uint4* __restrict__ k, LiftGeo g, Cbd cbd) {
-  const uint32_t mask = (1u << g.log_i) - 1;
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const uint32_t x = blockIdx.x * (kThreads * kPer) + j * kThreads + threadIdx.x;
-    if (x >= g.n) break;
-    const uint32_t line = x >> g.log_i;
-    const uint32_t i = x & mask;
-    const uint32_t v = kScalar ? (i == 0 ? __ldg(pt + line) : 0u) : __ldg(pt + x);
-    const int e = kError ? cbd_value(cbd.k0, cbd.k1, cbd.base + x, cbd.step, cbd.n_words,
-                                     cbd.last_mask)
-                         : 0;
-    const uint4* kc = k + (line % g.A) * g.Cs;
-    uint32_t* dst = out + static_cast<size_t>(line) * g.C * (mask + 1) + i;
-    for (uint32_t c = 0; c < g.C; ++c) {
-      const uint4 t = __ldg(kc + c);  // (t, Q, t mod Q, Shoup)
-      uint32_t y = lift_centered(v, t.x, t.y);
-      if (kError) {
-        const uint32_t er = e < 0 ? t.y - static_cast<uint32_t>(-e) : static_cast<uint32_t>(e);
-        y = add_mod(y, shoup_mul(er, make_uint2(t.z, t.w), t.y), t.y);
-      }
-      dst[static_cast<size_t>(c) << g.log_i] = y;
-    }
+                const uint4* __restrict__ k, LiftGeo g, const __grid_constant__ Cbd cbd) {
+  if (g.log_i >= kLiftLog) {
+    lift_block<kError, kScalar>(out, pt, k, g, cbd);
+  } else {
+    lift_lines<kError, kScalar>(out, pt, k, g, cbd);
   }
 }
 
@@ -317,12 +444,13 @@ __global__ void __launch_bounds__(kEncThreads, kEncCtasPerSm)
 
 // The geometry of a launch, or false where the launch is refused: every
 // extent positive and below 2^31, the rows inside the axis, every counter
-// of the whole draw below 2^64, 1 to kMaxCols columns, and the lines and
-// words of the launch below 2^31 (32-bit indices in the kernels).  A line
-// spans the outer blocks and the columns or not, as the kernel writes them.
+// of the whole draw below 2^64, 1 to kMaxCols columns, the lines of the
+// launch below 2^31 and its words below 2^31, or 2^32 where `words32` (the
+// lift's unsigned 32-bit offsets).  A line spans the outer blocks and the
+// columns or not, as the kernel writes them.
 bool make_geo(long long outer, long long n_axis, long long lo, long long rows, long long A,
               long long I, int C, int L, bool lines_over_outer, bool lines_over_cols,
-              Geo& g) {
+              Geo& g, bool words32 = false) {
   using u128 = unsigned __int128;
   const long long limit = 1LL << 31;
   if (outer < 1 || outer >= limit || rows < 1 || rows >= limit || A < 1 || A >= limit ||
@@ -338,7 +466,10 @@ bool make_geo(long long outer, long long n_axis, long long lo, long long rows, l
   const u128 lines = static_cast<u128>(lines_over_outer ? outer : 1) * rows * A *
                      (lines_over_cols ? C : 1);
   const u128 words = lines * static_cast<u128>(I) * (lines_over_cols ? 1 : C);
-  if (lines >= static_cast<u128>(limit) || words >= static_cast<u128>(limit)) return false;
+  if (lines >= static_cast<u128>(limit) ||
+      words >= static_cast<u128>(limit) << (words32 ? 1 : 0)) {
+    return false;
+  }
   g.step = static_cast<uint64_t>(n_axis) * A * I;
   g.base = static_cast<uint64_t>(lo) * A * I;
   g.R = static_cast<uint32_t>(rows);
@@ -389,12 +520,13 @@ extern "C" int ringsnark_prng_cbd(void* out, const void* moduli, int C, unsigned
   return static_cast<int>(cudaGetLastError());
 }
 
-// out: uint32 [rows, A, C, I]; pt: uint32 [rows, A, I], or [rows, A] where
-// scalar (coefficient 0 of I); k: uint4 [A, Cs] (t_a, Q_c, t_a mod Q_c, its
-// Shoup constant), the first C columns written; I a power of two.  With
-// n_words > 0, plus t_a * e mod Q_c for the CBD error of key (k0, k1): the
-// words of side s, word w are outer block s * n_words + w of [2 n_words,
-// n_axis, A, I], the launch's rows at lo (cbd_kernel's); t_a <= 2 Q_c there.
+// out: uint32 [rows, A, C, I], fewer than 2^32 words; pt: uint32 [rows, A,
+// I], or [rows, A] where scalar (coefficient 0 of I); k: uint4 [A, Cs] (Q_c
+// - t_a as a 32-bit word, Q_c, t_a mod Q_c, its Shoup constant), the first
+// C columns written; I a power of two.  With n_words > 0, plus t_a * e mod
+// Q_c for the CBD error of key (k0, k1): the words of side s, word w are
+// outer block s * n_words + w of [2 n_words, n_axis, A, I], the launch's
+// rows at lo (cbd_kernel's); t_a <= 2 Q_c there.
 extern "C" int ringsnark_prng_lift(void* out, const void* pt, const void* k, int C, int Cs,
                                    int scalar, unsigned int k0, unsigned int k1, int n_words,
                                    unsigned int last_mask, long long n_axis, long long lo,
@@ -402,13 +534,14 @@ extern "C" int ringsnark_prng_lift(void* out, const void* pt, const void* k, int
   Geo g;
   if (n_words < 0 || n_words > 64 || Cs < C || (I & (I - 1)) != 0 ||
       !make_geo(n_words ? 2LL * n_words : 1, n_words ? n_axis : rows, n_words ? lo : 0, rows, A,
-                I, C, 1, false, false, g)) {
+                I, C, 1, false, false, g, true)) {
     return static_cast<int>(refused(cudaErrorInvalidValue));
   }
   const LiftGeo lg{g.lines * g.I, static_cast<uint32_t>(__builtin_ctzll(I)), g.A, g.C,
                    static_cast<uint32_t>(Cs)};
-  const Cbd cbd{g.step, g.base, k0, k1, static_cast<uint32_t>(n_words), last_mask};
-  const dim3 grid((lg.n + kThreads * kPer - 1) / (kThreads * kPer));
+  const Cbd cbd{g.step, g.base, hash_key(k0, k1), static_cast<uint32_t>(n_words), last_mask, 1u};
+  const dim3 grid(static_cast<unsigned>((static_cast<uint64_t>(lg.n) + kThreads * kPer - 1) /
+                                        (kThreads * kPer)));
   auto* o = static_cast<uint32_t*>(out);
   const auto* p = static_cast<const uint32_t*>(pt);
   const auto* kk = static_cast<const uint4*>(k);

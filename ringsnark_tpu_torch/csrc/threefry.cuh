@@ -2,13 +2,16 @@
 // cbd_kernel, lift_kernel, encrypt_kernel; mac.cu: mac_drawn_kernel), so
 // every draw on the card is one copy of the hash, of JAX's uint32 randint
 // reduction and of the centred-binomial error.  The contract (a draw's
-// words, counters and key columns) is set out in prng.cu.
+// words, counters and key columns) is set out in prng.cu.  The hash's adds
+// go where the compiler puts them (threefry_hl: draw_kernel, cbd_kernel,
+// encrypt_kernel) or onto the FMA pipe (threefry<true>, threefry_n<true>:
+// lift_kernel, mac_drawn_kernel), as each kernel measured faster.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "modarith.cuh"  // reduce_once
+#include "modarith.cuh"  // reduce_once, imad
 
 namespace {
 
@@ -27,42 +30,112 @@ struct Columns {
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) { return __funnelshift_l(x, x, r); }
 
-// threefry2x32 with 20 rounds (jax's _threefry2x32_lowering; utils/prng.py)
-// of the counter (hi, lo), as y0 ^ y1.
-__device__ __forceinline__ uint32_t threefry_hl(uint32_t k0, uint32_t k1, uint32_t hi,
-                                                uint32_t lo) {
+// A key with the words its injections add, hoisted out of every hash: after
+// each group of four rounds x0 gets k1, k2, k0, k1, k2 and x1 gets s1 ... s5
+// = k2 + 1, k0 + 2, k1 + 3, k2 + 4, k0 + 5 (k2 = k0 ^ k1 ^ 0x1BD11BDA), so
+// every injection is a two-input add.  Made once a key: on the host for a
+// launch's one key, once a tile in the kernels that walk key columns.
+struct HashKey {
+  uint32_t k0, k1, k2, s1, s2, s3, s4, s5;
+};
+
+__host__ __device__ __forceinline__ HashKey hash_key(uint32_t k0, uint32_t k1) {
   const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  uint32_t x0 = hi + k0;
-  uint32_t x1 = lo + k1;
-#define RINGSNARK_ROUND(r) \
-  x0 += x1;                \
-  x1 = rotl(x1, r);        \
-  x1 ^= x0;
-#define RINGSNARK_EVEN RINGSNARK_ROUND(13) RINGSNARK_ROUND(15) RINGSNARK_ROUND(26) RINGSNARK_ROUND(6)
-#define RINGSNARK_ODD RINGSNARK_ROUND(17) RINGSNARK_ROUND(29) RINGSNARK_ROUND(16) RINGSNARK_ROUND(24)
-  RINGSNARK_EVEN
-  x0 += k1;
-  x1 += k2 + 1u;
-  RINGSNARK_ODD
-  x0 += k2;
-  x1 += k0 + 2u;
-  RINGSNARK_EVEN
-  x0 += k0;
-  x1 += k1 + 3u;
-  RINGSNARK_ODD
-  x0 += k1;
-  x1 += k2 + 4u;
-  RINGSNARK_EVEN
-  x0 += k2;
-  x1 += k0 + 5u;
-#undef RINGSNARK_EVEN
-#undef RINGSNARK_ODD
-#undef RINGSNARK_ROUND
-  return x0 ^ x1;
+  return HashKey{k0, k1, k2, k2 + 1u, k0 + 2u, k1 + 3u, k2 + 4u, k0 + 5u};
 }
 
-__device__ __forceinline__ uint32_t threefry_word(uint32_t k0, uint32_t k1, uint64_t ctr) {
-  return threefry_hl(k0, k1, static_cast<uint32_t>(ctr >> 32), static_cast<uint32_t>(ctr));
+// a + b.  With kFma it issues on the FMA pipe, as IMAD a * one + b with
+// `one` a launch parameter that is 1 at run time: ptxas cannot fold a
+// multiply by a value it does not know, so it keeps the IMAD, where it
+// would put a plain add on the ALU beside the hash's rotations and xors.
+template <bool kFma>
+__device__ __forceinline__ uint32_t add(uint32_t a, uint32_t b, uint32_t one) {
+  if constexpr (kFma) {
+    return imad(a, one, b);
+  } else {
+    return a + b;
+  }
+}
+
+template <bool kFma, int N, int R>
+__device__ __forceinline__ void round_n(uint32_t (&x0)[N], uint32_t (&x1)[N], uint32_t one) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    x0[n] = add<kFma>(x0[n], x1[n], one);
+    x1[n] = rotl(x1[n], R) ^ x0[n];
+  }
+}
+
+template <bool kFma, int N>
+__device__ __forceinline__ void inject_n(uint32_t (&x0)[N], uint32_t (&x1)[N], uint32_t a,
+                                         uint32_t b, uint32_t one) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    x0[n] = add<kFma>(x0[n], a, one);
+    x1[n] = add<kFma>(x1[n], b, one);
+  }
+}
+
+template <bool kFma, int N>
+__device__ __forceinline__ void even_n(uint32_t (&x0)[N], uint32_t (&x1)[N], uint32_t one) {
+  round_n<kFma, N, 13>(x0, x1, one);
+  round_n<kFma, N, 15>(x0, x1, one);
+  round_n<kFma, N, 26>(x0, x1, one);
+  round_n<kFma, N, 6>(x0, x1, one);
+}
+
+template <bool kFma, int N>
+__device__ __forceinline__ void odd_n(uint32_t (&x0)[N], uint32_t (&x1)[N], uint32_t one) {
+  round_n<kFma, N, 17>(x0, x1, one);
+  round_n<kFma, N, 29>(x0, x1, one);
+  round_n<kFma, N, 16>(x0, x1, one);
+  round_n<kFma, N, 24>(x0, x1, one);
+}
+
+// threefry2x32 with 20 rounds (jax's _threefry2x32_lowering; utils/prng.py)
+// of N counters (hi[n], lo[n]) under one key, in lockstep (N independent
+// chains interleaved round by round), as y[n] = y0 ^ y1.  The caller passes
+// each counter's x0 = hi[n] + k0, so that counters sharing a high word add
+// it once.  A word is then 20 funnel-shift rotations and 21 xors, which only
+// the ALU issues, and 31 two-input adds (the low word's key, 20 rounds, 10
+// injections), on the FMA pipe with kFma.
+template <bool kFma, int N>
+__device__ __forceinline__ void threefry_n(const HashKey& k, const uint32_t (&x0_in)[N],
+                                           const uint32_t (&lo)[N], uint32_t one,
+                                           uint32_t (&y)[N]) {
+  uint32_t x0[N], x1[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    x0[n] = x0_in[n];
+    x1[n] = add<kFma>(lo[n], k.k1, one);
+  }
+  even_n<kFma, N>(x0, x1, one);
+  inject_n<kFma, N>(x0, x1, k.k1, k.s1, one);
+  odd_n<kFma, N>(x0, x1, one);
+  inject_n<kFma, N>(x0, x1, k.k2, k.s2, one);
+  even_n<kFma, N>(x0, x1, one);
+  inject_n<kFma, N>(x0, x1, k.k0, k.s3, one);
+  odd_n<kFma, N>(x0, x1, one);
+  inject_n<kFma, N>(x0, x1, k.k1, k.s4, one);
+  even_n<kFma, N>(x0, x1, one);
+  inject_n<kFma, N>(x0, x1, k.k2, k.s5, one);
+#pragma unroll
+  for (int n = 0; n < N; ++n) y[n] = x0[n] ^ x1[n];
+}
+
+template <bool kFma>
+__device__ __forceinline__ uint32_t threefry(const HashKey& k, uint32_t hi, uint32_t lo,
+                                             uint32_t one) {
+  const uint32_t h[1] = {add<kFma>(hi, k.k0, one)}, l[1] = {lo};
+  uint32_t y[1];
+  threefry_n<kFma, 1>(k, h, l, one, y);
+  return y[0];
+}
+
+// One word as the compiler places its adds.
+__device__ __forceinline__ uint32_t threefry_hl(uint32_t k0, uint32_t k1, uint32_t hi,
+                                                uint32_t lo) {
+  return threefry<false>(hash_key(k0, k1), hi, lo, 1u);
 }
 
 // w mod span for any w < 2^32, span in [1, 2^31]: q = umulhi(w, mu) is
@@ -91,14 +164,29 @@ __device__ __forceinline__ uint32_t draw_value(const Column& col, uint64_t ctr) 
 // The centred-binomial error of one coefficient (bgv._sample_error_coeffs):
 // the key's words (side, w) at the counters (side * n_words + w) * step +
 // ctr, the last word of a side masked to last_mask, popcounts of side 0
-// minus side 1.  |e| <= 32 * n_words.
-__device__ __forceinline__ int cbd_value(uint32_t k0, uint32_t k1, uint64_t ctr, uint64_t step,
-                                         uint32_t n_words, uint32_t last_mask) {
+// minus side 1, the two sides' hashes of a word in lockstep.  |e| <= 32 *
+// n_words.  One word a side (k <= 32: every context the port runs, k = 21
+// at sigma = 3.2) draws with no loop; more (a larger sigma) loop over the
+// words.
+template <bool kFma>
+__device__ __forceinline__ int cbd_pair(const HashKey& k, uint64_t c0, uint64_t c1,
+                                        uint32_t mask, uint32_t one) {
+  const uint32_t h[2] = {add<kFma>(static_cast<uint32_t>(c0 >> 32), k.k0, one),
+                         add<kFma>(static_cast<uint32_t>(c1 >> 32), k.k0, one)};
+  const uint32_t lo[2] = {static_cast<uint32_t>(c0), static_cast<uint32_t>(c1)};
+  uint32_t y[2];
+  threefry_n<kFma, 2>(k, h, lo, one, y);
+  return __popc(y[0] & mask) - __popc(y[1] & mask);
+}
+
+template <bool kFma>
+__device__ __forceinline__ int cbd_value(const HashKey& k, uint64_t ctr, uint64_t step,
+                                         uint32_t n_words, uint32_t last_mask, uint32_t one) {
+  if (n_words == 1) return cbd_pair<kFma>(k, ctr, step + ctr, last_mask, one);
   int e = 0;
   for (uint32_t w = 0; w < n_words; ++w) {
-    const uint32_t mask = w + 1 == n_words ? last_mask : 0xFFFFFFFFu;
-    e += __popc(threefry_word(k0, k1, w * step + ctr) & mask);
-    e -= __popc(threefry_word(k0, k1, (n_words + w) * step + ctr) & mask);
+    e += cbd_pair<kFma>(k, w * step + ctr, (n_words + w) * step + ctr,
+                        w + 1 == n_words ? last_mask : 0xFFFFFFFFu, one);
   }
   return e;
 }

@@ -176,18 +176,22 @@ def t_pairs(ctx) -> torch.Tensor:
 @lru_cache(maxsize=None)
 def lift_consts(ctx) -> torch.Tensor:
     """The lift kernel's operand, int32 ``[L, L', 4]`` on the context's
-    device: (t_l, Q_j, t_l mod Q_j, its Shoup constant) as uint32 words
-    (made once a context; a level takes the first L'_lvl columns)."""
+    device: (Q_j - t_l mod 2^32, Q_j, t_l mod Q_j, its Shoup constant) as
+    uint32 words (made once a context; a level takes the first L'_lvl
+    columns; the kernel takes t_l = Q_j - (Q_j - t_l) from column 0)."""
     L, Lp = ctx.L, ctx.L_inner
     t = torch.as_tensor(ctx.t_np.astype(np.int64), device=ctx.device)[:, None].expand(L, Lp)
     q = ctx.inner_consts(0)[:, 0][None, :].expand(L, Lp)
-    return torch.cat([torch.stack([t, q], dim=-1).to(_I32), t_pairs(ctx)], dim=-1).contiguous()
+    qt = (q - t) & _MASK
+    qt = qt - ((qt >> 31) << 32)  # the uint32 word's int32 bits
+    return torch.cat([torch.stack([qt, q], dim=-1).to(_I32), t_pairs(ctx)], dim=-1).contiguous()
 
 
 @lru_cache(maxsize=None)
 def _error_lift_ok(ctx) -> bool:
     """The lift is a canonical residue, as the kernel's add mod Q_j needs,
-    where every t_l <= 2 Q_j (``csrc/prng.cu:lift_centered``)."""
+    where every t_l <= 2 Q_j (``csrc/prng.cu:lift_word``; an odd t_l, as
+    every context's is, is then below 2 Q_j)."""
     return all(t <= 2 * q for t in ctx.ring.primes for q in ctx.inner_primes)
 
 
@@ -297,6 +301,11 @@ def _lift(ctx, pt: torch.Tensor, level: int, width: int, error) -> torch.Tensor:
         raise ValueError(f"cuda_prng.lift: plaintext shape {tuple(pt.shape)} at level {level}, "
                          f"want [*, {ctx.L}, {width} or 1], a power of two")
     rows = math.prod(pt.shape[:-2])
+    words = rows * ctx.L * C * width
+    if words >= 1 << 32:
+        raise ValueError(f"cuda_prng.lift: {words} output words ({rows} rows, L={ctx.L}, "
+                         f"{C} columns, width {width}); a launch writes fewer than 2^32 "
+                         f"(32-bit offsets)")
     k = lift_consts(ctx)
     out = torch.empty((*pt.shape[:-1], C, width), dtype=_I32, device=device)
     if out.numel():

@@ -19,8 +19,18 @@ inside a loop is counted whether it runs or not.  The MAC kernels'
 rows are labelled ``rows``, with the rows a pass takes (its 16-byte loads
 over the ones a row needs: c0, c1 unless drawn, and each operand unless
 it is a broadcast) and the instructions per column and row (a thread
-takes four columns); any other loop of theirs is ``other``.  Needs ``nvcc`` and
-``cuobjdump`` (PATH or $CUDA_HOME/bin); the card is not used.
+takes four columns); any other loop of theirs is ``other``.  The lift
+kernels (``lift_kernel<error,scalar>``) have a unit of their own, loop or
+not: ``draw``, the straight run (no branch in or out) with the most
+rotations outside every loop, per coefficient's error (40 rotations a
+coefficient, one word a side); ``columns``, every innermost loop or
+straight run outside loops that stores and has no rotations, per column of
+a coefficient (its stores), and ``column``, the one of those loops with the
+most stores (where a line holds a CTA's block, a thread's coefficients
+share each column's pass); and each innermost loop that hashes, per
+coefficient-word (``draw_words``: the general draw of two or more words a
+side).  Needs ``nvcc`` and ``cuobjdump`` (PATH or $CUDA_HOME/bin); the card
+is not used.
 """
 
 from __future__ import annotations
@@ -119,9 +129,62 @@ def row_loop(name: str, loop: dict, insns) -> dict:
     if not wide or wide % per_row:
         return {"label": "other"}
     rows = wide // per_row
-    return {"label": "rows", "rows": rows,
-            "per_column_row": {k: loop[k] / (4 * rows) for k in (
-                "instructions", "alu", "fma", "xu", "mem", "uniform", "control", "other")}}
+    return {"label": "rows", "rows": rows, "per_column_row": per(loop, 4 * rows)}
+
+
+CLASSES = ("instructions", "alu", "fma", "xu", "mem", "uniform", "control", "other")
+
+
+def per(counts: dict, n: float) -> dict:
+    return {k: counts[k] / n for k in CLASSES}
+
+
+def segments(insns) -> list:
+    """The straight runs of a kernel: cut after every branch or exit and
+    before every branch target."""
+    targets = {int(m.group(1), 16) for _, t in insns for m in [_BRANCH.search(t)] if m}
+    runs, cur = [], []
+    for addr, text in insns:
+        if addr in targets and cur:
+            runs.append(cur)
+            cur = []
+        cur.append((addr, text))
+        if _opcode(text) in ("BRA", "EXIT", "RET", "JMP", "BREAK") or _BRANCH.search(text):
+            runs.append(cur)
+            cur = []
+    return runs + ([cur] if cur else [])
+
+
+def lift_parts(name: str, insns, loops) -> dict:
+    """The lift kernel's units (module docstring): `draw`, `columns` and
+    the labels of its loops; {} for any other kernel."""
+    if not name.startswith("lift_kernel<"):
+        return {}
+    inside = lambda run: any(a <= run[0][0] <= b for a, b in loops)  # noqa: E731
+    straight = [(run, mix(run)) for run in segments(insns) if not inside(run)]
+    out = {"columns": [], "loops": []}
+    draws = [(run, m) for run, m in straight if m["rotations"]]
+    if draws:
+        run, m = max(draws, key=lambda d: d[1]["rotations"])
+        out["draw"] = {"first": hex(run[0][0]), "last": hex(run[-1][0]),
+                       "coefficients": m["rotations"] / 40,
+                       "per_coefficient": per(m, m["rotations"] / 40)}
+    for a, b in loops:
+        m = mix([(x, t) for x, t in insns if a <= x <= b])
+        if m["rotations"]:
+            out["loops"].append({"first": hex(a), "label": "draw_words",
+                                 "per_coefficient_word": per(m, m["rotations"] / 40)})
+        elif m["stores"]:
+            out["columns"].append({"first": hex(a), "loop": True, "stores": m["stores"],
+                                   "per_column": per(m, m["stores"])})
+    for run, m in straight:
+        if m["stores"] and not m["rotations"]:
+            out["columns"].append({"first": hex(run[0][0]), "loop": False,
+                                   "stores": m["stores"], "per_column": per(m, m["stores"])})
+    loops_out = [c for c in out["columns"] if c["loop"]]
+    if loops_out:  # the main path's: a thread's kPer coefficients a column, the most stores
+        out["column"] = max(loops_out, key=lambda c: c["stores"])
+    return out
 
 
 def innermost_loops(insns) -> list:
@@ -141,11 +204,13 @@ def report(lib_path) -> dict:
     out = {}
     for name, insns in sorted(functions(sass).items()):
         loops = []
-        for a, b in innermost_loops(insns):
+        inner = innermost_loops(insns)
+        for a, b in inner:
             body = [(x, t) for x, t in insns if a <= x <= b]
             loop = {"first": hex(a), "last": hex(b), **mix(body)}
             loops.append({**loop, **row_loop(name, loop, body)})
-        out[name] = {**mix(insns), "loops": loops}
+        lift = lift_parts(name, insns, inner)
+        out[name] = {**mix(insns), "loops": loops, **({"lift": lift} if lift else {})}
     return out
 
 

@@ -6,9 +6,12 @@ tables (`cuda_prng.column`, `uniform_columns`, `shoup_pairs`, `t_pairs`):
 the lines of a launch and their split into (o, r, a, c), the words a
 thread writes, each word's 64-bit counter, threefry2x32 as the kernel
 unrolls it in uint32 arithmetic (uint64 with a 32-bit mask), the reduction
-mod the span by a multiply-high with mu, the CBD popcounts, the lift's two
-conditional steps in signed 32-bit words with its Shoup product t * e
-(`lift_consts`), and the encryption kernel's walk over a given number of
+mod the span by a multiply-high with mu, the CBD popcounts, the lift
+(`lift_consts`: Q - t, Q, t mod Q and its Shoup constant) with the line and
+t/2 a thread's where a CTA's block is one line, its first step a multiply-add
+by v > t/2, the second in signed 32-bit words without the error, and with it
+the error's sign taken once, t |e| mod Q by Shoup and one conditional
+subtract, and the encryption kernel's walk over a given number of
 resident CTAs (`enc_walk`): each CTA's run of (tile, row) units, a
 thread's words kEncThreads apart with their s pairs, the row counter's low
 word advanced with one carry test a row, and its Shoup products.
@@ -28,6 +31,7 @@ from ntt_replay import add, shoup, sub
 
 MASK = np.uint64(0xFFFFFFFF)
 THREADS, PER = 256, 4  # kThreads, kPer in csrc/prng.cu
+LIFT_LOG = 10  # kLiftLog: a CTA's kThreads * kPer coefficients
 ENC_THREADS, ENC_WORDS = 256, 8  # kEncThreads, kEncWords
 EVEN, ODD = (13, 15, 26, 6), (17, 29, 16, 24)
 
@@ -113,65 +117,105 @@ def draw(columns, geo) -> np.ndarray:
 def cbd(moduli, key, k: int, geo) -> np.ndarray:
     """`cbd_kernel`: uint32 residues [rows, A, C, I] of the error with
     parameter k; the word (side, w) is outer block side * n_words + w."""
-    n_words = -(-k // 32)
-    last_mask = np.uint64((1 << (k - 32 * (n_words - 1))) - 1)
     _, a, r, o = _lines(geo, len(moduli), False, False)
     ctr, i = _counters(geo, a, r, o)
-    step = np.uint64(geo.n_axis * geo.A * geo.I)
-    e = np.zeros(ctr.shape, np.int64)
-    for w in range(n_words):
-        mask = last_mask if w == n_words - 1 else MASK
-        for side, sign in ((w, 1), (n_words + w, -1)):
-            u = threefry_word(key[0], key[1], np.uint64(side) * step + ctr) & mask
-            e += sign * np.bitwise_count(u).astype(np.int64)
+    e = _cbd_words(key, k, ctr, np.uint64(geo.n_axis * geo.A * geo.I))
     out = np.zeros((len(e), len(moduli), geo.I), np.uint64)
     for j, q in enumerate(moduli):
         out[:, j, i.astype(np.int64)] = np.where(e < 0, e + q, e)
     return out.reshape(geo.rows, geo.A, len(moduli), geo.I)
 
 
-def lift_centered(v, t, q):
-    """`lift_centered`: the two conditional steps in signed 32-bit words."""
-    x = np.where(v > (t >> np.uint64(1)), (v + q - t) & MASK, v).astype(np.int64)
-    x = np.where(x >= 1 << 31, x - (1 << 32), x)  # the int32 the kernel compares
-    x = np.where(x >= q.astype(np.int64), x - q.astype(np.int64), x)
-    return x.astype(np.uint64) & MASK
+def _cbd_words(key, k: int, ctr, step):
+    """The CBD error at the counters `ctr` of side 0, word 0 (int64): words
+    (side, w) at ctr + (side * n_words + w) * step, the last masked."""
+    n_words = -(-k // 32)
+    last_mask = np.uint64((1 << (k - 32 * (n_words - 1))) - 1)
+    e = np.zeros(ctr.shape, np.int64)
+    for w in range(n_words):
+        mask = last_mask if w == n_words - 1 else MASK
+        for side, sign in ((w, 1), (n_words + w, -1)):
+            u = threefry_word(key[0], key[1], np.uint64(side) * step + ctr) & mask
+            e += sign * np.bitwise_count(u).astype(np.int64)
+    return e
+
+
+def lift_word(v, big, consts, error=None):
+    """`lift_word`: v's word in the column `consts` ([..., 4]: Q - t as a
+    32-bit word, Q, t mod Q, its Shoup constant) with big = v > t/2 (0 or
+    1); `error` = (neg, sgn, mag), the error's sign taken once."""
+    q = consts[..., 1]
+    x = (v + big * consts[..., 0]) & MASK  # imad(big, Q - t, v)
+    if error is None:  # the second step in signed 32-bit words
+        xs = np.where(x >= 1 << 31, x.astype(np.int64) - (1 << 32), x.astype(np.int64))
+        return np.where(xs >= q.astype(np.int64), x - q, x) & MASK
+    neg, sgn, mag = error
+    assert (x < q).all(), "t < 2 Q: the first step gives v's residue"
+    te = shoup(mag, consts[..., 2:], q)  # t |e| mod Q
+    y = (x + neg * q + sgn * te) & MASK
+    assert (y < 2 * q).all(), "one conditional subtract"
+    return np.where(y >= q, y - q, y)
 
 
 def lift(pt, consts, C: int, geo, scalar: bool, cbd=None) -> np.ndarray:
     """`lift_kernel`: uint32 words [rows, A, C, I] from pt ([rows, A, I], or
     [rows, A] where `scalar`) and consts [A, Cs, 4] (uint64 words); `cbd` =
     (key, k) adds t * e for the error at the draw's counters (`geo` the
-    error's geometry, else the launch's)."""
+    error's geometry, else the launch's).  The grid's coefficients by
+    (block, j, thread); where a line holds a CTA's block (I >= 2^LIFT_LOG)
+    the line, t/2 and the error's high counter words are the thread's (taken
+    from its coefficient j = 0, and checked to be every j's), else each
+    coefficient's own."""
     A, I = geo.A, geo.I
     assert I & (I - 1) == 0 and consts.shape[1] >= C
+    log_i = I.bit_length() - 1
     n = geo.rows * A * I
-    x = words_of_a_line(n)  # the flat grid's coefficients, each once
-    line, i = x >> np.uint64(I.bit_length() - 1), x & np.uint64(I - 1)
+    assert n * C < 1 << 32, "32-bit offsets"
+    block = THREADS * PER
+    b = np.arange(-(-n // block), dtype=np.uint64)[:, None, None] * np.uint64(block)
+    local = (np.arange(PER)[None, :, None] * THREADS + np.arange(THREADS)).astype(np.uint64)
+    valid = np.broadcast_to(local < np.uint64(n) - b, (len(b), PER, THREADS))
+    x = b + local  # [blocks, kPer, kThreads]
+    one_line = log_i >= LIFT_LOG
+    if one_line:  # the thread's line, from its coefficient j = 0
+        line = np.broadcast_to(x[:, :1] >> np.uint64(log_i), x.shape)
+        assert np.array_equal(line, x >> np.uint64(log_i)), "a CTA's block is one line's"
+    else:
+        line = x >> np.uint64(log_i)
+    x, line = x[valid], line[valid]
+    assert np.array_equal(np.sort(x), np.arange(n, dtype=np.uint64)), "each coefficient once"
+    i = x & np.uint64(I - 1)
     pt = pt.reshape(-1)
     v = np.where(i == 0, pt[line.astype(np.int64)], 0) if scalar else pt[x.astype(np.int64)]
-    e = None
+    k4 = consts[(line % np.uint64(A)).astype(np.int64)]  # [n, Cs, 4]: the thread's row
+    half = ((k4[:, 0, 1] - k4[:, 0, 0]) & MASK) >> np.uint64(1)  # t/2: Q - (Q - t)
+    big = ((half - v) & MASK) >> np.uint64(31)
+    assert np.array_equal(big.astype(bool), v > half)
+    error = None
     if cbd is not None:
         key, k = cbd
-        n_words = -(-k // 32)
-        last_mask = np.uint64((1 << (k - 32 * (n_words - 1))) - 1)
         step = np.uint64(geo.n_axis * A * I)
         ctr = np.uint64(geo.lo * A * I) + x
-        e = np.zeros(x.shape, np.int64)
-        for w in range(n_words):
-            mask = last_mask if w == n_words - 1 else MASK
-            for side, sign in ((w, 1), (n_words + w, -1)):
-                u = threefry_word(key[0], key[1], np.uint64(side) * step + ctr) & mask
-                e += sign * np.bitwise_count(u).astype(np.int64)
-    k4 = consts[(line % np.uint64(A)).astype(np.int64)]  # [n, Cs, 4]
-    out = np.zeros((geo.rows * A, C, I), np.uint64)
+        if one_line and k <= 32:  # the one-word draw: a side's high word the thread's
+            x0 = x - (x & np.uint64(block - 1)) + (x & np.uint64(THREADS - 1))
+            j = (x & np.uint64(block - 1)) >> np.uint64(THREADS.bit_length() - 1)
+            for side in (0, 1):
+                c0 = np.uint64(geo.lo * A * I) + np.uint64(side) * step + x0
+                lo = (c0 & MASK) + j * np.uint64(THREADS)
+                assert (lo <= MASK).all(), "no counter of a block carries"
+                assert np.array_equal(((c0 >> np.uint64(32)) << np.uint64(32)) | lo,
+                                      ctr + np.uint64(side) * step)
+        e = _cbd_words(key, k, ctr, step)
+        neg = (e < 0).astype(np.uint64)
+        sgn = (1 - 2 * neg.astype(np.int64)).astype(np.uint64) & MASK  # +-1 as a 32-bit word
+        mag = (e.astype(np.uint64) * sgn) & MASK
+        assert np.array_equal(mag, np.abs(e).astype(np.uint64))
+        error = (neg, sgn, mag)
+    out = np.full((geo.rows * A * C * I,), MASK, np.uint64)  # words no thread writes stay all ones
     for c in range(C):
-        t, q, tq = k4[:, c, 0], k4[:, c, 1], k4[:, c, 2:]
-        y = lift_centered(v, t, q)
-        if e is not None:
-            er = np.where(e < 0, q.astype(np.int64) + e, e).astype(np.uint64)
-            y = add(y, shoup(er, tq, q), q)
-        out[line.astype(np.int64), c, i.astype(np.int64)] = y
+        off = ((line * np.uint64(C)) << np.uint64(log_i)) + i + np.uint64(c << log_i)
+        out[off.astype(np.int64)] = lift_word(v, big, k4[:, c], error)
+    assert (out != MASK).all(), "every word is written"
     return out.reshape(geo.rows, A, C, I)
 
 

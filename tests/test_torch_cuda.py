@@ -506,6 +506,41 @@ def test_prng_kernels_equal_plain(cuda, shape, kernel):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["north_star", "zq", "short_lines"])
+def test_lift_error_two_words_a_side_equals_plain(cuda, shape):
+    """lift_kernel's general draw, two words a side (k = 50 at sigma = 5:
+    a context with a larger sigma), against `_lift_error_plain` on the card:
+    lines of many CTA blocks (the north star's N' = 16384, 64 rows of its
+    slab; Z_q's slot at N' = 4096) and lines shorter than one (N' = 128)."""
+    import dataclasses
+
+    from ringsnark_tpu_torch.encoding import bgv
+    from ringsnark_tpu_torch.ops import cuda_prng
+    from ringsnark_tpu_torch.utils import prng
+
+    if shape == "short_lines":
+        ctx, batch, rows = _small_params(2, "cuda").enc, (40,), (3, 37)
+    else:
+        params, _, cfg = _prng_params(shape)
+        ctx, batch, rows = params.enc, (cfg["slab"],), (cfg["rows"][0], cfg["rows"][0] + 64)
+    ctx = dataclasses.replace(ctx, error_stddev=5.0)
+    assert bgv._cbd_k(ctx.error_stddev) > 32
+    g = torch.Generator(device=cuda).manual_seed(36)
+    n = rows[1] - rows[0]
+    slots = torch.cat([torch.randint(0, p, (n, 1, ctx.ring.N), generator=g,
+                                     dtype=torch.int32, device=cuda)
+                       for p in ctx.ring.primes], dim=1)
+    pt = slots if bgv._scalar(ctx, slots) else bgv._slots_to_plain_coeffs(ctx, slots)
+    key = prng.key(37)
+    before = cuda_prng.launch_counts["lift"]
+    got = bgv._lift_error(ctx, pt, key, batch, rows)
+    want = bgv._lift_error_plain(ctx, pt, key, batch, rows)
+    torch.cuda.synchronize()
+    assert cuda_prng.launch_counts["lift"] == before + 1
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("maxval,minval", [(7, -6), (1 << 16, 0), (2147352577, 0),
                                            ((1 << 31) + 99, 100), (0, None)],
                          ids=["fhe_signed_13", "span_2e16", "prime", "past_2e31", "bits"])

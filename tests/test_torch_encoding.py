@@ -49,6 +49,18 @@ def j_encrypt_from_m(jctx, s_ntt, m, a, e_ntt):
     return add_mod(sub_mod(m, As, p), te, p)
 
 
+@partial(jax.jit, static_argnums=(0, 2, 3, 4))
+def j_lift_error_ntt(jctx, pt, key_seed, batch, draw):
+    """NTT(the JAX package's lift of `pt`, zero past its width) + t *
+    `_sample_error_ntt` of rows `draw` of a `batch` draw under PRNGKey(key_seed)."""
+    lifted = jbgv._lift_centered(jctx, pt, 0)
+    lifted = jnp.pad(lifted, [(0, 0)] * 3 + [(0, jctx.n_inner - lifted.shape[-1])])
+    e_ntt = jbgv._sample_error_ntt(jctx, jax.random.PRNGKey(key_seed), batch)[draw[0]:draw[1]]
+    p, mu, b = jctx.inner_consts(0)
+    return add_mod(jntt.negacyclic_ntt_rev(lifted, jctx.inner_plan(0)),
+                   mul_mod(e_ntt, jctx.t_mod_Q, p, mu, b), p)
+
+
 def _u(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.numpy().view(np.uint32)
@@ -359,8 +371,9 @@ def test_kernel_replay_equals_plain_uniform_and_error(pair, case):
 @pytest.mark.parametrize("case", ["whole_batch", "sub_chunk_lo_not_0"])
 def test_kernel_constants_and_encrypt_replay_equal_plain(pair, case):
     """The host's tables for the lift and encryption kernels equal the plain
-    versions' constants (s_ntt beside floor(s 2^32 / Q_j); t_l, Q_j, t_l mod
-    Q_j and its Shoup constant; the key columns of split(k_a, L')), and the
+    versions' constants (s_ntt beside floor(s 2^32 / Q_j); Q_j - t_l as a
+    32-bit word, Q_j, t_l mod Q_j and its Shoup constant; the key columns of
+    split(k_a, L')), and the
     two kernels replayed with them (the lift with its error, the forward
     NTT between them) give the plain encryption's c0 and c1, with c1 and
     without, at one CTA, a few and more CTAs than units."""
@@ -377,7 +390,8 @@ def test_kernel_constants_and_encrypt_replay_equal_plain(pair, case):
     assert np.array_equal(s_pairs[..., 1].astype(object),
                           (s.astype(object) << 32) // Qs[None, :, None])
     tmq = ctx.t_mod_Q[..., 0].numpy()
-    assert np.array_equal(k4[..., 0], np.broadcast_to(ctx.t_np[:, None], tmq.shape))
+    qt = (ctx.Q_np[None, :].astype(np.int64) - ctx.t_np[:, None].astype(np.int64)) % (1 << 32)
+    assert np.array_equal(k4[..., 0], qt)
     assert np.array_equal(k4[..., 1], np.broadcast_to(ctx.Q_np[None, :], tmq.shape))
     assert np.array_equal(k4[..., 2], tmq)
     assert np.array_equal(k4[..., 3].astype(object), (tmq.astype(object) << 32) // Qs[None, :])
@@ -407,9 +421,9 @@ def test_kernel_constants_and_encrypt_replay_equal_plain(pair, case):
         assert (r1 is None) if not with_c1 else np.array_equal(r1.reshape(c1.shape), _host(c1))
 
 
-def _lift_ctx(ts: tuple, inner: tuple, N: int = 16, n_inner: int = 64):
+def _lift_ctx(ts: tuple, inner: tuple, N: int = 16, n_inner: int = 64, sigma: float = 3.2):
     return EncodingContext(ring=RingContext(primes=ts, N=N, device="cpu"), n_inner=n_inner,
-                           inner_primes=inner)
+                           inner_primes=inner, error_stddev=sigma)
 
 
 def _primes(count, below, n_inner=64):
@@ -419,18 +433,33 @@ def _primes(count, below, n_inner=64):
 
 
 TOP = _primes(3, 1 << 31)  # the largest NTT primes below 2^31
-# (plain moduli t_l, inner primes, rows, level, scalar, t against Q_j): t
-# above every Q_j with primes just under 2^31; Q_j just above t / 2; t above
-# 2 Q_j (the lift alone: the kernel adds t*e only where t <= 2 Q_j); two
-# limbs at level 1 (the lift alone: the error is a fresh encryption's); the
-# Z_q slots of three limbs
+LINE = 4096  # a line of at least a CTA's kThreads * kPer = 1024 coefficients (3 primes' budget)
+TOP_LINE = _primes(3, 1 << 31, LINE)
+# (plain moduli t_l, inner primes, rows, level, scalar, t against Q_j, N',
+# sigma): t above every Q_j with primes just under 2^31; Q_j just above t /
+# 2; t above 2 Q_j (the lift alone: the kernel adds t*e only where t <= 2
+# Q_j); two limbs at level 1 (the lift alone: the error is a fresh
+# encryption's); the Z_q slots of three limbs; two words a side (k = 50 at
+# sigma 5); and each again where a line holds a CTA's block (N' = 4096: the
+# line, t/2 and the error's counters the thread's), two limbs at level 0
+# (each CTA's limb from its line) and at level 1 (C < Cs)
 LIFTS = {
-    "t_above_q_near_2e31": (TOP[:1], _primes(3, TOP[0]), 3, 0, False, "q < t <= 2q"),
+    "t_above_q_near_2e31": (TOP[:1], _primes(3, TOP[0]), 3, 0, False, "q < t <= 2q", 64, 3.2),
     "q_just_above_t_half": (TOP[:1], _primes(2, TOP[0] // 2 + (1 << 20)), 2, 0, False,
-                            "q < t <= 2q"),
-    "t_above_2q": (TOP[:1], _primes(2, 1 << 29), 2, 0, False, "2q < t"),
-    "two_limbs_level1": (_primes(2, 1 << 20), TOP, 3, 1, False, "t < q"),
-    "zq_scalar": (TOP, _primes(3, TOP[-1]), 5, 0, True, "q < t <= 2q"),
+                            "q < t <= 2q", 64, 3.2),
+    "t_above_2q": (TOP[:1], _primes(2, 1 << 29), 2, 0, False, "2q < t", 64, 3.2),
+    "two_limbs_level1": (_primes(2, 1 << 20), TOP, 3, 1, False, "t < q", 64, 3.2),
+    "zq_scalar": (TOP, _primes(3, TOP[-1]), 5, 0, True, "q < t <= 2q", 64, 3.2),
+    "two_words_a_side": (TOP[:1], _primes(3, TOP[0]), 3, 0, False, "q < t <= 2q", 64, 5.0),
+    "line_t_above_q": (TOP_LINE[:1], _primes(3, TOP_LINE[0], LINE), 2, 0, False, "q < t <= 2q",
+                       LINE, 3.2),
+    "line_two_words_a_side": (TOP_LINE[:1], _primes(3, TOP_LINE[0], LINE), 2, 0, False,
+                              "q < t <= 2q", LINE, 5.0),
+    "line_two_limbs": (_primes(2, 1 << 20, LINE), TOP_LINE, 2, 0, False, "t < q", LINE, 3.2),
+    "line_two_limbs_level1": (_primes(2, 1 << 20, LINE), TOP_LINE, 2, 1, False, "t < q", LINE,
+                              3.2),
+    "line_zq_scalar": (TOP_LINE, _primes(3, TOP_LINE[-1], LINE), 3, 0, True, "q < t <= 2q",
+                       LINE, 3.2),
 }
 ORDER = {"t < q": lambda t, q: t < q, "q < t <= 2q": lambda t, q: q < t <= 2 * q,
          "2q < t": lambda t, q: 2 * q < t}
@@ -445,35 +474,76 @@ def test_kernel_replay_equals_plain_lift(case, error):
     geometry equals `_lift_centered` (as int32) and, with the error, the
     plain `_lift_error_plain` (the error's rows 9 to 9 + rows of a 16-row
     draw): coefficients 0, t/2, t/2 + 1 and t - 1 besides random ones, t_l
-    above Q_j, primes just under 2^31, the Z_q slot at coefficient 0."""
+    above Q_j, primes just under 2^31, the Z_q slot at coefficient 0, one
+    and two words a side, lines shorter than a CTA's block and lines of
+    many blocks, level 1.  The plain versions equal the JAX package's
+    `_lift_centered` (where t <= 2 Q_j) and, through one NTT (the port's
+    plain one; NTT(lift + t e) = NTT(lift) + t NTT(e)), its lift plus t *
+    `_sample_error_ntt` (one key, the same rows of the draw)."""
     import prng_replay
 
+    from ringsnark_tpu.rings.context import RingContext as JRingContext
     from ringsnark_tpu_torch.ops import cuda_prng
 
-    ts, inner, rows, level, scalar, order = LIFTS[case]
-    ctx = _lift_ctx(ts, inner, N=1 if scalar else 16)
+    ts, inner, rows, level, scalar, order, n_inner, sigma = LIFTS[case]
+    N = 1 if scalar else 16
+    ctx = _lift_ctx(ts, inner, N, n_inner, sigma)
     L = ctx.L
     assert all(ORDER[order](ti, q) for ti in ctx.ring.primes for q in inner)
     assert cuda_prng._error_lift_ok(ctx) == (order != "2q < t")
+    assert (bgv._cbd_k(sigma) > 32) == (sigma == 5.0)  # two words a side
     rng = np.random.default_rng(len(case))
     width = 1 if scalar else ctx.n_inner
     ts = np.array(ctx.ring.primes, np.int64)
     pt = rng.integers(0, ts[:, None], (rows, L, width))
     edges = np.stack([0 * ts, ts // 2, ts // 2 + 1, ts - 1], axis=-1)  # [L, 4]
     if scalar:
-        pt[:4, :, 0] = edges.T
+        pt[:4, :, 0] = edges.T[:rows]
     else:
         pt[0, :, :4] = edges
     pt = torch.from_numpy(pt.astype(np.int32))
     k4 = _host(cuda_prng.lift_consts(ctx))
     C = ctx.L_inner - level
+    jctx = JEncodingContext(ring=JRingContext(primes=tuple(ctx.ring.primes), N=N),
+                            n_inner=n_inner, inner_primes=tuple(inner), error_stddev=sigma)
     if error:
         key, batch, draw = prng.key(72), (16,), (9, 9 + rows)
         geo, _ = cuda_prng._enc_geometry(ctx, batch, draw)
         want = bgv._lift_error_plain(ctx, pt, key, batch, draw)
         got = prng_replay.lift(_host(pt), k4, C, geo, scalar, (key, bgv._cbd_k(ctx.error_stddev)))
+        jwant = j_lift_error_ntt(jctx, jnp.asarray(_u(pt)), 72, batch, draw)
+        assert np.array_equal(_u(tntt.negacyclic_ntt_rev(want, ctx.inner_plan(0))),
+                              np.asarray(jwant))
     else:
         want = bgv._lift_centered(ctx, pt, level).to(torch.int32)
         geo = cuda_prng.geometry((rows, L, width))
         got = prng_replay.lift(_host(pt), k4, C, geo, False)
+        if order != "2q < t":
+            jlift = jbgv._lift_centered(jctx, jnp.asarray(_u(pt)), level)
+            assert np.array_equal(_u(want), np.asarray(jlift))
     assert np.array_equal(got.reshape(want.shape), _host(want))
+
+
+def test_lift_wrapper_refuses_an_oversize_launch(monkeypatch):
+    """A lift whose output reaches 2^32 words (the kernel's 32-bit offsets)
+    raises a ValueError naming its size before anything is allocated or
+    launched: the Z_q slots of 2^15 rows lifted with the error to L' = 4
+    primes at N' = 32768; one row fewer passes the check."""
+    from ringsnark_tpu_torch.ops import cuda_prng
+
+    n_inner = 1 << 15
+    ctx = _lift_ctx(_primes(1, 1 << 30, n_inner), _primes(4, 1 << 31, n_inner), 1, n_inner)
+
+    def no_launch(*args):
+        raise AssertionError("launched")
+
+    monkeypatch.setattr(cuda_prng, "_check_device", lambda device, name: torch.device(device))
+    monkeypatch.setattr(cuda_prng, "_lib", no_launch)
+    monkeypatch.setattr(cuda_prng, "lift_consts", no_launch)
+    rows = (1 << 32) // (ctx.L_inner * n_inner)
+    assert rows == 1 << 15 and ctx.L == 1
+    pt = torch.zeros((rows, 1, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match=f"{1 << 32} output words"):
+        cuda_prng.lift_error(ctx, pt, prng.key(73), (rows,), None, 21)
+    with pytest.raises(AssertionError, match="launched"):  # past the check: the constants
+        cuda_prng.lift_error(ctx, pt[1:], prng.key(73), (rows - 1,), None, 21)

@@ -188,6 +188,74 @@ def test_sass_mix_reads_kernels_and_loops():
     assert sass_mix.mix(insns)["instructions"] == 11
 
 
+def _lift_sass() -> str:
+    """A lift_kernel<1,0> listing: a straight draw of two coefficients (80
+    rotations, 80 xors, 60 IMAD adds, 4 popcounts) between a branch and the
+    column loop (4 stores, 10 ALU, 8 IMAD a pass), then a general draw's
+    loop (40 rotations a pass) and a straight run of one column's store."""
+    lines, addr = [], 0
+
+    def emit(text):
+        nonlocal addr
+        lines.append(f"        /*{addr:04x}*/                   {text} ;")
+        addr += 0x10
+        return addr - 0x10
+
+    emit("LDC R1, c[0x0][0x28]")
+    emit("@P0 BRA 0x{end:x}")
+    for _ in range(80):
+        emit("SHF.L.W.U32.HI R5, R4, 0xd, R4")
+        emit("LOP3.LUT R5, R6, R5, RZ, 0x3c, !PT")
+    for _ in range(60):
+        emit("IMAD R6, R5, R7, R4")
+    for _ in range(4):
+        emit("POPC R7, R6")
+    col = emit("LDG.E.128.CONSTANT R8, desc[UR4][R2.64]")
+    for _ in range(10):
+        emit("IMNMX.U32 R9, R9, R10, PT")
+    for _ in range(8):
+        emit("IMAD R9, R9, R11, R12")
+    for _ in range(4):
+        emit("STG.E desc[UR4][R2.64], R9")
+    emit(f"@P1 BRA 0x{col:x}")
+    words = emit("IADD3 R4, R4, 0x1, RZ")
+    for _ in range(40):
+        emit("SHF.L.W.U32.HI R5, R4, 0xd, R4")
+    emit(f"@P2 BRA 0x{words:x}")
+    end = emit("ISETP.GE.AND P0, PT, R4, R5, PT")
+    emit("STG.E desc[UR4][R2.64], R9")
+    emit("EXIT")
+    emit(f"BRA 0x{addr:x}")
+    body = "\n".join(lines).replace("{end:x}", f"{end:x}")
+    return ("\n        Function : _ZN39_GLOBAL__N__cd773981_7_prng_cu_7401b96111lift_kernel"
+            "ILb1ELb0EEEvPjPKjPK5uint47LiftGeo3Cbd\n" + body + "\n")
+
+
+def test_sass_mix_reads_the_lift_draw_and_columns():
+    """scripts/sass_mix gives lift_kernel's draw per coefficient from its
+    straight run with the most rotations (40 a coefficient), its columns
+    per store from the loop that stores and from a straight run that
+    stores, and a hashing loop per coefficient-word."""
+    from ringsnark_tpu_torch.scripts import sass_mix
+
+    insns = sass_mix.functions(_lift_sass())["lift_kernel<1,0>"]
+    loops = sass_mix.innermost_loops(insns)
+    assert len(loops) == 2
+    parts = sass_mix.lift_parts("lift_kernel<1,0>", insns, loops)
+    draw = parts["draw"]
+    assert draw["coefficients"] == 2
+    assert draw["per_coefficient"]["alu"] == 80 and draw["per_coefficient"]["fma"] == 30
+    assert draw["per_coefficient"]["xu"] == 2
+    loop_cols, run_cols = parts["columns"]
+    assert loop_cols["loop"] and loop_cols["stores"] == 4
+    assert loop_cols["per_column"]["alu"] == 10 / 4 and loop_cols["per_column"]["fma"] == 2
+    assert not run_cols["loop"] and run_cols["stores"] == 1 and run_cols["per_column"]["alu"] == 1
+    assert parts["column"] == loop_cols
+    (words,) = parts["loops"]
+    assert words["label"] == "draw_words" and words["per_coefficient_word"]["alu"] == 41
+    assert sass_mix.lift_parts("encrypt_kernel<0>", insns, loops) == {}
+
+
 @pytest.mark.parametrize("ops,nbytes,want", [
     (dict(alu=44, fma=5, either=33), 8, "alu"),  # the encryption a word: the ALU binds
     (dict(alu=1, fma=7), 0, "fma"),  # a MAC term: the multiplier binds
@@ -209,3 +277,27 @@ def test_chip_smoke_bound_takes_the_busiest_pipe(ops, nbytes, want):
     ms, by = cs.prng_bound(o, nbytes)
     assert ms == max(times.values()) * 1e3 and by == ("bytes" if want == "bytes" else "operations")
     assert 2 * cs.HASH + cs.MOD == cs.Ops(alu=83, fma=2, either=62)
+
+
+def test_chip_smoke_lift_error_column_counted_at_its_least():
+    """The lift's column with the error counts what the kernel's design
+    needs: the two minimums on the ALU and the multiply-adds by big, neg
+    and sgn on the FMA pipe, below the count with its steps as selects.  At
+    the north star's sub-chunk (512 rows, L' = 4, N' = 16384, one word a
+    side) the operations need 0.0473 ms and the bytes 0.0501 ms, so the
+    bytes bind; counted as selects the ALU would (0.0551 ms)."""
+    import chip_smoke as cs
+
+    assert cs.LIFT_ERROR_COLUMN == cs.Ops(alu=2, fma=6, either=1)
+    assert cs.SELECT_LIFT_ERROR_COLUMN == cs.Ops(alu=6, fma=3, either=4)
+    coeffs, Lp = 512 * 16384, 4
+    one = cs.cbd_ops(1) + cs.LIFT_COEFF + cs.LIFT_SIGN + Lp * cs.LIFT_ERROR_COLUMN
+    assert one == cs.Ops(alu=94, fma=26, either=67, popc=2)
+    least = coeffs * one
+    select = coeffs * (cs.cbd_ops(1) + cs.LIFT_COEFF + Lp * cs.SELECT_LIFT_ERROR_COLUMN)
+    nbytes = 4 * coeffs + 4 * coeffs * Lp
+    assert cs.ops_seconds(least) * 1e3 == pytest.approx(0.04733, abs=1e-5)
+    ms, by = cs.prng_bound(least, nbytes)
+    assert by == "bytes" and ms == pytest.approx(0.05008, abs=1e-5)
+    ms, by = cs.prng_bound(select, nbytes)
+    assert by == "operations" and ms == pytest.approx(0.05509, abs=1e-5)
