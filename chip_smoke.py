@@ -718,10 +718,9 @@ def circuit_kernels_vs_plain(params, M, batch, report, seed):
         equal_to_plain(*shape, gen, report)
 
 
-def kernel_vs_plain(params, cfg):
-    """Phase 2: equality at every slice shape, then times per mode."""
-    from ringsnark_tpu_torch.ops import cuda_ntt
-    from ringsnark_tpu_torch.ops import ntt as nttm
+def ntt_shapes(params, cfg) -> list:
+    """Phase 2's shapes: (label, primes, size, negacyclic, rows at the main
+    path's batch, modes timed into the report)."""
     from ringsnark_tpu_torch.snark import seeded
 
     ring, ectx = params.ring, params.enc
@@ -730,14 +729,13 @@ def kernel_vs_plain(params, cfg):
     sub_rows = seeded._sub_rows(ectx)  # the streamed path's encryption sub-chunk
     slot_rows = min(1024, N)  # witness-map slot chunk
     floor_level = ectx.L_inner - ectx.floor_limbs
-    # (label, primes, size, negacyclic, rows at the main path's batch, modes timed)
     shapes = [(f"ring N={N} outer", ring.primes, N, True, 16, ())]
     shapes += [
         (f"inner N'={n_inner} L'={ectx.L_inner - lv}", ectx.level_primes(lv), n_inner,
          True, enc_rows, ())
         for lv in range(floor_level + 1)
     ]
-    shapes += [
+    return shapes + [
         (f"plain t N'={n_inner}", ring.primes, n_inner, True, enc_rows, ()),
         (f"encrypt N'={n_inner} L'={ectx.L_inner}", ectx.level_primes(0), n_inner, True,
          sub_rows, ("negacyclic_fwd",)),
@@ -746,21 +744,46 @@ def kernel_vs_plain(params, cfg):
         (f"cyclic M={M} outer", ring.primes, M, False, slot_rows, ("cyclic_inv",)),
         (f"cyclic 2M={2 * M} outer", ring.primes, 2 * M, False, slot_rows, ("cyclic_fwd",)),
     ]
-    gen = torch.Generator(device=ring.device).manual_seed(1234)
-    report = {m: {"max_abs_err": 0, "ms": None, "plain_ms": None, "shape": None,
-                  "bound_ms": None} for m in cuda_ntt.MODES}
-    for label, primes, size, nega, rows, timed in shapes:
+
+
+def ntt_bound(x: torch.Tensor, inverse: bool, negacyclic: bool, scale: bool = True):
+    """(bound_ms, bound_by, ms of the bytes, ms of the operations) of one
+    transform launch over x [..., M]: the larger of one read and one write
+    of every residue at the card's memory rate and the least time of the
+    butterflies (`ntt_ops`)."""
+    M = x.shape[-1]
+    ops = (x.numel() // M) * ntt_ops(M, inverse, negacyclic, scale)
+    bms, by = prng_bound(ops, 8 * x.numel())
+    return bms, by, bound_ms(x.numel()), ops_seconds(ops) * 1e3
+
+
+def kernel_vs_plain(params, cfg):
+    """Phase 2: equality at every slice shape, then times per mode: eager
+    (`ms`, with the host's wrapper) and from a replayed CUDA graph
+    (`graph_ms`), beside the bound (`ntt_bound`: bytes or operations) and
+    both shares."""
+    from ringsnark_tpu_torch.ops import cuda_ntt
+    from ringsnark_tpu_torch.ops import ntt as nttm
+
+    gen = torch.Generator(device=params.ring.device).manual_seed(1234)
+    report = {m: {"max_abs_err": 0, "ms": None, "graph_ms": None, "plain_ms": None,
+                  "shape": None, "bound_ms": None, "bound_by": None} for m in cuda_ntt.MODES}
+    for label, primes, size, nega, rows, timed in ntt_shapes(params, cfg):
         equal_to_plain(label, primes, size, nega, min(rows, 32), gen, report)
         xb, plan = equal_to_plain(label, primes, size, nega, rows, gen, report)
         for inverse in (False, True):
             mode = cuda_ntt.mode_name(inverse, nega)
             ms = cuda_ms(lambda: cuda_ntt.ntt(xb, plan, inverse, nega))
+            gms = graph_ms(lambda: cuda_ntt.ntt(xb, plan, inverse, nega))
             pms = cuda_ms(lambda: nttm.PLAIN_TWINS[(inverse, nega)](xb, plan), iters=3)
-            bms = bound_ms(xb.numel())
-            print(f"  time   {mode:15s} {label:28s} rows={rows}: kernel {ms:.4f} ms, "
-                  f"plain {pms:.4f} ms, bound {bms:.4f} ms ({100 * bms / ms:.1f} %)", flush=True)
+            bms, by, bytes_ms, ops_ms = ntt_bound(xb, inverse, nega)
+            print(f"  time   {mode:15s} {label:28s} rows={rows}: kernel {ms:.4f} ms (graph "
+                  f"{gms:.4f}), plain {pms:.4f} ms, bound {bms:.4f} ms by {by} (bytes "
+                  f"{bytes_ms:.4f}, operations {ops_ms:.4f}; {100 * bms / ms:.1f} %, graph "
+                  f"{100 * bms / gms:.1f} %)", flush=True)
             if mode in timed:
-                report[mode].update(ms=ms, plain_ms=pms, bound_ms=bms,
+                report[mode].update(ms=ms, graph_ms=gms, plain_ms=pms, bound_ms=bms,
+                                    bound_by=by, bytes_ms=bytes_ms, ops_ms=ops_ms,
                                     shape=f"{label}, rows={rows}")
     return report
 
@@ -785,7 +808,7 @@ def split_vs_plain(params, params_streamed, cfg, small: bool):
     rows = slot_rows
     gen = torch.Generator(device="cuda").manual_seed(4321)
     report = {m: {"max_abs_err": 0, "ms": None, "plain_ms": None, "full_twin_ms": None,
-                  "shape": None, "bound_ms": None, "streamed": None}
+                  "shape": None, "bound_ms": None, "bound_by": None, "streamed": None}
               for m in cuda_ntt.SPLIT_MODES}
     for M, primes in shapes:
         x = torch.cat([torch.randint(0, p, (rows, 1, M), generator=gen, dtype=torch.int32,
@@ -810,13 +833,14 @@ def split_vs_plain(params, params_streamed, cfg, small: bool):
                 pms = cuda_ms(lambda: nttm.ntt_split_plain(x, plan, inverse, nega, mi=mi),
                               iters=3)
                 fms = cuda_ms(lambda: nttm.PLAIN_TWINS[(inverse, nega)](x, plan), iters=3)
-                bms = bound_ms(x.numel())
+                bms, by, bytes_ms, ops_ms = ntt_bound(x, inverse, nega)
                 print(f"  time   {mode:21s} M={M:<7d} rows={rows}: kernel {ms:.4f} ms, "
                       f"plain split {pms:.4f} ms, full twin {fms:.4f} ms, bound {bms:.4f} ms "
-                      f"({100 * bms / ms:.1f} %)", flush=True)
+                      f"by {by} ({100 * bms / ms:.1f} %)", flush=True)
                 # the witness maps' shapes: the cyclic inverse at M
                 # (interpolation), the forward at 2M (the H product)
-                times = dict(ms=ms, plain_ms=pms, full_twin_ms=fms, bound_ms=bms,
+                times = dict(ms=ms, plain_ms=pms, full_twin_ms=fms, bound_ms=bms, bound_by=by,
+                             bytes_ms=bytes_ms, ops_ms=ops_ms,
                              shape=f"M={M}, L={len(primes)}, rows={rows}")
                 if M == (4 * mi if inverse and not nega else 8 * mi):
                     report[mode].update(times)
@@ -904,12 +928,13 @@ def large_split_vs_plain(split_report):
             mode = "split_" + cuda_ntt.mode_name(inverse, False)
             ms = cuda_ms(lambda: dispatch[(inverse, False)](xb, plan))
             pms = cuda_ms(lambda: nttm.PLAIN_TWINS[(inverse, False)](xb, plan), iters=1)
-            bms = bound_ms(xb.numel())
+            bms, by, bytes_ms, ops_ms = ntt_bound(xb, inverse, False)
             split_report[mode].setdefault("large", {})[f"M=2^{log_m}"] = dict(
-                ms=ms, plain_ms=pms, bound_ms=bms, share_of_bound=bms / ms,
+                ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, bytes_ms=bytes_ms,
+                ops_ms=ops_ms, share_of_bound=bms / ms,
                 shape=f"M=2^{log_m}, L={len(primes)}, rows={rows}")
             print(f"  time   {mode:21s} M=2^{log_m} rows={rows} L={len(primes)}: kernel "
-                  f"{ms:.4f} ms, plain twin {pms:.4f} ms, bound {bms:.4f} ms "
+                  f"{ms:.4f} ms, plain twin {pms:.4f} ms, bound {bms:.4f} ms by {by} "
                   f"({100 * bms / ms:.1f} %)", flush=True)
         del xb
     # the device tables cached for these sizes would stay on the card
@@ -994,6 +1019,19 @@ MOD = Ops(alu=1, fma=2)  # w mod span: multiply-high, multiply-add by -span, min
 SHOUP = Ops(alu=1, fma=3)  # a * w mod p: multiply-high, multiply, multiply-add by -p, min
 SUB_MOD = Ops(alu=1, either=2)  # a - b mod p: add p, subtract, min
 ADD_MOD = Ops(alu=1, either=1)  # add, min
+# one butterfly of the NTT: Cooley-Tukey m = b w, a + m, a - m (forward);
+# Gentleman-Sande a + b, (a - b + p) w (inverse)
+BUTTERFLY = SHOUP + ADD_MOD + SUB_MOD
+
+
+def ntt_ops(M: int, inverse: bool, negacyclic: bool, scale: bool = True) -> Ops:
+    """One transform of size M as `ntt_kernel` computes it: (M/2) log2 M
+    butterflies, psi merged into their twiddles (no twist); the inverse's
+    last stage multiplies its M/2 sums by M^-1 as well where it scales."""
+    ops = (M // 2) * (M.bit_length() - 1) * BUTTERFLY
+    return ops + (M // 2) * SHOUP if inverse and (negacyclic or scale) else ops
+
+
 # the lift's column (v > t/2 taken once a coefficient as big, 0 or 1; Q - t
 # a constant): x = v + big (Q - t), one IMAD; then x >= Q ? x - Q : x on
 # signed words: subtract, compare, select
@@ -2596,9 +2634,11 @@ def run_phases(args, cfgs, params_all, report, split_report, prng_report, more_r
                    "zq_seeded": counts14d[m], "examples": counts14e[m]} for m in counts}
 
     def bounds(r):  # no PyTorch call computes an NTT modulo a prime: library_ms is null
-        return {"bound_ms": r["bound_ms"], "bound_by": "bytes",
+        gms = r.get("graph_ms")  # phase 2 times a graph too; 2b and 2c eagerly
+        return {"bound_ms": r["bound_ms"], "bound_by": r.get("bound_by", "bytes"),
                 "share_of_bound": r["bound_ms"] / r["ms"], "library_ms": None,
-                "graph_ms": None, "graph_share_of_bound": None}  # phases 2-2c time eagerly
+                "graph_ms": gms, "graph_share_of_bound": gms and r["bound_ms"] / gms,
+                **{k: r[k] for k in ("bytes_ms", "ops_ms") if k in r}}
 
     kernels = [
         {"name": f"ntt_{m}", "route": "cuda", "source": SOURCE, "replaces": REPLACES,

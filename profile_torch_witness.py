@@ -4,7 +4,8 @@ chip_smoke's kernel phases alone.
 
     python3 profile_torch_witness.py                     # all four shapes
     python3 profile_torch_witness.py --only north_star seeded
-    python3 profile_torch_witness.py --kernels [2d 2e 2f] [--sass] [--out FILE]
+    python3 profile_torch_witness.py --kernels [2 2b 2c 2d 2e 2f] [--sass] [--out FILE]
+    python3 profile_torch_witness.py --ntt-times [--out FILE]
     python3 profile_torch_witness.py --setup             # CSR derivation in setups
     python3 profile_torch_witness.py --row-lengths [--small]   # CPU, no GPU
 
@@ -28,8 +29,11 @@ the warm call must equal the cold call's (their sums and every 4093rd
 word).  One JSON line a shape, and all of them in
 `chiprun_out/profile_witness.json`.
 
-`--kernels`: chip_smoke's kernel phases alone (all three where none is
-named): 2d (`prng_vs_plain`: the draws, the lift with its error and alone,
+`--kernels`: chip_smoke's kernel phases alone (all six where none is
+named): 2 (`kernel_vs_plain`: the NTT kernel in every mode at the paths'
+shapes), 2b (`split_vs_plain`: the split transform to 2^19 and the two CTA
+orders), 2c (`large_split_vs_plain`: the split past 2^19), 2d
+(`prng_vs_plain`: the draws, the lift with its error and alone,
 `encrypt_kernel` with c1 and with c0 alone), 2e (`mac_vs_plain`: `mac` and
 `mac_drawn`), 2f (`witness_vs_plain`: `spmv` and `mulmod`), each kernel
 against its plain version at the paths' shapes and timed beside its bound,
@@ -37,8 +41,15 @@ and their reports as one JSON line (also written to `--out`), so two trees
 of the package compare in turns (a copy of this script and `chip_smoke.py`
 beside each package; parent, change, change, parent in one call).  With
 `--sass`, first the build's ptxas lines (registers, spills) and
-`scripts/sass_mix`'s instruction counts for the hash kernels (`SASS`;
-needs `cuobjdump`).
+`scripts/sass_mix`'s instruction counts for the hash kernels and the NTT
+(`SASS`; needs `cuobjdump`).
+`--ntt-times`: the NTT kernel alone, timed and not compared with anything:
+every mode at phase 2's shapes and the north star's [32, 6, 8192], and the
+split at the streamed witness map's 2^19 forward and 2^18 inverse, eagerly
+(CUDA events around 20 calls) and from a replayed CUDA graph, beside the
+bound (`chip_smoke.ntt_bound`); one JSON line.  It times a build whose
+kernel was cut down on purpose (no butterflies, no barriers, ...) as it
+times the whole kernel.
 `--setup`: the resident cell's setup (`rq8192_g16_resident_2e14`, as
 `bench_torch.run` times it, each from a freed card) three times in one
 process, the first cold, with the time of every `relations.r1cs.derive_csr`
@@ -69,7 +80,9 @@ SHAPES = ("north_star", "seeded", "rinocchio", "zq")
 OUT = Path(__file__).resolve().parent / "chiprun_out" / "profile_witness.json"
 PHASES = {"2d": ("prng", "prng_vs_plain"), "2e": ("mac", "mac_vs_plain"),
           "2f": ("witness", "witness_vs_plain")}
-SASS = ("lift_kernel", "encrypt_kernel", "mac_drawn_kernel")  # the kernels that hash
+NTT_PHASES = ("2", "2b", "2c")
+# the kernels that hash, and the NTT
+SASS = ("lift_kernel", "encrypt_kernel", "mac_drawn_kernel", "ntt_kernel")
 
 
 def ptxas_lines(log: str) -> list:
@@ -103,12 +116,90 @@ def kernels(phases, sass: bool) -> dict:
         for name, r in sorted(result["sass"].items()):
             loops = [{k: v for k, v in lp.items() if k not in ("first", "last")}
                      for lp in r["loops"]]
-            print(f"sass {name}: {json.dumps({k: r[k] for k in ('instructions', 'alu', 'fma')})} "
-                  f"lift {json.dumps(r.get('lift'))} loops {json.dumps(loops)}", flush=True)
+            head = json.dumps({k: r[k] for k in ('instructions', 'alu', 'fma')})
+            if "ntt" in r:
+                print(f"sass {name}: {head} {json.dumps(r['ntt']['kernel'])} loops "
+                      f"{json.dumps([lp['per_residue'] for lp in r['ntt']['loops']])}",
+                      flush=True)
+                continue
+            print(f"sass {name}: {head} lift {json.dumps(r.get('lift'))} loops "
+                  f"{json.dumps(loops)}", flush=True)
+    if set(phases) & set(NTT_PHASES):
+        result.update(ntt_phases(phases))
     for phase in phases:
-        key, fn = PHASES[phase]
-        result[key] = getattr(chip_smoke, fn)(small=False)
+        if phase in PHASES:
+            key, fn = PHASES[phase]
+            result[key] = getattr(chip_smoke, fn)(small=False)
     return result
+
+
+def ntt_phases(phases) -> dict:
+    """chip_smoke's phases 2, 2b and 2c (those of `phases`) at full size."""
+    import chip_smoke
+    from ringsnark_tpu_torch.ops import cuda_ntt
+
+    out = {}
+    if "2" in phases:
+        params = chip_smoke.make_params(chip_smoke.FULL, "cuda")
+        out["ntt"] = chip_smoke.kernel_vs_plain(params, chip_smoke.FULL)
+    split = {m: {"max_abs_err": 0} for m in cuda_ntt.SPLIT_MODES}
+    if "2b" in phases:
+        params5 = chip_smoke.make_params(chip_smoke.FULL_SEEDED, "cuda")
+        params7 = chip_smoke.make_params(chip_smoke.FULL_STREAMED, "cuda")
+        split, out["cta_order"] = chip_smoke.split_vs_plain(params5, params7,
+                                                            chip_smoke.FULL_SEEDED, False)
+    if "2c" in phases:
+        chip_smoke.large_split_vs_plain(split)
+    if "2b" in phases or "2c" in phases:
+        out["split"] = split
+    return out
+
+
+def ntt_times(iters: int = 20) -> list:
+    """The rows of `--ntt-times` (module docstring)."""
+    import chip_smoke
+    from ringsnark_tpu_torch.ops import cuda_ntt
+    from ringsnark_tpu_torch.ops import ntt as nttm
+    from ringsnark_tpu_torch.ops.primes import find_ntt_primes
+
+    params = chip_smoke.make_params(chip_smoke.FULL, "cuda")
+    shapes = [s[:5] for s in chip_smoke.ntt_shapes(params, chip_smoke.FULL)]
+    shapes.append(("north star", tuple(find_ntt_primes(6, 1 << 14)), 8192, True, 32))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def residues(primes, rows, M):
+        return torch.cat([torch.randint(0, p, (rows, 1, M), generator=gen, dtype=torch.int32,
+                                        device="cuda") for p in primes], dim=1)
+
+    out = []
+
+    def row(label, x, inverse, nega, fn, split=False):
+        ms, gms = chip_smoke.cuda_ms(fn, iters), chip_smoke.graph_ms(fn, iters)
+        bms, by, bytes_ms, ops_ms = chip_smoke.ntt_bound(x, inverse, nega)
+        r = dict(shape=f"{label} {list(x.shape)}", mode=("split_" if split else "")
+                 + cuda_ntt.mode_name(inverse, nega), ms=ms, graph_ms=gms, bound_ms=bms,
+                 bound_by=by, bytes_ms=bytes_ms, ops_ms=ops_ms, share_of_bound=bms / ms,
+                 graph_share_of_bound=bms / gms)
+        out.append(r)
+        print(f"ntt {r['mode']:22s} {r['shape']:44s} {ms:.4f} ms (graph {gms:.4f}), bound "
+              f"{bms:.4f} ms by {by}: {100 * bms / ms:.1f} % (graph {100 * bms / gms:.1f} %)",
+              flush=True)
+
+    for label, primes, size, nega, rows in shapes:
+        x = residues(primes, rows, size)
+        plan = nttm.get_plan(tuple(primes), size, negacyclic=nega)
+        for inverse in (False, True):
+            row(label, x, inverse, nega, lambda: cuda_ntt.ntt(x, plan, inverse, nega))
+        del x
+    primes = chip_smoke.make_params(chip_smoke.FULL_STREAMED, "cuda").ring.primes
+    for log_m, inverse in ((19, False), (18, True)):
+        x = residues(primes, 1024, 1 << log_m)
+        plan = nttm.get_plan(tuple(primes), 1 << log_m)
+        row("witness map", x, inverse, False,
+            lambda: cuda_ntt.ntt_split(x, plan, inverse, False), split=True)
+        del x
+    torch.cuda.empty_cache()
+    return out
 
 
 def _setup(name: str):
@@ -319,13 +410,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", nargs="+", choices=SHAPES, default=list(SHAPES))
     mode = ap.add_mutually_exclusive_group()
-    mode.add_argument("--kernels", nargs="*", choices=sorted(PHASES), metavar="PHASE",
-                      help="chip_smoke's kernel phases alone: 2d, 2e, 2f (all where none)")
+    mode.add_argument("--kernels", nargs="*", choices=sorted(PHASES) + list(NTT_PHASES),
+                      metavar="PHASE", help="chip_smoke's kernel phases alone: 2, 2b, 2c, 2d, "
+                      "2e, 2f (all where none)")
+    mode.add_argument("--ntt-times", action="store_true", help="the NTT kernel timed alone")
     mode.add_argument("--setup", action="store_true", help="derive_csr in resident setups")
     mode.add_argument("--row-lengths", action="store_true", help="row-length histograms (CPU)")
     ap.add_argument("--small", action="store_true", help="--row-lengths at test sizes")
     ap.add_argument("--sass", action="store_true", help="--kernels: the hash kernels' SASS")
-    ap.add_argument("--out", help="--kernels: also write the JSON here")
+    ap.add_argument("--out", help="--kernels, --ntt-times: also write the JSON here")
     args = ap.parse_args(argv)
     if args.row_lengths:
         for row in all_row_lengths(args.small):
@@ -337,8 +430,12 @@ def main(argv=None) -> int:
     import chip_smoke
 
     print(f"gpu: {chip_smoke.gpu_line()}", flush=True)
-    if args.kernels is not None:
-        text = json.dumps(kernels(args.kernels or sorted(PHASES), args.sass))
+    if args.kernels is not None or args.ntt_times:
+        if args.ntt_times:
+            text = json.dumps({"gpu": chip_smoke.gpu_line(), "ntt_times": ntt_times()})
+        else:
+            text = json.dumps(kernels(args.kernels or list(NTT_PHASES) + sorted(PHASES),
+                                      args.sass))
         if args.out:
             Path(args.out).write_text(text)
         print(text, flush=True)

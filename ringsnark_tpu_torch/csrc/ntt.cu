@@ -14,47 +14,66 @@
 // Contract (identical to the TPU kernels and to the plain twins in
 // ops/ntt.py, bit for bit; an NTT output reduced into [0, p) is unique, so
 // every exact schedule gives the same words):
-//   forward: natural order in, bit-reversed order out (DIF butterflies
-//            a' = a + b, b' = (a - b) * w); negacyclic first twists by psi^i;
-//   inverse: bit-reversed order in, natural order out (DIT butterflies
-//            m = b * w, a' = a + m, b' = a - m); then psi^-i * M^-1
-//            (negacyclic) or M^-1 (cyclic).
+//   forward: natural order in, bit-reversed order out; the negacyclic
+//            transform evaluates at psi^(2 brv(j) + 1), psi^2 = w;
+//   inverse: bit-reversed order in, natural order out, times M^-1 (the
+//            cyclic inverse without it where `scale` is off).
 //   Inputs are residues in [0, p); outputs are fully reduced into [0, p).
 //
-// What bounds it on this card: the bound is device memory, 8 bytes per
-// element (one read, one write).  But a butterfly is one Shoup multiply
-// (__umulhi and two low products) and about six adds, selects and minima,
-// 14 butterfly stages at M = 16384: the integer pipes need about as long
-// as the memory, and what keeps a transform on the SM (shared-memory
-// exchanges, barriers, twiddle and psi loads) comes on top.  On the H100
-// the kernels reach 25-35 % of the memory bound (PERF.md).
+// What bounds it on this card: device memory, 8 bytes a residue (one read,
+// one write), but barely: a butterfly is one Shoup multiply (__umulhi and
+// two low products) and about eight adds and minima, 7 butterflies a
+// residue at M = 16384, which the H100 issues in about 80 % of the bytes'
+// time (chip_smoke.ntt_ops).  So what keeps a transform on the SM beside
+// the butterflies (shared-memory exchanges, twiddle loads, addresses,
+// barriers, waiting on device memory) decides how far it stays from the
+// bound.  The previous design (E = 16 residues a thread, four passes at M =
+// 16384, the tile copied word by word into shared memory with cp.async,
+// psi applied as a table, a CTA barrier after every pass) reached 25-33 %
+// of it, and no one of those parts alone held it there (PERF.md).
 //
 // What the design does about it:
-// * ntt_kernel, register radix: a thread holds E = 16 residues of one
-//   transform (E = M below 16) at stride D and runs up to log2(E) = 4
-//   stages on them in registers; a transform of log2(M) stages is a few
-//   such passes (14 = 2 + 4 + 4 + 4, the short pass at the top), with one
-//   shared-memory exchange and one __syncthreads between passes instead of
-//   one per stage.  Each distinct twiddle of a pass is one 8-byte load of
-//   a (w, w_sh) pair, coalesced across the warp, from a per-limb table
-//   that every row shares (15 loads per 16 residues a pass, not 2 per
-//   butterfly).  The shared layout is XOR-swizzled within 32-word rows
-//   (swz) so that every exchange is free of bank conflicts, and swz is
-//   linear, so a residue's address is one XOR.  The psi twist, M^-1 and
-//   the choice of output are template arguments: no branch sits between a
-//   group's loads.  Conditional subtractions are unsigned minima.
-// * ntt_kernel, persistent: about (SMs x CTAs per SM) CTAs walk the tiles
-//   of the [rows, L, S] batch (row or limb-major order), a tile being TP
-//   transforms (TP > 1 below M = 4096, so a CTA runs 256 threads).  Up to
-//   M = 16384 two CTAs of 256 threads share a SM and interleave their
-//   loads, passes and stores (faster on the card than one CTA of 512 with
-//   a second buffer); a tile of at most 32 KiB has a second buffer, filled
-//   with cp.async while the current one computes.  M = 32768 runs one CTA
-//   of 512 threads (128 KiB).  A thread keeps up to 128 registers, none
-//   spilled.  The first pass reads shared memory; the last pass writes
-//   device memory from registers, through the warp's own shared words
-//   where a thread's 16 residues are contiguous, so that every store is
-//   128 contiguous bytes.
+// * psi merged into the twiddles: the forward runs Cooley-Tukey butterflies
+//   (m = b w, a' = a + m, b' = a - m) over the tree of x^M - psi^M, whose
+//   node k (stage m = 2^floor(log2 k), block k - m) has twiddle psi^brv(k)
+//   (cyclic: w^brv'(k - m)); the inverse runs Gentleman-Sande butterflies
+//   (a' = a + b, b' = (a - b) w^-1) with the inverse twiddles, the root's
+//   two outputs times M^-1 (its b-twiddle entry already holds it).  No
+//   twist or scale table, no multiply a residue for them.
+// * register radix E = 32: a thread holds 32 residues of a group at
+//   distance 2^d and runs up to five stages on them; M = 16384 takes three
+//   passes (5 + 4 + 5 stages), 32768 three of five, 1024 two.  A stage's
+//   twiddles are consecutive in the table (2^(4 - e) pairs at stage e of a
+//   pass), read 16 bytes at a time.
+// * the top pass (the highest stages) loads its group straight from device
+//   memory: register j of the warp's 32 lanes is 32 consecutive words, no
+//   staging copy, no locate a word.  The other passes keep a warp in its
+//   own region of the tile (the warp on the top bits of the tile), so the
+//   exchanges between them need __syncwarp only; one __syncthreads a tile
+//   follows the top pass where M > 1024 (and one guards the tile's reuse),
+//   none below.  The last pass (d = 0, a lane's 32 words in a row) writes
+//   16-byte vectors to the warp's words and the warp copies its region to
+//   device memory in order, 512 contiguous bytes an access (from M =
+//   1024); the inverse mirrors it, loading through the warp's words and
+//   storing the top pass straight to device memory.  Shared memory is
+//   XOR-swizzled in 16-byte granules (swz), so that every access from M =
+//   1024 up meets no bank conflict.  No word is exchanged by shuffle: a
+//   warp's exchange through shared memory costs one store and one load a
+//   residue, a register-lane swap by shuffle of four bits at least two
+//   shuffles and six selects.
+// * loads ahead: the forward loads the next tile's first top-pass group
+//   into registers while the warp copies this tile out, and copies a
+//   tile's further top-pass groups (M >= 16384) into their own words with
+//   cp.async while its first group computes.  (The same for the inverse,
+//   its next region by cp.async during the top pass, measured no faster
+//   and spilled at M >= 16384: not kept.)
+// * persistent CTAs of 256 threads (512 at M = 32768, one a SM) walk the
+//   tiles of the [rows, L, S] batch (row or limb-major order), a tile
+//   8192 words (M = 16384: one transform, two groups a thread), with
+//   registers capped for two CTAs a SM (128 a thread: faster than three
+//   CTAs at 80, which spilled once the loads ran ahead).  Everything that
+//   depends on M is a template argument: one kernel per (direction, log2
+//   M), no runtime pass loop.
 // * outer_kernel: one thread per column runs the log2(R) outer stages
 //   global to global, then ntt_kernel runs the R inner transforms (forward;
 //   the inverse runs them first): two passes over device memory.  Past
@@ -70,27 +89,31 @@
 //   (w^Mi)^(2^i lo) (row table [L, s, R/2]), applied as two Shoup
 //   multiplies (the second skipped where lo = 0): R times less table than
 //   the positioned [L, s, R, Mi] table of the TPU kernel.
-// Not done yet (later work): psi merged into the stage twiddles, warp
-// shuffles for the passes whose partners lie in one warp, E = 32 (three
-// passes at M = 16384), cp.async.bulk (TMA) copies, and one HBM pass for
-// the split transform.
+// Not done yet (later work): the split transform in one pass over device
+// memory (its outer kernel still twists by a psi table); the inverse's
+// loads ahead of it; M = 32768 over a two-CTA cluster sharing the tile in
+// distributed shared memory (tried: 8 % faster forward, no faster inverse;
+// not kept); cp.async.bulk (TMA) copies; warp shuffles.  The butterflies'
+// adds need no steering to the FMA pipe: as compiled the ALU and the FMA
+// pipe issue about as much (scripts/sass_mix).
 //
 // Tables (built once per (primes, M) on the host by ops/cuda_ntt.py from
 // ops/ntt.get_plan's roots), uint32 pairs (value, Shoup constant
 // floor(value * 2^32 / p)):
-//   tw [L, M, 2]   entry d + k (1 <= d < M, k < d) is w_{2d}^k (forward: w;
-//                  inverse: w^-1); entry 0 is unused.
-//   sc [L, M, 2]   psi^i (forward) or psi^-i * M^-1 (inverse); unused for
-//                  cyclic transforms.
-//   consts [L, 3]  p, M^-1 mod p, Shoup constant of M^-1.
+//   tw [L, M, 2]   forward: entry k >= 1 the twiddle of tree node k, entry 0
+//                  unused; inverse: their inverses, entry 1 (the root) times
+//                  M^-1 and entry 0 the root's without it.
+//   consts [L, 5]  p, M^-1 and its Shoup constant, 1 and its Shoup constant
+//                  (the root's a-factor with and without M^-1).
 //   split (s = log2 R):  col [L, s, Mi, 2] = w^(2^i c), row [L, s, R/2, 2] =
 //           w^(2^i Mi lo) (inverse: w^-1), sc [L, R, Mi, 2] twists,
-//           consts with the full-size M^-1.
+//           consts [L, 3] with the full-size M^-1.
 //
 // C interface: ringsnark_ntt_launch and ringsnark_ntt_outer_launch return
 // cudaGetLastError() after the launch
-// (0 on success) or the error of a refused configuration; the Python
-// wrapper raises on anything else.
+// (0 on success) or the error of a refused configuration (a CTA shape
+// other than the kernel's, for one); the Python wrapper raises on anything
+// else.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -99,21 +122,130 @@
 
 namespace {
 
-// A thread needs up to 128 registers (E = 16 residues, their twiddles and
-// addresses; 64 spill): so 512 threads a SM, as one CTA of 512 (M = 32768)
-// or two of 256 (up to M = 16384, where two CTAs interleave their loads,
-// passes and stores: measured faster than one CTA of 512 with a second
-// buffer).
-constexpr int kMaxThreads = 512;
+constexpr int kMaxThreads = 512;  // a CTA at M = 32768; 256 below
 
-// Shared-memory address of logical word a: the low 5 bits are XORed with
-// bits of the 32-word row index, so that the exchanges at D = 1, 16 and
-// >= 32 hit 32 distinct banks per warp access.  swz is linear over GF(2)
-// (swz(a ^ b) = swz(a) ^ swz(b)), and a group's words are A ^ (j << log_d)
-// with those bits of A clear, so a residue's address is swz(A) ^ sj[j].
-__device__ __forceinline__ uint32_t swz(uint32_t a) {
-  const uint32_t row = a >> 5;
-  return a ^ ((row & 15u) | ((row & 8u) << 1));
+// Shared-memory word of tile word a: bits 2..4 XOR bits 5..7.  A 16-byte
+// vector (4 aligned words) stays whole and aligned, and every warp access
+// of the passes at d >= 5, of the pass at d = 0 (16-byte vectors, a lane's
+// 32 words in a row, lanes 128 bytes apart) and of the transposing copy
+// hits every bank once (tests/test_torch_ntt.py).  swz is linear over
+// GF(2): swz(a ^ b) = swz(a) ^ swz(b).
+__host__ __device__ constexpr uint32_t swz(uint32_t a) { return a ^ (((a >> 5) & 7u) << 2); }
+
+// The CTA shape for transforms of size 2^kLogM (ops/cuda_ntt.geometry): a
+// thread holds E = 32 residues of a group (E = M below 32); 256 threads,
+// registers capped for two CTAs a SM; a tile of 8192 words (several
+// transforms up to M = 4096), one transform of two groups a thread at M =
+// 16384, and 512 threads, one CTA a SM, at M = 32768.
+template <int kLogM>
+struct Geo {
+  static constexpr int kLogE = kLogM < 5 ? kLogM : 5;
+  static constexpr int E = 1 << kLogE;
+  static constexpr int kLogT = kLogM == 15 ? 9 : 8;
+  static constexpr int kThreads = 1 << kLogT;
+  static constexpr int kLogI = kLogM >= 14 ? 1 : 0;  // groups a thread takes in turn a pass
+  static constexpr int kIters = 1 << kLogI;
+  static constexpr int kLogTile = kLogT + kLogE + kLogI;
+  static constexpr int kTileTf = 1 << (kLogTile - kLogM);
+  static constexpr int kMinCtas = kThreads == kMaxThreads ? 1 : 2;
+  // a warp's words in every pass but the top one, 2^kLogRegion in a row
+  static constexpr int kLogRegion = 5 + kLogE + kLogI;
+  // the top pass's exchange crosses warps (index bits above the region)
+  static constexpr bool kCtaWide = kLogM > 10;
+  // the device-memory side of the pass at d = 0 goes through the warp's
+  // own words, so that every access is 512 contiguous bytes
+  static constexpr bool kTranspose = kLogM >= 10;
+  static constexpr int kTopD = kLogM - kLogE;  // the top pass's distance
+  static constexpr size_t kSmem = kLogM > 5 ? sizeof(uint32_t) << kLogTile : 0;
+};
+
+// Group of this thread in its iteration `it` of a pass: the top pass puts
+// the lanes on the low index bits (a load or store of register j is 32
+// words in a row); every other pass puts the warp on the top bits of the
+// tile, so that a warp keeps its region of the tile between them.
+template <int kLogM, bool kTop>
+__device__ __forceinline__ uint32_t group_of(uint32_t it) {
+  using G = Geo<kLogM>;
+  const uint32_t lane = threadIdx.x & 31u, warp = threadIdx.x >> 5;
+  return kTop ? lane | (warp << 5) | (it << G::kLogT) : lane | (it << 5) | (warp << (5 + G::kLogI));
+}
+
+// Tile word of register 0 of group g at distance 2^kD: the kLogE register
+// bits kD.. inserted (clear) into g.
+template <int kD, int kLogE>
+__device__ __forceinline__ uint32_t tile_word(uint32_t g) {
+  return ((g >> kD) << (kD + kLogE)) | (g & ((1u << kD) - 1u));
+}
+
+// Shared word of register j of a group whose register-0 word is a0 (a0s =
+// swz(a0)): swz(a0) ^ swz(j << kD), the bits above 4 added as an offset.
+template <int kD>
+__device__ __forceinline__ uint32_t shared_word(uint32_t a0s, int j) {
+  const uint32_t c = swz(static_cast<uint32_t>(j) << kD);
+  return (a0s ^ (c & 0x1cu)) + (c & ~0x1cu);
+}
+
+// A group's residues from or to device memory (src = the transform + its
+// register-0 index): 16-byte vectors where its words are contiguous,
+// evict-first (each word is used once).
+template <int kLogE, int kD>
+__device__ __forceinline__ void load_global(uint32_t (&v)[1 << kLogE], const uint32_t* src) {
+  if constexpr (kD == 0 && kLogE == 5) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const uint4 w = __ldcs(reinterpret_cast<const uint4*>(src) + q);
+      v[4 * q] = w.x, v[4 * q + 1] = w.y, v[4 * q + 2] = w.z, v[4 * q + 3] = w.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < (1 << kLogE); ++j) v[j] = __ldcs(src + (j << kD));
+  }
+}
+
+template <int kLogE, int kD>
+__device__ __forceinline__ void store_global(const uint32_t (&v)[1 << kLogE], uint32_t* dst) {
+  if constexpr (kD == 0 && kLogE == 5) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      __stcs(reinterpret_cast<uint4*>(dst) + q,
+             make_uint4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]));
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < (1 << kLogE); ++j) __stcs(dst + (j << kD), v[j]);
+  }
+}
+
+// A group's residues from or to shared memory: 16-byte vectors at d = 0
+// (a lane's 32 words in a row), a word at a time above.
+template <int kLogE, int kD>
+__device__ __forceinline__ void load_shared(uint32_t (&v)[1 << kLogE], const uint32_t* buf,
+                                            uint32_t a0s) {
+  if constexpr (kD == 0 && kLogE == 5) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const uint4 w = *reinterpret_cast<const uint4*>(buf + (a0s ^ (4u * q)));
+      v[4 * q] = w.x, v[4 * q + 1] = w.y, v[4 * q + 2] = w.z, v[4 * q + 3] = w.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < (1 << kLogE); ++j) v[j] = buf[shared_word<kD>(a0s, j)];
+  }
+}
+
+template <int kLogE, int kD>
+__device__ __forceinline__ void store_shared(const uint32_t (&v)[1 << kLogE], uint32_t* buf,
+                                             uint32_t a0s) {
+  if constexpr (kD == 0 && kLogE == 5) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      *reinterpret_cast<uint4*>(buf + (a0s ^ (4u * q))) =
+          make_uint4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < (1 << kLogE); ++j) buf[shared_word<kD>(a0s, j)] = v[j];
+  }
 }
 
 __device__ __forceinline__ void cp_async4(uint32_t* smem, const uint32_t* gmem) {
@@ -121,176 +253,81 @@ __device__ __forceinline__ void cp_async4(uint32_t* smem, const uint32_t* gmem) 
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+// What a thread needs of its transform in a tile.
+struct Transform {
+  const uint32_t* x;  // the transform's residues in device memory
+  uint32_t* y;
+  const uint2* tw;    // its limb's stage twiddles
+  uint32_t p;
+  uint2 af;           // the inverse root's a-factor: M^-1 (scale) or 1, with Shoup constants
+  int root;           // the inverse root's twiddle entry: 1 (times M^-1) or 0
+  bool valid;
+};
 
-// The passes of a size-2^log_m transform in register groups of 2^log_e:
-// a top pass of r0 = 1 .. log_e stages at stride D = 2^(log_m - log_e),
-// then full passes at D = 2^(log_e k), k descending (forward order; the
-// inverse runs them in reverse).  Pass q's stages are the j-exponents
-// [e_lo, log_e) of the group (j-distance 2^e is index distance 2^e * D).
-__device__ __forceinline__ int num_passes(int log_m, int log_e) {
-  const int r0 = (log_m - 1) % log_e + 1;
-  return 1 + (log_m - r0) / log_e;
-}
-
-__device__ __forceinline__ void pass_info(int q, int npass, bool inverse, int log_m,
-                                          int log_e, int& log_d, int& e_lo) {
-  const int top = inverse ? npass - 1 : 0;
-  if (q == top) {
-    log_d = log_m - log_e;
-    e_lo = log_e - ((log_m - 1) % log_e + 1);
-  } else {
-    log_d = log_e * (inverse ? q : npass - 1 - q);
-    e_lo = 0;
-  }
-}
-
-// The stages of one pass on the E residues v[j] = x[base + j * D] of a
-// group (lo = base mod D): forward DIF from the top j-exponent down,
-// inverse DIT from e_lo up.  The twiddle of a pair at j-distance jd is
-// tw[d + lo + (j mod jd) * D] with d = jd * D.
-template <bool kInverse, int kLogE>
-__device__ __forceinline__ void group_stages(uint32_t (&v)[1 << kLogE],
-                                             const uint2* __restrict__ tw, int log_d,
-                                             int e_lo, uint32_t lo, uint32_t p) {
-  constexpr int E = 1 << kLogE;
+// The stages kS .. kK - 1 of a pass on a group (register positions e: the
+// forward from kK - 1 down, the inverse from 0 up).  The twiddle of a pair
+// (j, j + 2^e) is entry (M | index of register 0) >> (d + e + 1) of the
+// tree, i.e. tw[(hi << (kLogE - 1 - e)) + (j >> (e + 1))] with hi = (M |
+// index of register 0) >> (d + kLogE): 2^(kLogE - 1 - e) consecutive pairs,
+// read two at a time.  kRoot: the inverse's top pass, whose last stage is
+// the tree's root: a' = (a + b) af, b' = (a - b) tw[root] (M^-1 in both
+// where the transform scales).
+template <bool kInverse, int kLogE, int kK, bool kRoot, int kS = 0>
+__device__ __forceinline__ void stages(uint32_t (&v)[1 << kLogE], const Transform& tf,
+                                       uint32_t hi) {
+  if constexpr (kS < kK) {
+    constexpr int e = kInverse ? kS : kK - 1 - kS;
+    constexpr int jd = 1 << e;
+    constexpr int cnt = 1 << (kLogE - 1 - e);  // the stage's distinct twiddles
+    constexpr bool root = kRoot && e == kLogE - 1;
+    const uint32_t p = tf.p;
+    const uint2* src = tf.tw + (hi << (kLogE - 1 - e));
 #pragma unroll
-  for (int s = 0; s < kLogE; ++s) {
-    const int e = kInverse ? s : kLogE - 1 - s;
-    if (e < e_lo) continue;
-    const int jd = 1 << e;
-    const uint32_t d = static_cast<uint32_t>(jd) << log_d;
+    for (int c = 0; c < cnt; c += 2) {
+      uint2 w[2];
+      if constexpr (root) {
+        w[0] = __ldg(tf.tw + tf.root);
+      } else if constexpr (cnt == 1) {
+        w[0] = __ldg(src);
+      } else {
+        const uint4 q = __ldg(reinterpret_cast<const uint4*>(src + c));
+        w[0] = make_uint2(q.x, q.y), w[1] = make_uint2(q.z, q.w);
+      }
 #pragma unroll
-    for (int m = 0; m < jd; ++m) {
-      const uint2 w = __ldg(tw + d + lo + (static_cast<uint32_t>(m) << log_d));
+      for (int t = 0; t < 2 && c + t < cnt; ++t) {
 #pragma unroll
-      for (int q = 0; q < E; q += 2 * jd) {
-        const int j = q + m;
-        const uint32_t a = v[j];
-        if (kInverse) {
-          const uint32_t mm = shoup_mul(v[j + jd], w, p);
-          v[j] = add_mod(a, mm, p);
-          v[j + jd] = sub_mod(a, mm, p);
-        } else {
-          const uint32_t b = v[j + jd];
-          v[j] = add_mod(a, b, p);
-          v[j + jd] = shoup_mul(a + p - b, w, p);  // a - b + p < 2p < 2^32
+        for (int m = 0; m < jd; ++m) {
+          const int j = ((c + t) << (e + 1)) + m;
+          const uint32_t a = v[j], b = v[j + jd];
+          if constexpr (kInverse) {  // Gentleman-Sande
+            v[j] = root ? shoup_mul(a + b, tf.af, p) : add_mod(a, b, p);
+            v[j + jd] = shoup_mul(a + p - b, w[t], p);  // a - b + p < 2p < 2^32
+          } else {  // Cooley-Tukey
+            const uint32_t mb = shoup_mul(b, w[t], p);
+            v[j] = add_mod(a, mb, p);
+            v[j + jd] = sub_mod(a, mb, p);
+          }
         }
       }
     }
+    stages<kInverse, kLogE, kK, kRoot, kS + 1>(v, tf, hi);
   }
 }
 
-// sj[j] = swz(j << log_d): a pass's shared-word offsets of a group.
-template <int kLogE>
-__device__ __forceinline__ void pass_offsets(uint32_t (&sj)[1 << kLogE], int log_d) {
-#pragma unroll
-  for (int j = 0; j < (1 << kLogE); ++j) sj[j] = swz(static_cast<uint32_t>(j) << log_d);
-}
-
-// What a pass does with its groups, besides the stages.
-struct PassArgs {
-  uint32_t* buf;          // the tile's shared words
-  uint32_t toff;          // tile-logical offset of the transform
-  int log_g, log_d, e_lo;
-  const uint2* tw;        // the limb's stage twiddles
-  const uint2* sc;        // the limb's psi twist (forward) or scale (inverse) table
-  uint32_t p;
-  uint2 minv;             // M^-1 and its Shoup constant
-  uint32_t* y;            // the transform in device memory (last pass)
+// The launch's arguments.
+struct Batch {
+  const uint32_t* x;
+  uint32_t* y;
+  const uint2* tw;
+  const uint32_t* consts;
+  uint32_t rows, L, S, nt, tiles;
+  bool limb_major;
+  int scale;
 };
-
-// Where a group goes after its stages: back to shared memory, or to device
-// memory as it is, times the per-element table sc, or times M^-1.
-enum : int { kToShared = 0, kToGlobal = 1, kScaleTable = 2, kScaleMinv = 3 };
-
-// One pass of group g: read it from shared memory (twisted by sc first when
-// kTwist), run the stages, write it out as kOut says.  The choices are
-// template arguments, so no branch sits between a group's loads.
-template <bool kInverse, int kLogE, bool kTwist, int kOut>
-__device__ __forceinline__ void group_pass(const PassArgs& pa, const uint32_t (&sj)[1 << kLogE],
-                                           uint32_t g) {
-  constexpr int E = 1 << kLogE;
-  const int log_d = pa.log_d;
-  const uint32_t lo = g & ((1u << log_d) - 1u);
-  const uint32_t base = ((g >> log_d) << (log_d + kLogE)) | lo;
-  const uint32_t a = swz(pa.toff + base);
-  uint32_t v[E];
-#pragma unroll
-  for (int j = 0; j < E; ++j) v[j] = pa.buf[a ^ sj[j]];
-  if (kTwist) {
-#pragma unroll
-    for (int j = 0; j < E; ++j) {
-      v[j] = shoup_mul(v[j], __ldg(pa.sc + base + (static_cast<uint32_t>(j) << log_d)), pa.p);
-    }
-  }
-  group_stages<kInverse, kLogE>(v, pa.tw, log_d, pa.e_lo, lo, pa.p);
-  if (kOut == kToShared) {
-#pragma unroll
-    for (int j = 0; j < E; ++j) pa.buf[a ^ sj[j]] = v[j];
-    return;
-  }
-#pragma unroll
-  for (int j = 0; j < E; ++j) {
-    if (kOut == kScaleTable) {
-      v[j] = shoup_mul(v[j], __ldg(pa.sc + base + (static_cast<uint32_t>(j) << log_d)), pa.p);
-    } else if (kOut == kScaleMinv) {
-      v[j] = shoup_mul(v[j], pa.minv, pa.p);
-    }
-  }
-  if (kLogE == 4 && log_d == 0 && pa.log_g >= 5) {
-    // the warp's 32 groups are 512 contiguous residues of one transform:
-    // through its own shared words, so that each store is 128 contiguous bytes
-#pragma unroll
-    for (int j = 0; j < E; ++j) pa.buf[a ^ sj[j]] = v[j];
-    __syncwarp();
-    const uint32_t lane = threadIdx.x & 31u;
-    const uint32_t wbase = base - (lane << kLogE);
-#pragma unroll
-    for (int k = 0; k < E; ++k) {
-      const uint32_t i = wbase + (static_cast<uint32_t>(k) << 5) + lane;
-      pa.y[i] = pa.buf[swz(pa.toff + i)];
-    }
-  } else if (kLogE == 4 && log_d == 0) {  // 16 contiguous residues, 64-byte aligned
-    uint4* dst = reinterpret_cast<uint4*>(pa.y + base);
-#pragma unroll
-    for (int j = 0; j < E; j += 4) dst[j / 4] = make_uint4(v[j], v[j + 1], v[j + 2], v[j + 3]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < E; ++j) pa.y[base + (static_cast<uint32_t>(j) << log_d)] = v[j];
-  }
-}
-
-// group_pass of a transform's pass q: the first pass of a forward
-// negacyclic transform twists; the last pass writes to device memory
-// (scaled when inverse: psi^-i M^-1, or M^-1 unless `scale` is off).
-template <bool kInverse, bool kNegacyclic, int kLogE>
-__device__ __forceinline__ void run_group(const PassArgs& pa, const uint32_t (&sj)[1 << kLogE],
-                                          uint32_t g, bool first, bool last, bool scale) {
-  constexpr bool kTw = !kInverse && kNegacyclic;
-  if (!last) {
-    if (kTw && first) {
-      group_pass<kInverse, kLogE, kTw, kToShared>(pa, sj, g);
-    } else {
-      group_pass<kInverse, kLogE, false, kToShared>(pa, sj, g);
-    }
-  } else if (kTw && first) {  // a one-pass transform (M <= 16)
-    group_pass<kInverse, kLogE, kTw, kToGlobal>(pa, sj, g);
-  } else if (kInverse && kNegacyclic) {
-    group_pass<kInverse, kLogE, false, kScaleTable>(pa, sj, g);
-  } else if (kInverse && scale) {
-    group_pass<kInverse, kLogE, false, kScaleMinv>(pa, sj, g);
-  } else {
-    group_pass<kInverse, kLogE, false, kToGlobal>(pa, sj, g);
-  }
-}
 
 // transform s of the [rows, L, S] batch in CTA order: row order is memory
 // order; limb-major order walks limb 0's rows * S transforms first
@@ -307,150 +344,250 @@ __device__ __forceinline__ void locate(uint32_t s, uint32_t rows, uint32_t L, ui
   }
 }
 
-// Copy tile `tile` (tile_tf transforms) into buf with cp.async, swizzled.
-__device__ __forceinline__ void load_tile(uint32_t* buf, const uint32_t* __restrict__ x,
-                                          uint32_t tile, uint32_t tile_tf, uint32_t nt,
-                                          int log_m, uint32_t rows, uint32_t L, uint32_t S,
-                                          bool limb_major) {
-  const uint32_t M = 1u << log_m;
-  if (M >= blockDim.x) {  // a transform at a time, located once
-    for (uint32_t tr = 0; tr < tile_tf; ++tr) {
-      const uint32_t s = tile * tile_tf + tr;
-      if (s >= nt) break;
-      uint32_t t, limb;
-      locate(s, rows, L, S, limb_major, t, limb);
-      const uint32_t* src = x + (static_cast<size_t>(t) << log_m);
-      for (uint32_t i = threadIdx.x; i < M; i += blockDim.x) {
-        cp_async4(buf + swz((tr << log_m) + i), src + i);
+// This thread's transform in tile `tile` (not valid past the batch).
+template <int kLogM>
+__device__ __forceinline__ Transform transform_of(const Batch& b, uint32_t tile) {
+  using G = Geo<kLogM>;
+  const uint32_t s = tile * G::kTileTf + (threadIdx.x >> (kLogM - G::kLogE));
+  Transform tf;
+  tf.valid = tile < b.tiles && s < b.nt;
+  uint32_t t = 0, limb = 0;
+  if (tf.valid) locate(s, b.rows, b.L, b.S, b.limb_major, t, limb);
+  tf.x = b.x + (static_cast<size_t>(t) << kLogM);
+  tf.y = b.y + (static_cast<size_t>(t) << kLogM);
+  tf.tw = b.tw + (static_cast<size_t>(limb) << kLogM);
+  tf.p = b.consts[5 * limb];
+  tf.af = b.scale ? make_uint2(b.consts[5 * limb + 1], b.consts[5 * limb + 2])
+                  : make_uint2(b.consts[5 * limb + 3], b.consts[5 * limb + 4]);
+  tf.root = b.scale ? 1 : 0;
+  return tf;
+}
+
+// Where a pass's group comes from or goes: device memory (its words as
+// they lie), or the tile in shared memory.
+enum : int { kDevice = 0, kShared = 1 };
+
+// One pass (distance 2^kD, stages on register bits 0 .. kK - 1) over the
+// thread's groups.
+template <bool kInverse, int kLogM, int kD, int kK, int kSrc, int kDst>
+__device__ __forceinline__ void pass(uint32_t* buf, const Transform& tf) {
+  using G = Geo<kLogM>;
+  constexpr bool kTop = kD == G::kTopD;
+#pragma unroll
+  for (int it = 0; it < G::kIters; ++it) {
+    const uint32_t a0 = tile_word<kD, G::kLogE>(group_of<kLogM, kTop>(it));
+    const uint32_t idx0 = a0 & ((1u << kLogM) - 1u);  // index of register 0 in its transform
+    uint32_t v[G::E];
+    if constexpr (kSrc == kDevice) {
+      if (tf.valid) {
+        load_global<G::kLogE, kD>(v, tf.x + idx0);
+      } else {
+#pragma unroll
+        for (int j = 0; j < G::E; ++j) v[j] = 0;
       }
+    } else {
+      load_shared<G::kLogE, kD>(v, buf, swz(a0));
     }
-    return;
-  }
-  for (uint32_t idx = threadIdx.x; idx < (tile_tf << log_m); idx += blockDim.x) {
-    const uint32_t s = tile * tile_tf + (idx >> log_m);
-    if (s >= nt) break;
-    uint32_t t, limb;
-    locate(s, rows, L, S, limb_major, t, limb);
-    cp_async4(buf + swz(idx), x + (static_cast<size_t>(t) << log_m) + (idx & (M - 1u)));
+    const uint32_t hi = ((1u << kLogM) | idx0) >> (kD + G::kLogE);
+    stages<kInverse, G::kLogE, kK, kInverse && kTop>(v, tf, hi);
+    if constexpr (kDst == kDevice) {
+      if (tf.valid) store_global<G::kLogE, kD>(v, tf.y + idx0);
+    } else {
+      store_shared<G::kLogE, kD>(v, buf, swz(a0));
+    }
   }
 }
 
-// The shared-memory NTT: persistent CTAs of `blockDim.x` threads walk tiles
-// of tile_tf transforms; thread tid works on transform tid >> log_g of the
-// tile (log_g = log2 of the groups per transform) and on the groups
-// gi = tid, tid + blockDim.x, ... of the tile.
-template <bool kInverse, bool kNegacyclic, int kLogE, int kThreads>
-__global__ void __launch_bounds__(kThreads, kMaxThreads / kThreads)
-    ntt_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
-               const uint2* __restrict__ tw, const uint2* __restrict__ sc,
-               const uint32_t* __restrict__ consts, uint32_t rows, uint32_t L, uint32_t S,
-               int log_m, int limb_major, int scale, uint32_t tile_tf, int nbuf) {
-  extern __shared__ uint32_t smem[];
-  const uint32_t nt = rows * L * S;
-  const uint32_t tiles = (nt + tile_tf - 1) / tile_tf;
-  const uint32_t tile_words = tile_tf << log_m;
-  const int log_g = log_m - kLogE;
-  const uint32_t groups = tile_tf << log_g;
-  const int npass = num_passes(log_m, kLogE);
-  const uint32_t tr = threadIdx.x >> log_g;  // the same in every pass
-  const bool lm = limb_major != 0;
-
-  uint32_t tile = blockIdx.x;
-  if (tile < tiles) load_tile(smem, x, tile, tile_tf, nt, log_m, rows, L, S, lm);
-  cp_async_commit();
-  for (int it = 0; tile < tiles; ++it, tile += gridDim.x) {
-    uint32_t* buf = smem + (nbuf == 2 ? (it & 1) * tile_words : 0);
-    const uint32_t next = tile + gridDim.x;
-    if (nbuf == 2) {
-      if (next < tiles) {
-        load_tile(smem + ((it + 1) & 1) * tile_words, x, next, tile_tf, nt, log_m, rows, L,
-                  S, lm);
-      }
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+// A warp's region of the tile between shared and device memory in order:
+// lane l moves the 16-byte chunks l, l + 32, ... (512 contiguous bytes a
+// warp access).  The region lies in the thread's own transform.
+template <int kLogM, bool kToDevice>
+__device__ __forceinline__ void transpose(uint32_t* buf, const Transform& tf) {
+  using G = Geo<kLogM>;
+  const uint32_t lane = threadIdx.x & 31u;
+  const uint32_t r0 = (threadIdx.x >> 5) << G::kLogRegion;  // the warp's region
+#pragma unroll
+  for (int k = 0; k < (1 << (G::kLogRegion - 7)); ++k) {
+    const uint32_t a = r0 + 4u * (lane + 32u * k);
+    uint4* s = reinterpret_cast<uint4*>(buf + swz(a));
+    const uint32_t i = a & ((1u << kLogM) - 1u);
+    if constexpr (kToDevice) {
+      if (tf.valid) __stcs(reinterpret_cast<uint4*>(tf.y + i), *s);
+    } else if (tf.valid) {
+      *s = __ldcs(reinterpret_cast<const uint4*>(tf.x + i));
     }
-    __syncthreads();
+  }
+}
 
-    const uint32_t s = tile * tile_tf + tr;
-    const bool valid = s < nt;
-    uint32_t t = 0, limb = 0;
-    if (valid) locate(s, rows, L, S, lm, t, limb);
-    const size_t tbase = static_cast<size_t>(limb) << log_m;
-    PassArgs pa;
-    pa.buf = buf;
-    pa.toff = tr << log_m;
-    pa.log_g = log_g;
-    pa.tw = tw + tbase;
-    pa.sc = sc + tbase;
-    pa.p = consts[3 * limb];
-    pa.minv = make_uint2(consts[3 * limb + 1], consts[3 * limb + 2]);
-    pa.y = y + (static_cast<size_t>(t) << log_m);
-    for (int q = 0; q < npass; ++q) {
-      pass_info(q, npass, kInverse, log_m, kLogE, pa.log_d, pa.e_lo);
-      uint32_t sj[1 << kLogE];
-      pass_offsets<kLogE>(sj, pa.log_d);
-      if (valid) {
-        for (uint32_t gi = threadIdx.x; gi < groups; gi += blockDim.x) {
-          run_group<kInverse, kNegacyclic, kLogE>(pa, sj, gi & ((1u << log_g) - 1u), q == 0,
-                                                  q == npass - 1, scale != 0);
+template <bool kWide>
+__device__ __forceinline__ void barrier() {
+  if constexpr (kWide) {
+    __syncthreads();
+  } else {
+    __syncwarp();
+  }
+}
+
+// The forward's top-pass group `it` of tf from device memory (zeros where
+// tf is past the batch).
+template <int kLogM>
+__device__ __forceinline__ void load_top(uint32_t (&v)[Geo<kLogM>::E], const Transform& tf,
+                                         uint32_t it) {
+  using G = Geo<kLogM>;
+  const uint32_t a0 = tile_word<G::kTopD, G::kLogE>(group_of<kLogM, true>(it));
+  if (tf.valid) {
+    load_global<G::kLogE, G::kTopD>(v, tf.x + (a0 & ((1u << kLogM) - 1u)));
+  } else {
+#pragma unroll
+    for (int j = 0; j < G::E; ++j) v[j] = 0;
+  }
+}
+
+// One tile of the forward transform.  The top pass's first group arrives
+// in `pre` (loaded during the last tile's copy-out); its further groups
+// (M >= 16384) are copied into their own words with cp.async while the
+// first computes.  The other passes stay in the warp's region of the tile;
+// the last one goes to device memory, through the warp's own words from M
+// = 1024.  Before the copy-out, `pre` is loaded with the first group of
+// tile `next`, whose transform is returned.
+template <int kLogM>
+__device__ __forceinline__ Transform forward_tile(uint32_t* buf, const Transform& tf,
+                                                  uint32_t (&pre)[Geo<kLogM>::E],
+                                                  const Batch& b, uint32_t next) {
+  using G = Geo<kLogM>;
+  constexpr uint32_t kMask = (1u << kLogM) - 1u;
+  Transform nx;
+  if constexpr (kLogM <= 5) {
+    stages<false, G::kLogE, kLogM, false>(pre, tf, 1u);
+    if (tf.valid) store_global<G::kLogE, 0>(pre, tf.y);  // the group is the transform
+    nx = transform_of<kLogM>(b, next);
+    load_top<kLogM>(pre, nx, 0);
+  } else {
+    barrier<G::kCtaWide>();  // the last tile's words are read
+#pragma unroll
+    for (int it = 1; it < G::kIters; ++it) {
+      const uint32_t a0 = tile_word<G::kTopD, G::kLogE>(group_of<kLogM, true>(it));
+      if (tf.valid) {
+#pragma unroll
+        for (int j = 0; j < G::E; ++j) {
+          cp_async4(buf + shared_word<G::kTopD>(swz(a0), j),
+                    tf.x + (a0 & kMask) + (j << G::kTopD));
         }
       }
-      if (q != npass - 1) __syncthreads();
     }
-    __syncthreads();  // the buffer is refilled next iteration
-    if (nbuf == 1 && next < tiles) {
-      load_tile(smem, x, next, tile_tf, nt, log_m, rows, L, S, lm);
-      cp_async_commit();
+#pragma unroll
+    for (int it = 0; it < G::kIters; ++it) {
+      const uint32_t a0 = tile_word<G::kTopD, G::kLogE>(group_of<kLogM, true>(it));
+      if (it > 0) {
+        cp_async_wait_all();
+        load_shared<G::kLogE, G::kTopD>(pre, buf, swz(a0));
+      }
+      stages<false, G::kLogE, 5, false>(pre, tf, 1u);  // (M | index) >> log2 M = 1
+      store_shared<G::kLogE, G::kTopD>(pre, buf, swz(a0));
+    }
+    barrier<G::kCtaWide>();
+    if constexpr (kLogM > 10) {
+      pass<false, kLogM, 5, kLogM - 10, kShared, kShared>(buf, tf);
+      __syncwarp();
+    }
+    constexpr int k = kLogM < 10 ? kLogM - 5 : 5;
+    if constexpr (G::kTranspose) {
+      pass<false, kLogM, 0, k, kShared, kShared>(buf, tf);
+      __syncwarp();
+      nx = transform_of<kLogM>(b, next);
+      load_top<kLogM>(pre, nx, 0);
+      transpose<kLogM, true>(buf, tf);
+    } else {
+      pass<false, kLogM, 0, k, kShared, kDevice>(buf, tf);
+      nx = transform_of<kLogM>(b, next);
+      load_top<kLogM>(pre, nx, 0);
+    }
+  }
+  return nx;
+}
+
+// One tile of the inverse: the forward's passes in reverse, each stage
+// reversed; the top pass stores to device memory.
+template <int kLogM>
+__device__ __forceinline__ void inverse_tile(uint32_t* buf, const Transform& tf) {
+  using G = Geo<kLogM>;
+  if constexpr (kLogM <= 5) {
+    pass<true, kLogM, 0, kLogM, kDevice, kDevice>(buf, tf);
+  } else {
+    barrier<G::kCtaWide>();  // the last tile's words are read
+    constexpr int k = kLogM < 10 ? kLogM - 5 : 5;
+    if constexpr (G::kTranspose) {
+      transpose<kLogM, false>(buf, tf);
+      __syncwarp();
+      pass<true, kLogM, 0, k, kShared, kShared>(buf, tf);
+    } else {
+      pass<true, kLogM, 0, k, kDevice, kShared>(buf, tf);
+    }
+    __syncwarp();
+    if constexpr (kLogM > 10) {
+      pass<true, kLogM, 5, kLogM - 10, kShared, kShared>(buf, tf);
+    }
+    barrier<G::kCtaWide>();
+    pass<true, kLogM, G::kTopD, 5, kShared, kDevice>(buf, tf);
+  }
+}
+
+// The shared-memory NTT: persistent CTAs walk tiles of kTileTf transforms
+// of the [rows, L, S] batch; a thread's groups lie in transform tid >>
+// (log2 M - log2 E) of the tile in every pass.
+template <bool kInverse, int kLogM>
+__global__ void __launch_bounds__(Geo<kLogM>::kThreads, Geo<kLogM>::kMinCtas)
+    ntt_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
+               const uint2* __restrict__ tw, const uint32_t* __restrict__ consts, uint32_t rows,
+               uint32_t L, uint32_t S, int limb_major, int scale) {
+  using G = Geo<kLogM>;
+  extern __shared__ uint4 smem4[];
+  uint32_t* buf = reinterpret_cast<uint32_t*>(smem4);
+  Batch b;
+  b.x = x, b.y = y, b.tw = tw, b.consts = consts, b.rows = rows, b.L = L, b.S = S;
+  b.nt = rows * L * S;
+  b.tiles = (b.nt + G::kTileTf - 1) / G::kTileTf;
+  b.limb_major = limb_major != 0;
+  b.scale = scale;
+  if constexpr (kInverse) {
+    for (uint32_t tile = blockIdx.x; tile < b.tiles; tile += gridDim.x) {
+      inverse_tile<kLogM>(buf, transform_of<kLogM>(b, tile));
+    }
+  } else {
+    uint32_t pre[G::E];  // the top pass's first group, loaded a tile ahead
+    Transform tf = transform_of<kLogM>(b, blockIdx.x);
+    load_top<kLogM>(pre, tf, 0);
+    for (uint32_t tile = blockIdx.x; tile < b.tiles; tile += gridDim.x) {
+      tf = forward_tile<kLogM>(buf, tf, pre, b, tile + gridDim.x);
     }
   }
 }
 
-template <bool kInverse, bool kNegacyclic, int kLogE, int kThreads>
-cudaError_t launch(const uint32_t* x, uint32_t* y, const uint2* tw, const uint2* sc,
-                   const uint32_t* consts, int rows, int L, int S, int log_m, int limb_major,
-                   int scale, int threads, int tile_tf, int nbuf, cudaStream_t stream) {
-  auto kernel = ntt_kernel<kInverse, kNegacyclic, kLogE, kThreads>;
-  const size_t smem = static_cast<size_t>(nbuf) * tile_tf * (sizeof(uint32_t) << log_m);
+template <bool kInverse, int kLogM>
+cudaError_t launch(const uint32_t* x, uint32_t* y, const uint2* tw, const uint32_t* consts,
+                   int rows, int L, int S, int limb_major, int scale, int threads, int tile_tf,
+                   cudaStream_t stream) {
+  using G = Geo<kLogM>;
+  if (threads != G::kThreads || tile_tf != G::kTileTf) return cudaErrorInvalidValue;
+  auto kernel = ntt_kernel<kInverse, kLogM>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+                                         static_cast<int>(G::kSmem));
   if (err != cudaSuccess) return refused(err);
   int per_sm = 0, sms = 0, dev = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return refused(err);
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return refused(err);
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) !=
-      cudaSuccess)
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, G::kThreads,
+                                                           G::kSmem)) != cudaSuccess)
     return refused(err);
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long nt = static_cast<long long>(rows) * L * S;
-  const long long tiles = (nt + tile_tf - 1) / tile_tf;
+  const long long tiles = (nt + G::kTileTf - 1) / G::kTileTf;
   const long long slots = static_cast<long long>(per_sm) * sms;
   const unsigned int blocks = static_cast<unsigned int>(tiles < slots ? tiles : slots);
-  kernel<<<blocks, threads, smem, stream>>>(x, y, tw, sc, consts, rows, L, S, log_m,
-                                             limb_major, scale, tile_tf, nbuf);
+  kernel<<<blocks, G::kThreads, G::kSmem, stream>>>(x, y, tw, consts, rows, L, S, limb_major,
+                                                     scale);
   return cudaGetLastError();
-}
-
-template <bool kInverse, bool kNegacyclic>
-cudaError_t launch_e(const uint32_t* x, uint32_t* y, const uint2* tw, const uint2* sc,
-                     const uint32_t* consts, int rows, int L, int S, int log_m, int limb_major,
-                     int scale, int threads, int tile_tf, int nbuf, cudaStream_t stream) {
-#define RINGSNARK_LAUNCH(E, T)                                                              \
-  launch<kInverse, kNegacyclic, E, T>(x, y, tw, sc, consts, rows, L, S, log_m, limb_major, \
-                                      scale, threads, tile_tf, nbuf, stream)
-  if (threads > kMaxThreads / 2) {
-    if (log_m < 4) return cudaErrorInvalidValue;
-    return RINGSNARK_LAUNCH(4, kMaxThreads);
-  }
-  switch (log_m < 4 ? log_m : 4) {
-    case 1: return RINGSNARK_LAUNCH(1, kMaxThreads / 2);
-    case 2: return RINGSNARK_LAUNCH(2, kMaxThreads / 2);
-    case 3: return RINGSNARK_LAUNCH(3, kMaxThreads / 2);
-    default: return RINGSNARK_LAUNCH(4, kMaxThreads / 2);
-  }
-#undef RINGSNARK_LAUNCH
 }
 
 // ---------------------------------------------------------------------------
@@ -583,35 +720,34 @@ cudaError_t launch_outer_mode(const uint32_t* x, uint32_t* y, const uint2* col,
 
 }  // namespace
 
-extern "C" int ringsnark_ntt_launch(const void* x, void* y, const void* tw, const void* sc,
-                                    const void* consts, int rows, int L, int S, int log_m,
-                                    int inverse, int negacyclic, int limb_major, int scale,
-                                    int threads, int tile_tf, int nbuf, void* stream) {
+extern "C" int ringsnark_ntt_launch(const void* x, void* y, const void* tw, const void* consts,
+                                    int rows, int L, int S, int log_m, int inverse,
+                                    int limb_major, int scale, int threads, int tile_tf,
+                                    void* stream) {
   const long long nt = static_cast<long long>(rows) * L * S;
-  if (log_m < 1 || log_m > 15 || rows < 1 || L < 1 || S < 1 || nt > 0x7fffffffLL ||
-      threads < 1 || threads > kMaxThreads || tile_tf < 1 || (nbuf != 1 && nbuf != 2) ||
-      (static_cast<long long>(tile_tf) << log_m) > 0x7fffffffLL) {
+  if (log_m < 1 || log_m > 15 || rows < 1 || L < 1 || S < 1 || nt > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const uint32_t* xi = static_cast<const uint32_t*>(x);
   uint32_t* yo = static_cast<uint32_t*>(y);
   const uint2* t = static_cast<const uint2*>(tw);
-  const uint2* s = static_cast<const uint2*>(sc);
   const uint32_t* c = static_cast<const uint32_t*>(consts);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (inverse) {
-    err = negacyclic ? launch_e<true, true>(xi, yo, t, s, c, rows, L, S, log_m, limb_major,
-                                            scale, threads, tile_tf, nbuf, st)
-                     : launch_e<true, false>(xi, yo, t, s, c, rows, L, S, log_m, limb_major,
-                                             scale, threads, tile_tf, nbuf, st);
-  } else {
-    err = negacyclic ? launch_e<false, true>(xi, yo, t, s, c, rows, L, S, log_m, limb_major,
-                                             scale, threads, tile_tf, nbuf, st)
-                     : launch_e<false, false>(xi, yo, t, s, c, rows, L, S, log_m, limb_major,
-                                              scale, threads, tile_tf, nbuf, st);
+#define RINGSNARK_NTT(N)                                                                    \
+  case N:                                                                                   \
+    return static_cast<int>(                                                                \
+        inverse ? launch<true, N>(xi, yo, t, c, rows, L, S, limb_major, scale, threads,     \
+                                  tile_tf, st)                                              \
+                : launch<false, N>(xi, yo, t, c, rows, L, S, limb_major, scale, threads,    \
+                                   tile_tf, st))
+  switch (log_m) {
+    RINGSNARK_NTT(1); RINGSNARK_NTT(2); RINGSNARK_NTT(3); RINGSNARK_NTT(4); RINGSNARK_NTT(5);
+    RINGSNARK_NTT(6); RINGSNARK_NTT(7); RINGSNARK_NTT(8); RINGSNARK_NTT(9); RINGSNARK_NTT(10);
+    RINGSNARK_NTT(11); RINGSNARK_NTT(12); RINGSNARK_NTT(13); RINGSNARK_NTT(14);
+    RINGSNARK_NTT(15);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err);
+#undef RINGSNARK_NTT
 }
 
 // One pass of the outer stages i0 .. i0 + 2^log_k - 1 of the log_r outer

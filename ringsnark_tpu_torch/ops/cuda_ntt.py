@@ -46,7 +46,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .ntt import NTTPlan, _mod_powers, check_scale, get_plan, shoup_np, split_mi
+from .ntt import NTTPlan, _mod_powers, bitrev_indices, check_scale, get_plan, shoup_np, split_mi
 from .primes import root_of_unity
 
 __all__ = ["build", "ntt", "ntt_split", "geometry", "kernel_passes", "outer_passes",
@@ -127,7 +127,7 @@ def build() -> BuildResult:
 @lru_cache(maxsize=None)
 def _lib():
     lib = ctypes.CDLL(str(build().path))
-    for name, n_ptr, n_int in (("ringsnark_ntt_launch", 5, 11),
+    for name, n_ptr, n_int in (("ringsnark_ntt_launch", 4, 9),
                                ("ringsnark_ntt_outer_launch", 6, 9)):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
@@ -157,73 +157,98 @@ def _words(a, device: str) -> torch.Tensor:
 # replay it)
 # ---------------------------------------------------------------------------
 
-MAX_THREADS = 512  # kMaxThreads in csrc/ntt.cu: one CTA of 512 or two of 256 a SM
-MIN_THREADS = 256  # a CTA takes several small transforms to reach this
-DOUBLE_BUFFER_BYTES = 64 * 1024  # two tiles up to this much shared memory
+MAX_THREADS = 512  # a CTA at M = 32768 (one a SM, 128 KiB); 256 below
 
 
 @dataclass(frozen=True)
 class Geometry:
-    log_e: int  # log2 of the residues a thread holds per group
+    log_e: int  # log2 of the residues a thread holds per group (E = 32, or M below 32)
     threads: int  # per CTA
     tile_tf: int  # transforms per tile
-    nbuf: int  # shared buffers (2: the next tile is copied during this one)
+    iters: int  # groups a thread takes in turn in every pass
+    min_ctas: int  # CTAs a SM the registers are capped for (__launch_bounds__)
     M: int
 
 
 def geometry(M: int) -> Geometry:
-    """CTA shape of the shared-memory kernel for transforms of size M: 256
-    threads (two CTAs a SM) up to M = 16384, 512 at M = 32768 (one CTA of
-    128 KiB a SM); a second buffer where two tiles take at most 64 KiB."""
+    """CTA shape of the shared-memory kernel (`Geo` in csrc/ntt.cu) for
+    transforms of size M: 256 threads, a thread holding E = 32 residues (M
+    below 32), a tile of 8192 words (several transforms up to M = 4096; 256
+    transforms of M below 32) with registers capped for two CTAs a SM;
+    M = 16384 a tile of one transform, two groups a thread; M = 32768 512
+    threads and one CTA a SM."""
     log_m = M.bit_length() - 1
-    log_e = min(4, log_m)
-    groups = M >> log_e
-    tile_tf = max(1, MIN_THREADS // groups)
-    threads = min(MAX_THREADS if M > 16384 else MIN_THREADS, tile_tf * groups)
-    nbuf = 2 if 2 * tile_tf * M * 4 <= DOUBLE_BUFFER_BYTES else 1
-    return Geometry(log_e, threads, tile_tf, nbuf, M)
+    log_e = min(5, log_m)
+    threads = MAX_THREADS if log_m == 15 else 256
+    iters = 2 if log_m >= 14 else 1
+    tile_tf = max(1, (threads * iters << log_e) >> log_m)
+    return Geometry(log_e, threads, tile_tf, iters, 1 if threads == MAX_THREADS else 2, M)
 
 
 def kernel_passes(M: int, inverse: bool) -> list:
-    """The passes of `ntt_kernel` in execution order, as (log2 D, e_lo): a
-    group holds 2^log_e residues at stride D and runs the stages of
-    j-exponents [e_lo, log_e) (index distance 2^e * D)."""
+    """The passes of `ntt_kernel` in execution order, as (d, k): a group
+    holds the 2^log_e residues at index distance 2^d and runs the stages on
+    its register bits 0 .. k - 1 (index bits d .. d + k - 1).  Forward, the
+    top pass first (the global load: stages log2 M - 1 down to log2 M - 5),
+    then d = 5 (stages 9 ... 5, where M > 1024) and d = 0 (stages 4 ... 0);
+    a size below 1024 has two passes, a size up to 32 one.  The inverse runs
+    them in reverse, each stage in the other direction."""
     log_m = M.bit_length() - 1
-    log_e = min(4, log_m)
-    r0 = (log_m - 1) % log_e + 1
-    top = (log_m - log_e, log_e - r0)
-    full = [(log_e * k, 0) for k in range((log_m - r0) // log_e)]  # k ascending
-    return full + [top] if inverse else [top] + full[::-1]
+    if log_m <= 5:
+        passes = [(0, log_m)]
+    elif log_m < 10:
+        passes = [(log_m - 5, 5), (0, log_m - 5)]
+    else:
+        passes = [(log_m - 5, 5)] + ([(5, log_m - 10)] if log_m > 10 else []) + [(0, 5)]
+    return passes[::-1] if inverse else passes
 
 
 def swizzle(a):
-    """Shared-memory word of logical word a (`swz` in csrc/ntt.cu)."""
-    row = a >> 5
-    return a ^ ((row & 15) | ((row & 8) << 1))
+    """Shared-memory word of tile word a (`swz` in csrc/ntt.cu): bits 2..4
+    XOR bits 5..7, so that a 16-byte vector stays whole and aligned."""
+    return a ^ (((a >> 5) & 7) << 2)
 
 
 @dataclass(frozen=True)
 class KernelTables:
-    tw: torch.Tensor  # [L, M, 2] int32 (w, Shoup) pairs, entry d + k = w_{2d}^k
-    sc: torch.Tensor  # [L, M, 2] psi^i (fwd) or psi^-i * M^-1 (inv); tw when cyclic
-    consts: torch.Tensor  # [L, 3]: p, M^-1, Shoup(M^-1)
+    tw: torch.Tensor  # [L, M, 2] int32 (w, Shoup) pairs: entry k >= 1 the butterfly twiddle of
+    #                   tree node k (inverse: its inverse; entry 1 also times M^-1, entry 0
+    #                   the root's without M^-1)
+    consts: torch.Tensor  # [L, 5]: p, M^-1 and its Shoup constant, 1 and its Shoup constant
+
+
+def stage_twiddles(primes: tuple, M: int, negacyclic: bool, inverse: bool = False) -> np.ndarray:
+    """[L, M] twiddles of the Cooley-Tukey tree, psi merged: the butterfly
+    of stage m (m blocks of M/m residues, m = 1, 2, ... M/2) on block i
+    multiplies by entry m + i: psi^brv(m + i) (negacyclic; psi^2 = w, brv
+    over log2 M bits) or w^brv'(i) (cyclic; brv' over log2 M - 1 bits); the
+    inverse's Gentleman-Sande butterflies by their inverses.  Entry 0 is 0."""
+    plan = get_plan(primes, M, negacyclic)
+    k = np.arange(1, M)
+    br = bitrev_indices(M)
+    inv = (lambda r, q: pow(int(r), int(q) - 2, int(q))) if inverse else (lambda r, q: int(r))
+    if negacyclic:
+        roots, exps = [inv(plan.psi[j, 1], q) for j, q in enumerate(primes)], br[k]
+    else:
+        i = k - (1 << (np.frexp(k.astype(np.float64))[1] - 1))
+        roots, exps = [inv(w, q) for w, q in zip(plan.w_np, primes)], br[i] >> 1
+    out = np.stack([_mod_powers(r, M, q)[exps] for r, q in zip(roots, primes)])
+    return np.concatenate([np.zeros((len(primes), 1), np.uint32), out.astype(np.uint32)], 1)
 
 
 @lru_cache(maxsize=None)
 def _tables(primes: tuple, M: int, inverse: bool, negacyclic: bool, device: str):
     plan = get_plan(primes, M, negacyclic)
     L = len(primes)
-    stages = plan.inv_tw if inverse else tuple(reversed(plan.fwd_tw))  # d = 1 .. M/2
-    tw = np.concatenate([np.zeros((L, 1), np.uint32), *stages], axis=1)
-    assert tw.shape == (L, M)
+    p = np.asarray(primes, dtype=np.uint64)[:, None]
+    tw = stage_twiddles(primes, M, negacyclic, inverse).astype(np.uint64)
     minv = plan.minv.astype(np.uint64)  # [L, 1]
-    consts = np.concatenate([plan.p.astype(np.uint64), minv, _shoup(minv, primes)], axis=1)
-    tw_t = _pairs(tw, primes, device)
-    if negacyclic:
-        sc_t = _pairs(plan.psi_inv_scaled if inverse else plan.psi, primes, device)
-    else:
-        sc_t = tw_t  # never read by the cyclic kernels
-    return KernelTables(tw_t, sc_t, _words(consts, device))
+    if inverse:  # the root's b-factor unscaled (entry 0), then times M^-1 (entry 1)
+        tw[:, 0] = tw[:, 1]
+        tw[:, 1:2] = tw[:, 1:2] * minv % p
+    one = np.ones((L, 1), np.uint64)
+    consts = np.concatenate([p, minv, _shoup(minv, primes), one, _shoup(one, primes)], axis=1)
+    return KernelTables(_pairs(tw, primes, device), _words(consts, device))
 
 
 def _check(x: torch.Tensor, plan: NTTPlan, negacyclic: bool, name: str, inverse: bool = True,
@@ -252,10 +277,9 @@ def _launch(x, y, primes, M, inverse, negacyclic, rows, S=1, scale=True, order=N
     geo = geometry(M)
     with torch.cuda.device(x.device):
         rc = _lib().ringsnark_ntt_launch(
-            x.data_ptr(), y.data_ptr(), tb.tw.data_ptr(), tb.sc.data_ptr(),
-            tb.consts.data_ptr(), rows, len(primes), S, M.bit_length() - 1, int(inverse),
-            int(negacyclic), int(order == "limb"), int(scale), geo.threads, geo.tile_tf,
-            geo.nbuf, _stream(x),
+            x.data_ptr(), y.data_ptr(), tb.tw.data_ptr(), tb.consts.data_ptr(), rows,
+            len(primes), S, M.bit_length() - 1, int(inverse), int(order == "limb"), int(scale),
+            geo.threads, geo.tile_tf, _stream(x),
         )
     if rc != 0:
         raise RuntimeError(f"NTT kernel launch failed: cudaError {rc}")

@@ -29,8 +29,14 @@ a coefficient (its stores), and ``column``, the one of those loops with the
 most stores (where a line holds a CTA's block, a thread's coefficients
 share each column's pass); and each innermost loop that hashes, per
 coefficient-word (``draw_words``: the general draw of two or more words a
-side).  Needs ``nvcc`` and ``cuobjdump`` (PATH or $CUDA_HOME/bin); the card
-is not used.
+side).  The NTT kernels (``ntt_kernel<inverse,log_m>``) have ``ntt``:
+every loop (innermost or not) with its instructions and, beside the
+classes, its shared loads and stores, global loads and stores (as
+instructions and as 32-bit words: a 128-bit access moves four), barriers
+(``BAR``) and shuffles (``SHFL``), per residue of a pass: the residues a
+pass moves are its global stores' words where it stores, else its shared
+stores' words (a twiddle is a global load, never a store).  Needs ``nvcc``
+and ``cuobjdump`` (PATH or $CUDA_HOME/bin); the card is not used.
 """
 
 from __future__ import annotations
@@ -46,7 +52,7 @@ from collections import Counter
 from ..ops import cuda_ntt
 
 KERNELS = ("draw_kernel", "cbd_kernel", "lift_kernel", "encrypt_kernel", "mac_kernel",
-           "mac_drawn_kernel")
+           "mac_drawn_kernel", "ntt_kernel")
 _INSN = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _BRANCH = re.compile(r"\bBRA\s+(?:`\()?0x([0-9a-f]+)")
 
@@ -115,6 +121,45 @@ def mix(insns) -> dict:
         "alu", "fma", "xu", "mem", "uniform", "control", "other")},
         "rotations": sum(o.startswith("SHF.L.W") for o in ops),
         "stores": sum(o.startswith("STG") for o in ops)}
+
+
+def _words(opcode: str) -> int:
+    """32-bit words one lane moves with a load or store opcode."""
+    return 4 if ".128" in opcode else 2 if ".64" in opcode else 1
+
+
+MEMORY = ("LDS", "STS", "LDG", "STG")
+
+
+def memory_mix(insns) -> dict:
+    """Shared and global loads and stores (instructions and words), barriers
+    and shuffles."""
+    ops = [_opcode(t) for _, t in insns]
+    out = {}
+    for m in MEMORY:
+        mine = [o for o in ops if o.split(".")[0] == m]
+        out[m.lower()], out[m.lower() + "_words"] = len(mine), sum(map(_words, mine))
+    out["bar"] = sum(o.split(".")[0] == "BAR" for o in ops)
+    out["shfl"] = sum(o.split(".")[0] == "SHFL" for o in ops)
+    return out
+
+
+def ntt_parts(name: str, insns) -> dict:
+    """The NTT kernel's loops (module docstring); {} for any other kernel."""
+    if not name.startswith("ntt_kernel<"):
+        return {}
+    loops = sorted({(int(m.group(1), 16), a) for a, t in insns
+                    for m in [_BRANCH.search(t)] if m and int(m.group(1), 16) < a})
+    out = []
+    for a, b in loops:
+        body = [(x, t) for x, t in insns if a <= x <= b]
+        m, mem = mix(body), memory_mix(body)
+        residues = mem["stg_words"] or mem["sts_words"]
+        keys = CLASSES + tuple(mem)
+        both = {**m, **mem}
+        out.append({"first": hex(a), "last": hex(b), **both, "residues": residues,
+                    "per_residue": {k: both[k] / residues for k in keys} if residues else None})
+    return {"loops": out, "kernel": memory_mix(insns)}
 
 
 def row_loop(name: str, loop: dict, insns) -> dict:
@@ -210,7 +255,9 @@ def report(lib_path) -> dict:
             loop = {"first": hex(a), "last": hex(b), **mix(body)}
             loops.append({**loop, **row_loop(name, loop, body)})
         lift = lift_parts(name, insns, inner)
-        out[name] = {**mix(insns), "loops": loops, **({"lift": lift} if lift else {})}
+        ntt = ntt_parts(name, insns)
+        out[name] = {**mix(insns), "loops": loops, **({"lift": lift} if lift else {}),
+                     **({"ntt": ntt} if ntt else {})}
     return out
 
 

@@ -5,8 +5,13 @@ the host with the kernels' own tables (`cuda_ntt._tables`,
 `cuda_ntt._split_tables`), geometry (`cuda_ntt.geometry`), pass list
 (`cuda_ntt.kernel_passes`) and shared-memory swizzle (`cuda_ntt.swizzle`),
 in uint32 arithmetic (uint64 with a 32-bit mask): the CTA tiles and their
-order, every pass's register groups and twiddle indices, the swizzled
-exchanges and the split's factored outer twiddles.
+order, every thread's groups in every pass (`group_map`, `tile_address`),
+the first pass's loads straight from device memory, the merged-psi
+twiddle of every butterfly, the swizzled exchanges and which warp reads a
+word another warp wrote (only across a CTA-wide barrier), the transposing
+store (forward) and load (inverse) through a warp's own words, and the
+split's factored outer twiddles.  The kernel exchanges no word by
+shuffle: every exchange goes through shared memory.
 """
 
 import numpy as np
@@ -38,52 +43,171 @@ def sub(a, b, p):
     return np.where(d >= p, d - p, d)
 
 
-def run_passes(smem, M, tf, inverse, tw, limb, primes, twist=None, scale=None, minv=None):
-    """`ntt_kernel`'s passes on n tiles of tf transforms held in smem
-    [n, tf * M] (physical words, updated in place).  limb: [n, tf].  The
-    last pass returns [n, tf, M] (logical order), scaled by `scale`
-    ([L, M, 2]) or `minv` ([L, 2])."""
-    log_m = M.bit_length() - 1
-    log_e = min(4, log_m)
-    E, G, log_g = 1 << log_e, M >> log_e, log_m - log_e
-    gi = np.arange(tf * G)
-    tr, g = gi >> log_g, gi & (G - 1)
-    lg = limb[:, tr]  # [n, groups]
-    p = np.asarray(primes, np.uint64)[lg][..., None]  # [n, groups, 1]
+def log2(v: int) -> int:
+    return v.bit_length() - 1
+
+
+def group_map(geo, top: bool) -> np.ndarray:
+    """[threads, iters] group of thread tid in its iteration it: the top
+    pass (the one that touches device memory word by word) g = lane | warp
+    << 5 | it << log2(threads), lanes on the low index bits; every other
+    pass g = lane | it << 5 | warp << (5 + log2(iters)), a warp's groups in
+    one region of the tile."""
+    tid = np.arange(geo.threads)[:, None]
+    it = np.arange(geo.iters)[None, :]
+    lane, warp = tid & 31, tid >> 5
+    if top:
+        return lane | (warp << 5) | (it << log2(geo.threads))
+    return lane | (it << 5) | (warp << (5 + log2(geo.iters)))
+
+
+def tile_address(g, d: int, log_e: int, j):
+    """Tile word of register j of group g in a pass at distance 2^d: the
+    register bits d .. d + log_e - 1 inserted into g."""
+    return ((g >> d) << (d + log_e)) | (g & ((1 << d) - 1)) | (j << d)
+
+
+def region_log(geo) -> int:
+    """log2 of a warp's words in the passes other than the top one."""
+    return 5 + geo.log_e + log2(geo.iters)
+
+
+def cta_wide(M: int) -> bool:
+    """The top pass's exchange crosses warps (a __syncthreads in the kernel)."""
+    return M > 1024
+
+
+def transpose_words(geo):
+    """[threads, chunks, 4] tile words a lane moves with its 16-byte
+    accesses when a warp copies its region between shared and device
+    memory in order (M >= 1024): chunk c = lane + 32 kk of the region at
+    warp << region_log."""
+    r = region_log(geo)
+    tid = np.arange(geo.threads)
+    lane, warp = tid & 31, tid >> 5
+    c = lane[:, None] + 32 * np.arange(1 << (r - 7))[None, :]
+    return (warp[:, None, None] << r) + 4 * c[..., None] + np.arange(4)
+
+
+def smem_accesses(M: int) -> list:
+    """(label, width in words, [instructions, 32] first words) of every
+    warp access to shared memory, both directions: width 1 a word a lane,
+    width 4 a 16-byte vector (the pass at d = 0 and the transposing copy)."""
+    geo = cuda_ntt.geometry(M)
+    log_m, T = log2(M), geo.threads
+    out = []
+    for d, _ in cuda_ntt.kernel_passes(M, False):
+        top = d == log_m - geo.log_e
+        a = tile_address(group_map(geo, top)[..., None], d, geo.log_e,
+                         np.arange(1 << geo.log_e))  # [T, I, E]
+        a = a.reshape(T // 32, 32, geo.iters, -1).transpose(0, 2, 3, 1)  # [warps, I, E, 32]
+        if d == 0 and log_m > 5:
+            out.append((f"pass d=0", 4, a[:, :, ::4].reshape(-1, 32)))
+        else:
+            out.append((f"pass d={d}", 1, a.reshape(-1, 32)))
+    if log_m >= 10:
+        w = transpose_words(geo)[..., 0]  # [T, chunks]
+        out.append(("transpose", 4, w.reshape(T // 32, 32, -1).transpose(0, 2, 1).reshape(-1, 32)))
+    return out
+
+
+def ntt_kernel(x, primes, M, inverse, negacyclic, S=1, limb_major=False, scale=True):
+    """`ntt_kernel` over x [rows, L, S, M] (or [rows, L, M] with S = 1)."""
+    rows, L = x.shape[0], x.shape[1]
+    nt = rows * L * S
+    geo = cuda_ntt.geometry(M)
+    log_m, log_e, T, I, tf = log2(M), geo.log_e, geo.threads, geo.iters, geo.tile_tf
+    E = 1 << log_e
+    tile_words = T * I * E
+    assert tile_words == tf * M and T <= THREADS
+    tiles = -(-nt // tf)
+    s = np.arange(tiles * tf).reshape(tiles, tf)
+    valid = s < nt
+    t, limb = locate(np.where(valid, s, 0), rows, L, S, limb_major)
+    assert np.array_equal(np.sort(t[valid]), np.arange(nt)), "every transform once"
+    tb = cuda_ntt._tables(tuple(primes), M, inverse, negacyclic, "cpu")
+    tw, consts = host(tb.tw), host(tb.consts)
+    assert np.array_equal(consts[:, 0], np.array(primes, np.uint64))
+    flat = x.reshape(-1, M).astype(np.uint64)
+    src = flat[t]  # [tiles, tf, M]: the transforms of each tile
+    out = np.zeros_like(src)
+    smem = np.zeros((tiles, tile_words), np.uint64)
+    writer = np.full(tile_words, -1)  # the warp that last wrote each shared word
     passes = cuda_ntt.kernel_passes(M, inverse)
-    out = np.zeros((smem.shape[0], tf, M), np.uint64)
-    for q, (log_d, e_lo) in enumerate(passes):
-        lo = g & ((1 << log_d) - 1)
-        base = ((g >> log_d) << (log_d + log_e)) | lo
-        idx = base[:, None] + (np.arange(E) << log_d)[None, :]  # [groups, E]
-        addr = (tr << log_m)[:, None] + idx
-        assert np.array_equal(np.sort(addr.ravel()), np.arange(tf * M)), "a pass covers the tile"
-        phys = cuda_ntt.swizzle(addr)
-        v = smem[:, phys]  # [n, groups, E]
-        if q == 0 and twist is not None:
-            v = shoup(v, twist[lg[..., None], idx[None]], p)
-        exps = range(e_lo, log_e) if inverse else range(log_e - 1, e_lo - 1, -1)
-        for e in exps:
+    warp_of = (np.arange(T) >> 5)[:, None, None]  # [T, 1, 1]
+    transposed = log_m >= 10
+    first_words = None
+    for q, (d, k) in enumerate(passes):
+        first, last = q == 0, q == len(passes) - 1
+        top = last if inverse else first
+        g = group_map(geo, top)
+        a = tile_address(g[..., None], d, log_e, np.arange(E))  # [T, I, E]
+        assert np.array_equal(np.sort(a.ravel()), np.arange(tile_words)), "a pass covers the tile"
+        tr, idx = a >> log_m, a & (M - 1)
+        assert (tr == tr[..., :1]).all(), "a group lies in one transform"
+        if I == 1:  # a thread keeps one transform of the tile in every pass
+            assert (tr[..., 0] == (np.arange(T) >> (log_m - log_e))[:, None]).all()
+        phys = cuda_ntt.swizzle(a)
+        if first and transposed and inverse:
+            # the warp's region, in order from device memory into its own words
+            w = transpose_words(geo)
+            smem[:, cuda_ntt.swizzle(w)] = src[:, w >> log_m, w & (M - 1)]
+            writer[cuda_ntt.swizzle(w)] = (np.arange(T) >> 5)[:, None, None]
+        if first and not (transposed and inverse):
+            if top and M >= 1024:  # a warp's load of register j: 32 words in a row
+                rowwise = idx.reshape(T // 32, 32, I, E)
+                assert (np.diff(rowwise, axis=1) == 1).all(), "coalesced first load"
+            v = src[:, tr, idx]  # [tiles, T, I, E], straight from device memory
+            if not inverse and I > 1:  # groups after the first go through their own words
+                assert not set(phys[:, 0].ravel()) & set(phys[:, 1:].ravel())
+            first_words = [set(a[w * 32:(w + 1) * 32].ravel()) for w in range(T // 32)]
+        else:
+            if not (q == len(passes) - 1 and inverse and cta_wide(M)) and not (
+                    q == 1 and not inverse and cta_wide(M)):
+                assert (writer[phys] == warp_of).all(), "a warp reads only its own words"
+            v = smem[:, phys]
+        lg = limb[:, tr[..., 0]]  # [tiles, T, I]
+        p = np.asarray(primes, np.uint64)[lg]
+        hi = (M | idx[..., 0]) >> (d + log_e)  # [T, I]
+        for e in (range(k) if inverse else range(k - 1, -1, -1)):
             jd = 1 << e
-            d = jd << log_d
-            for m in range(jd):
-                w = tw[lg, d + lo + (m << log_d)][:, :, None, :]  # [n, groups, 1, 2]
-                j = np.arange(m, E, 2 * jd)
-                a, b = v[..., j], v[..., j + jd]
-                if inverse:
-                    mm = shoup(b, w, p)
-                    v[..., j], v[..., j + jd] = add(a, mm, p), sub(a, mm, p)
+            root = inverse and d + e == log_m - 1
+            for j in range(E):
+                if j & jd:
+                    continue
+                if root:  # entry 1 holds M^-1, entry 0 the root's twiddle without it
+                    wi = np.int64(1 if scale else 0)
                 else:
-                    v[..., j], v[..., j + jd] = add(a, b, p), shoup(sub(a, b, p), w, p)
-        if q == len(passes) - 1:
-            if scale is not None:
-                v = shoup(v, scale[lg[..., None], idx[None]], p)
-            elif minv is not None:
-                v = shoup(v, minv[lg][:, :, None, :], p)
-            out[:, tr[:, None], idx] = v
+                    wi = (hi << (log_e - 1 - e)) | (j >> (e + 1))
+                w = tw[lg, wi]  # [tiles, T, I, 2]
+                A, B = v[..., j].copy(), v[..., j + jd].copy()
+                if inverse:
+                    af = consts[lg][..., 1:3] if scale else consts[lg][..., 3:5]
+                    v[..., j] = shoup(A + B, af, p) if root else add(A, B, p)
+                    v[..., j + jd] = shoup(A + p - B, w, p)
+                else:
+                    m = shoup(B, w, p)
+                    v[..., j], v[..., j + jd] = add(A, m, p), sub(A, m, p)
+        if last and not (transposed and not inverse):
+            if top and M >= 1024:
+                rowwise = idx.reshape(T // 32, 32, I, E)
+                assert (np.diff(rowwise, axis=1) == 1).all(), "coalesced last store"
+            out[:, tr, idx] = v
         else:
             smem[:, phys] = v
-    return out
+            writer[phys] = warp_of
+        if last and transposed and not inverse:
+            # the warp's region, in order from its own words to device memory
+            w = transpose_words(geo)
+            assert (writer[cuda_ntt.swizzle(w)] == (np.arange(T) >> 5)[:, None, None]).all()
+            out[:, w >> log_m, w & (M - 1)] = smem[:, cuda_ntt.swizzle(w)]
+    if not cta_wide(M) and first_words is not None:  # no __syncthreads between tiles either
+        r = region_log(geo)
+        assert all(words == set(range(w << r, (w + 1) << r)) for w, words in
+                   enumerate(first_words)), "a warp keeps its region from tile to tile"
+    y = np.empty_like(flat)
+    y[t[valid]] = out[valid]
+    return y.reshape(x.shape)
 
 
 def locate(s, rows, L, S, limb_major):
@@ -93,35 +217,6 @@ def locate(s, rows, L, S, limb_major):
         limb, j = s // per_limb, s % per_limb
         return ((j // S) * L + limb) * S + j % S, limb
     return s, (s // S) % L
-
-
-def ntt_kernel(x, primes, M, inverse, negacyclic, S=1, limb_major=False, scale=True):
-    """`ntt_kernel` over x [rows, L, S, M] (or [rows, L, M] with S = 1)."""
-    rows, L = x.shape[0], x.shape[1]
-    nt = rows * L * S
-    geo = cuda_ntt.geometry(M)
-    tf = geo.tile_tf
-    assert geo.threads <= tf * (M >> geo.log_e) and geo.threads <= THREADS
-    tiles = -(-nt // tf)
-    s = np.arange(tiles * tf).reshape(tiles, tf)
-    valid = s < nt
-    t, limb = locate(np.where(valid, s, 0), rows, L, S, limb_major)
-    assert np.array_equal(np.sort(t[valid]), np.arange(nt)), "every transform once"
-    tb = cuda_ntt._tables(tuple(primes), M, inverse, negacyclic, "cpu")
-    tw, sc, consts = host(tb.tw), host(tb.sc), host(tb.consts)
-    assert np.array_equal(consts[:, 0], np.array(primes, np.uint64))
-    flat = x.reshape(-1, M).astype(np.uint64)
-    idx = np.arange(tf * M)
-    smem = np.zeros((tiles, tf * M), np.uint64)
-    smem[:, cuda_ntt.swizzle(idx)] = flat[t].reshape(tiles, tf * M)[:, idx]
-    res = run_passes(
-        smem, M, tf, inverse, tw, limb, primes,
-        twist=sc if negacyclic and not inverse else None,
-        scale=sc if negacyclic and inverse else None,
-        minv=consts[:, 1:3] if inverse and not negacyclic and scale else None)
-    y = np.empty_like(flat)
-    y[t[valid]] = res[valid]
-    return y.reshape(x.shape)
 
 
 def outer_pass(v, primes, log_r, i0, k, inverse, negacyclic, st, scale=True):

@@ -6,6 +6,8 @@ without one.  This file imports no jax, so it also runs on a machine with
 only PyTorch:  python -m pytest --noconftest -o addopts="" tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -70,16 +72,51 @@ def test_cta_orders_equal_twin(cuda, inverse, negacyclic, order):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 3])
+@pytest.mark.parametrize("order", cuda_ntt.CTA_ORDERS)
+@pytest.mark.parametrize("M", [16, 32, 64, 512, 1024, 2048, 16384, 32768])
+def test_kernel_edges_equal_twin(cuda, M, order, S):
+    """The schedule's edges: M = 16 (a thread holds a whole transform, one
+    pass), 32 (one warp-wide group of 16-byte loads and stores), 64 (the
+    top pass at distance 2, a one-stage last pass), 512 (the last size
+    without the transposing copy), 1024 (the first with it and the last
+    without a CTA-wide barrier), 2048 (the first with one), 16384 (two
+    groups a thread, the second copied ahead with cp.async) and 32768 (one
+    CTA of 512 threads a SM), on the split's [rows, L, S, M] view,
+    with the last tile part-full, all four modes and the cyclic inverse
+    unscaled."""
+    primes = tuple(find_ntt_primes(2, 2 * M))
+    geo = cuda_ntt.geometry(M)
+    rows = (3 * geo.tile_tf) // (2 * S) + 1
+    x = _residues(primes, M * S, rows, cuda, seed=M + S).reshape(rows, 2, S, M)
+    for negacyclic in (False, True):
+        plan = tntt.get_plan(primes, M, negacyclic=negacyclic)
+        flat = x.transpose(1, 2).reshape(rows * S, 2, M)  # each (row, s) one transform row
+        for inverse in (False, True):
+            want = tntt.PLAIN_TWINS[(inverse, negacyclic)](flat, plan)
+            want = want.reshape(rows, S, 2, M).transpose(1, 2).contiguous()
+            y = torch.empty_like(x)
+            cuda_ntt._launch(x, y, primes, M, inverse, negacyclic, rows, S=S, order=order)
+            assert torch.equal(y, want), (negacyclic, inverse)
+    plan = tntt.get_plan(primes, M)
+    y = torch.empty_like(x)
+    cuda_ntt._launch(x, y, primes, M, True, False, rows, S=S, scale=False, order=order)
+    want = tntt.cyclic_intt_nat_plain(x.transpose(1, 2).reshape(rows * S, 2, M), plan,
+                                      scale=False)
+    assert torch.equal(y, want.reshape(rows, S, 2, M).transpose(1, 2).contiguous())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("M", [256, 4096, 8192, 16384, 32768])
 @pytest.mark.parametrize("order", cuda_ntt.CTA_ORDERS)
 def test_persistent_tiles_equal_twin(cuda, order, M):
-    """More tiles than the card has CTA slots (two a SM up to M = 16384, one
-    at 32768), so every persistent CTA walks three tiles or more: the walk,
-    the prefetch into the second buffer (M <= 8192) and the refill of the
-    one buffer (16384, 32768), in both CTA orders and all four modes, with
-    the last tile part-full where a tile holds several transforms."""
+    """More tiles than the card has CTA slots (at most 2048 threads a SM),
+    so every persistent CTA walks three tiles or more and reuses its shared
+    memory (a CTA-wide barrier between tiles from M = 2048, the warp's own
+    words below), in both CTA orders and all four modes, with the last tile
+    part-full where a tile holds several transforms."""
     geo = cuda_ntt.geometry(M)
-    slots = 2 * torch.cuda.get_device_properties(cuda).multi_processor_count
+    slots = (2048 // geo.threads) * torch.cuda.get_device_properties(cuda).multi_processor_count
     nt = geo.tile_tf * (3 * slots + 1) + geo.tile_tf // 2 + 1
     primes = tuple(find_ntt_primes(2, 1 << 16))
     x = _residues(primes, M, -(-nt // 2), cuda, seed=M + 1)
@@ -122,17 +159,16 @@ def test_split_kernel_equals_plain(cuda, M, inverse, negacyclic):
 
 @pytest.mark.gpu
 def test_refused_launch_raises(cuda, monkeypatch):
-    """A launch the library refuses (here a CTA wider than the kernel's 512
-    threads) raises and counts nothing; nothing falls back, and the refusal
-    does not leak into the next launch."""
+    """A launch the library refuses (here a CTA of 1024 threads, not the
+    kernel's 256) raises and counts nothing; nothing falls back, and the
+    refusal does not leak into the next launch."""
     primes = tuple(find_ntt_primes(1, 1 << 15))
     plan = tntt.get_plan(primes, 16384)
     x = _residues(primes, 16384, 2, cuda)
     geo = cuda_ntt.geometry(16384)
     before = dict(cuda_ntt.launch_counts)
     with monkeypatch.context() as m:
-        m.setattr(cuda_ntt, "geometry",
-                  lambda M: cuda_ntt.Geometry(geo.log_e, 1024, geo.tile_tf, geo.nbuf, M))
+        m.setattr(cuda_ntt, "geometry", lambda M: dataclasses.replace(geo, threads=1024, M=M))
         with pytest.raises(RuntimeError, match="launch failed"):
             cuda_ntt.ntt(x, plan, False, False)
     assert cuda_ntt.launch_counts == before

@@ -110,16 +110,41 @@ def test_kernel_tables_replayed_match_twin(M, mode):
 
 
 @pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("M", [1 << k for k in range(1, 16)])
+def test_kernel_replayed_every_size_matches_jax(M, mode):
+    """Every size the kernel takes, 2 .. 32768, replayed from the wrapper's
+    own tables and geometry (the merged-psi twiddles, the passes, each
+    thread's groups, the first pass straight from device memory, the
+    transposing copy) equals the JAX package's transform bit for bit, in
+    both CTA orders, on a batch whose last tile is part-full; the cyclic
+    inverse also without M^-1."""
+    inverse, nega = mode.endswith("inv"), mode.startswith("nega")
+    primes = tuple(find_ntt_primes(2, 2 * M))
+    x = _residues(primes, M, 2 + 300 // M, seed=M + 7)
+    want = np.asarray(JAX_FN[mode](jnp.asarray(x), jntt.get_plan(primes, M, negacyclic=nega)))
+    for limb_major in (False, True):
+        got = ntt_replay.ntt_kernel(x, primes, M, inverse, nega, limb_major=limb_major)
+        assert np.array_equal(got.astype(np.uint32), want), limb_major
+    if mode == "cyclic_inv":
+        tplan = tntt.get_plan(primes, M)
+        got = ntt_replay.ntt_kernel(x, primes, M, True, False, scale=False)
+        unscaled = _u32(tntt.cyclic_intt_nat_plain(_t(x), tplan, scale=False))
+        assert np.array_equal(got.astype(np.uint32), unscaled)
+        p = np.asarray(primes, np.uint64)[:, None]
+        assert np.array_equal(got * tplan.minv.astype(np.uint64) % p, want)
+
+
+@pytest.mark.parametrize("mode", MODES)
 def test_register_radix_replayed_at_16384(mode):
-    """E = 16 at the main path's N' = 16384, one limb: the top pass of two
-    stages and three full passes of four, 256 threads of four groups each,
-    one buffer (two CTAs a SM)."""
+    """E = 32 at the main path's N' = 16384, one limb: the top pass of five
+    stages straight from device memory, four more at distance 32 and five at
+    distance 1, 256 threads of two groups each, one transform a tile."""
     inverse, nega = mode.endswith("inv"), mode.startswith("nega")
     M = 16384
     geo = cuda_ntt.geometry(M)
-    assert (geo.log_e, geo.threads, geo.tile_tf, geo.nbuf) == (4, 256, 1, 1)
+    assert (geo.log_e, geo.threads, geo.tile_tf, geo.iters, geo.min_ctas) == (5, 256, 1, 2, 2)
     assert cuda_ntt.kernel_passes(M, inverse) == (
-        [(0, 0), (4, 0), (8, 0), (10, 2)] if inverse else [(10, 2), (8, 0), (4, 0), (0, 0)])
+        [(0, 5), (5, 4), (9, 5)] if inverse else [(9, 5), (5, 4), (0, 5)])
     primes = tuple(find_ntt_primes(1, 1 << 15))
     x = _residues(primes, M, 3, seed=16)
     got = ntt_replay.ntt_kernel(x, primes, M, inverse, nega)
@@ -127,28 +152,31 @@ def test_register_radix_replayed_at_16384(mode):
     assert np.array_equal(got.astype(np.uint32), want)
 
 
-@pytest.mark.parametrize("M", [8192, 16384, 32768])
+@pytest.mark.parametrize("M", [1024, 2048, 4096, 8192, 16384, 32768])
 def test_exchanges_free_of_bank_conflicts(M):
-    """Every warp access of every pass (fixed register j, 32 consecutive
-    threads) hits 32 distinct banks of the swizzled layout; the swizzle is
-    a permutation of each 32-word row and linear over GF(2), which the
-    kernel's swz(A) ^ swz(j << log_d) addressing relies on."""
+    """Every warp access to shared memory from M = 1024 up hits every bank
+    once: a word a lane (32 distinct banks), or a 16-byte vector a lane
+    (each quarter warp, which the card serves at once, on eight distinct
+    aligned groups of four banks, the vector's words in a row); the swizzle
+    is a permutation of each 32-word row and linear over GF(2), which the
+    kernel's swz(a0) ^ swz(j << d) addressing relies on."""
     a = np.arange(M)
     assert np.array_equal(np.sort(cuda_ntt.swizzle(a).reshape(-1, 32), axis=1),
                           a.reshape(-1, 32))
     b = np.random.default_rng(M).integers(0, M, M)
     assert np.array_equal(cuda_ntt.swizzle(a ^ b), cuda_ntt.swizzle(a) ^ cuda_ntt.swizzle(b))
-    log_m = M.bit_length() - 1
-    G = M >> 4
-    g = np.arange(G)
-    for inverse in (False, True):
-        for log_d, _ in cuda_ntt.kernel_passes(M, inverse):
-            lo = g & ((1 << log_d) - 1)
-            base = ((g >> log_d) << (log_d + 4)) | lo
-            for j in range(16):
-                banks = (cuda_ntt.swizzle(base + (j << log_d)) & 31).reshape(-1, 32)
-                assert all(len(set(w)) == 32 for w in banks), (M, inverse, log_d, j)
-    assert log_m >= 13
+    labels = []
+    for label, width, words in ntt_replay.smem_accesses(M):
+        labels.append(label)
+        phys = cuda_ntt.swizzle(words)
+        if width == 1:
+            assert all(len(set(w)) == 32 for w in phys & 31), (M, label)
+            continue
+        for k in range(4):  # a vector's words stay in a row
+            assert np.array_equal(cuda_ntt.swizzle(words + k), phys + k), (M, label)
+        quarters = (phys >> 2).reshape(-1, 4, 8) & 7
+        assert all(len(set(q)) == 8 for q in quarters.reshape(-1, 8)), (M, label)
+    assert labels[-1] == "transpose" and "pass d=0" in labels
 
 
 def test_modops_near_2_31():

@@ -173,19 +173,57 @@ SASS = """
 
 def test_sass_mix_reads_kernels_and_loops():
     """scripts/sass_mix on a listing in cuobjdump's form: the kernels it
-    reads by name and template arguments (not the NTT's), the innermost
+    reads by name and template arguments (the NTT's too), the innermost
     loop of a backward branch (not the trap that branches to itself), the
     instructions by pipe, rotations and stores."""
     from ringsnark_tpu_torch.scripts import sass_mix
 
     funcs = sass_mix.functions(SASS)
-    assert list(funcs) == ["encrypt_kernel<0>"]
+    assert list(funcs) == ["encrypt_kernel<0>", "ntt_kernel<1>"]
+    assert sass_mix.ntt_parts("ntt_kernel<1>", funcs["ntt_kernel<1>"])["loops"] == []
     insns = funcs["encrypt_kernel<0>"]
     assert sass_mix.innermost_loops(insns) == [(0x30, 0x80)]
     loop = sass_mix.mix([(a, t) for a, t in insns if 0x30 <= a <= 0x80])
     assert loop == {"instructions": 6, "alu": 2, "fma": 1, "xu": 1, "mem": 1, "uniform": 0,
                     "control": 1, "other": 0, "rotations": 1, "stores": 1}
     assert sass_mix.mix(insns)["instructions"] == 11
+
+
+NTT_SASS = """
+        Function : _ZN38_GLOBAL__N__e8257140_6_ntt_cu_650b0a3510ntt_kernelILb0ELi14EEEvPKj
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   LDG.E.EF R4, desc[UR4][R2.64] ;
+        /*0020*/                   LDG.E.128.CONSTANT R8, desc[UR4][R6.64] ;
+        /*0030*/                   IMAD.HI.U32 R5, R4, R9, RZ ;
+        /*0040*/                   VIMNMX.U32 R5, R5, R4, PT ;
+        /*0050*/                   STS [R12], R5 ;
+        /*0060*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0070*/                   LDS.128 R12, [R13] ;
+        /*0080*/                   STS.128 [R13], R12 ;
+        /*0090*/                   SHFL.BFLY PT, R5, R5, 0x1, 0x1f ;
+        /*00a0*/                   STG.E.EF.128 desc[UR4][R2.64], R12 ;
+        /*00b0*/               @P0 BRA 0x10 ;
+        /*00c0*/                   EXIT ;
+"""
+
+
+def test_sass_mix_reads_the_ntt_kernel():
+    """scripts/sass_mix's NTT report: each loop's shared and global loads
+    and stores as instructions and 32-bit words (a 128-bit access moves
+    four), barriers and shuffles, per residue of a pass, the residues being
+    the words the pass stores to device memory."""
+    from ringsnark_tpu_torch.scripts import sass_mix
+
+    funcs = sass_mix.functions(NTT_SASS)
+    assert list(funcs) == ["ntt_kernel<0,14>"]
+    parts = sass_mix.ntt_parts("ntt_kernel<0,14>", funcs["ntt_kernel<0,14>"])
+    assert parts["kernel"] == {"lds": 1, "lds_words": 4, "sts": 2, "sts_words": 5, "ldg": 2,
+                               "ldg_words": 5, "stg": 1, "stg_words": 4, "bar": 1, "shfl": 1}
+    (loop,) = parts["loops"]
+    assert (loop["first"], loop["last"], loop["residues"]) == ("0x10", "0xb0", 4)
+    assert loop["per_residue"]["instructions"] == 11 / 4
+    assert loop["per_residue"]["fma"] == 1 / 4 and loop["per_residue"]["alu"] == 1 / 4
+    assert sass_mix.ntt_parts("lift_kernel<1,0>", funcs["ntt_kernel<0,14>"]) == {}
 
 
 def _lift_sass() -> str:
