@@ -206,8 +206,8 @@ negacyclic entries carry 14a's numbers under `north_star`; the PRNG
 kernels as `prng_<kernel>`, with every phase-2d shape under `shapes`; the
 MAC kernels as `mac` and `mac_drawn`, with every phase-2e shape; the
 witness map's as `spmv` and `mulmod`, with every phase-2f shape; `spmv`
-counts calls, `merge_launches` those of `spmv_merge_kernel`, whose time is
-inside `spmv`'s),
+counts calls, one launch each, every matrix of a call and its long rows
+inside it),
 errors, times (`ms`: CUDA events around eager calls, the host's wrapper
 in them, in every phase, one call after an L2 eviction in 2f; `graph_ms`:
 the device alone, from a replayed
@@ -1357,27 +1357,89 @@ SMALL_WITNESS_SHAPES = {
 SPMV_TERM = MAC_OPERAND + SHOUP + ADD_MOD
 
 
+def spmv_cases(small: bool):
+    """Phase 2f's `spmv` shapes, one at a time: (label, the kernel's call,
+    its plain version, ops, bytes).  A and B (or A, B and C) of a system
+    over its window, the matrices in one call, one launch, as the map runs
+    them; their data freed when the next is made.  The bytes are what the
+    function needs, whatever the CSR stores: the assignment rows the call
+    gathers, each read once for all its matrices (A and B of the squaring
+    chain gather the same columns), every matrix's coefficients, an int32
+    index a nonzero and a pointer a row, and the outputs written once."""
+    from ringsnark_tpu_torch.models.synthetic import build_synthetic_square_chain
+    from ringsnark_tpu_torch.ops import cuda_witness
+
+    def case(label, comp, blocks, rows, lo, width, slot_major, which=(0, 1),
+             transposed=False):
+        L = comp.ctx.L
+        n = max([b.shape[-1] for b in blocks] + [comp.coeffs[w].shape[-1] for w in which])
+        n = n if width is None else (width if n > 1 else 1)
+        # the CSRs derived before the timed calls (the transposed one is
+        # derived a setup and dropped; no read of the card in a CUDA graph)
+        plans = [(csr, comp.csr_coeffs(w, csr)) for w, csr in
+                 ((w, comp.csr(w, transposed)) for w in which)]
+        cols = torch.unique(torch.cat([csr.idx for csr, _ in plans])).numel()
+        nbytes, ops = 4 * cols * L * n, Ops()
+        for csr, coeffs in plans:
+            nnz, nc = csr.idx.numel(), coeffs.shape[-1]
+            nbytes += (4 * (nnz * L * (n if nc > 1 else 1) + rows * L * n)
+                       + 4 * nnz + 4 * (csr.rows + 1))
+            ops = ops + nnz * L * n * SPMV_TERM
+        return (label,
+                lambda: cuda_witness.spmv(plans, blocks, comp.ctx.primes, rows, lo, n, slot_major),
+                lambda: tuple(comp._evaluate_plain(blocks, rows, w, lo, width, slot_major,
+                                                   transposed) for w in which), ops, nbytes)
+
+    for name, (make, log_m, width) in (SMALL_WITNESS_SHAPES if small
+                                       else WITNESS_SHAPES).items():
+        params = make()
+        ring, M = params.ring, 1 << log_m
+        comp, primary, aux = build_synthetic_square_chain(ring, M, np.random.default_rng(5))
+        blocks = (torch.ones((1, ring.L, 1), dtype=torch.int32, device="cuda"), primary.res,
+                  aux.res)
+        n = ring.N
+        yield case(f"{name} A, B [{M}, {ring.L}, {min(n, width)}] of {n} slots, slot-major",
+                   comp, blocks, M, 0, None if n <= width else width, True)
+        if name == "north_star":
+            gen = torch.Generator(device="cuda").manual_seed(6)
+            u = torch.cat([torch.randint(0, p, (M, 1, 1), generator=gen, dtype=torch.int32,
+                                         device="cuda") for p in ring.primes], dim=1)
+            yield case(f"{name} instance map A, B, C at n = 1, transposed", comp, (u,),
+                       comp.num_variables + 1, 0, None, False, (0, 1, 2), True)
+        del comp, primary, aux, blocks
+        torch.cuda.empty_cache()
+
+    cfg = (SMALL_CIRCUITS if small else REFERENCE_CIRCUITS)["logreg"]
+    ring = make_circuit_params(cfg, "cuda").ring
+    pb = build_circuit("logreg", cfg, ring, 7)
+    comp, z = pb.compile(), pb.full_assignment_batch().res
+    from ringsnark_tpu_torch.utils.domain import RootsDomain
+
+    M = RootsDomain(ring, comp.num_constraints).m
+    width = min(1024, ring.N)
+    yield case(f"logreg A, B, C [{M}, {ring.L}, {width}] of {ring.N} slots, slot-major", comp,
+               (z,), M, 0, width if ring.N > width else None, True, (0, 1, 2))
+
+
 def witness_vs_plain(small: bool) -> dict:
     """Phase 2f: `spmv` and `mulmod` (csrc/witness.cu) == their plain
     versions (the int64 `spmv` with the assignment's concatenation and the
     layout's copy, `modops.mul_mod` / `add_mod`) on the same inputs (max abs
-    err 0) at the shapes the paths give them: A and B of the north star's
-    slot chunk (the squaring chain, [2^18, 1, 1024] slot-major) and of the
-    seeded shape ([2^16, 1, 1024]), Z_q's ([2^18, 3, 1]), logistic
-    regression's system at its published shape (a window of 1024 of its
-    2048 slots), the transposed instance map at n = 1 (the north star's
-    system); the size-2M product [1024, 1, 2^19] in place, the ZK patch
-    (b constant along the slots, + c) at Rinocchio's [1024, 1, 2^16] and
-    Z_q's product [1, 3, 2^19].  Each timed with the L2 evicted before
+    err 0) at the shapes the paths give them (`spmv_cases`): A and B of the
+    north star's slot chunk (the squaring chain, [2^18, 1, 1024] slot-major)
+    and of the seeded shape ([2^16, 1, 1024]), Z_q's ([2^18, 3, 1]),
+    logistic regression's system at its published shape (a window of 1024
+    of its 2048 slots), the transposed instance map at n = 1 (the north
+    star's system); the size-2M product [1024, 1, 2^19] in place, the ZK
+    patch (b constant along the slots, + c) at Rinocchio's [1024, 1, 2^16]
+    and Z_q's product [1, 3, 2^19].  Each timed with the L2 evicted before
     every call (`cold_ms`: eager with the host wrapper, and as a CUDA
     graph), so the bytes' bound is a floor at the shapes that fit the L2,
     beside its bound (`prng_bound`: the bytes the function needs, each input
-    read once and the output written once, at 3.35 TB/s (for `spmv` an
-    int32 index a nonzero and a pointer a row, whatever the CSR stores), or
-    the terms' operations) and the plain version's time; library call: none
-    (no PyTorch call computes sum c * z mod p).  Launches made here are not
-    a path's."""
-    from ringsnark_tpu_torch.models.synthetic import build_synthetic_square_chain
+    read once and the output written once, at 3.35 TB/s, or the terms'
+    operations) and the plain version's time; library call: none (no
+    PyTorch call computes sum c * z mod p).  Launches made here are not a
+    path's."""
     from ringsnark_tpu_torch.ops import cuda_witness
     from ringsnark_tpu_torch.ops.modops import add_mod, mul_mod
 
@@ -1404,61 +1466,9 @@ def witness_vs_plain(small: bool) -> dict:
               f"plain {pms:.4f} ms, bound {bms:.4f} ms by {by} ({100 * bms / ms:.1f} %; "
               f"graph {100 * bms / gms:.1f} %); library call: none", flush=True)
 
-    def spmv_case(label, comp, blocks, rows, lo, width, slot_major, which=(0, 1),
-                  transposed=False):
-        """A and B (or `which`) of `comp` over the window, both matrices in
-        one timed call, as the map runs them."""
-        L = comp.ctx.L
-        n = max([b.shape[-1] for b in blocks] + [comp.coeffs[w].shape[-1] for w in which])
-        n = n if width is None else (width if n > 1 else 1)
-        # the CSRs derived before the timed calls (the transposed one is
-        # derived a setup and dropped; no read of the card in a CUDA graph)
-        plans = [(csr, comp.csr_coeffs(w, csr)) for w, csr in
-                 ((w, comp.csr(w, transposed)) for w in which)]
-        nbytes, ops = 0, Ops()
-        for csr, coeffs in plans:  # what the sum needs, whatever the CSR stores
-            nnz, nc = csr.idx.numel(), coeffs.shape[-1]
-            cols = torch.unique(csr.idx).numel()  # the assignment rows it reads
-            nbytes += (4 * (cols * L * n + nnz * L * (n if nc > 1 else 1) + rows * L * n)
-                       + 4 * nnz + 4 * (csr.rows + 1))  # an int32 index a nonzero, a pointer a row
-            ops = ops + nnz * L * n * SPMV_TERM
-        hold("spmv", label,
-             lambda: tuple(cuda_witness.spmv(csr, coeffs, blocks, comp.ctx.primes, rows, lo, n,
-                                             slot_major) for csr, coeffs in plans),
-             lambda: tuple(comp._evaluate_plain(blocks, rows, w, lo, width, slot_major,
-                                                transposed) for w in which), ops, nbytes)
-
-    for name, (make, log_m, width) in (SMALL_WITNESS_SHAPES if small
-                                       else WITNESS_SHAPES).items():
-        params = make()
-        ring, M = params.ring, 1 << log_m
-        comp, primary, aux = build_synthetic_square_chain(ring, M, np.random.default_rng(5))
-        blocks = (torch.ones((1, ring.L, 1), dtype=torch.int32, device="cuda"), primary.res,
-                  aux.res)
-        n = ring.N
-        win = None if n <= width else width
-        spmv_case(f"{name} A, B [{M}, {ring.L}, {min(n, width)}] of {n} slots, slot-major",
-                  comp, blocks, M, 0, win, True)
-        if name == "north_star":
-            gen = torch.Generator(device="cuda").manual_seed(6)
-            u = torch.cat([torch.randint(0, p, (M, 1, 1), generator=gen, dtype=torch.int32,
-                                         device="cuda") for p in ring.primes], dim=1)
-            spmv_case(f"{name} instance map A, B, C at n = 1, transposed", comp, (u,),
-                      comp.num_variables + 1, 0, None, False, (0, 1, 2), True)
-        del comp, primary, aux, blocks
-        torch.cuda.empty_cache()
-
-    cfg = (SMALL_CIRCUITS if small else REFERENCE_CIRCUITS)["logreg"]
-    ring = make_circuit_params(cfg, "cuda").ring
-    pb = build_circuit("logreg", cfg, ring, 7)
-    comp, z = pb.compile(), pb.full_assignment_batch().res
-    from ringsnark_tpu_torch.utils.domain import RootsDomain
-
-    M = RootsDomain(ring, comp.num_constraints).m
-    width = min(1024, ring.N)
-    spmv_case(f"logreg A, B, C [{M}, {ring.L}, {width}] of {ring.N} slots, slot-major", comp,
-              (z,), M, 0, width if ring.N > width else None, True, (0, 1, 2))
-    del pb, comp, z
+    for case in spmv_cases(small):
+        hold("spmv", *case)
+        del case  # its tensors go before the next case's are made
 
     gen = torch.Generator(device="cuda").manual_seed(8)
     for label, make, shape, b_shape, add in (
@@ -2678,10 +2688,6 @@ def run_phases(args, cfgs, params_all, report, split_report, prng_report, more_r
         # no PyTorch call computes sum (c * z mod p) nor a * b mod p: library_ms is null
         {"name": k, "route": "cuda", "source": WITNESS_SOURCE, "replaces": WITNESS_REPLACES[k],
          "launches": sum(by_path[k].values()), "launches_by_path": by_path[k],
-         # spmv counts its calls; spmv_merge_kernel's launches (calls that cut
-         # a row into segments) beside them, its time inside spmv's
-         **({"merge_launches": sum(by_path["spmv_merge"].values()),
-             "merge_launches_by_path": by_path["spmv_merge"]} if k == "spmv" else {}),
          **{key: witness_report[k][key] for key in ("max_abs_err", "ms", "graph_ms",
                                                      "plain_ms", "bound_ms", "bound_by",
                                                      "share_of_bound", "graph_share_of_bound",

@@ -5,7 +5,8 @@ chip_smoke's kernel phases alone.
     python3 profile_torch_witness.py                     # all four shapes
     python3 profile_torch_witness.py --only north_star seeded
     python3 profile_torch_witness.py --kernels [2 2b 2c 2d 2e 2f] [--sass] [--out FILE]
-    python3 profile_torch_witness.py --ntt-times [--out FILE]
+    python3 profile_torch_witness.py --times {2,2f} [--out FILE]
+    python3 profile_torch_witness.py --peak CELL [--out FILE]
     python3 profile_torch_witness.py --setup             # CSR derivation in setups
     python3 profile_torch_witness.py --row-lengths [--small]   # CPU, no GPU
 
@@ -43,13 +44,24 @@ beside each package; parent, change, change, parent in one call).  With
 `--sass`, first the build's ptxas lines (registers, spills) and
 `scripts/sass_mix`'s instruction counts for the hash kernels and the NTT
 (`SASS`; needs `cuobjdump`).
-`--ntt-times`: the NTT kernel alone, timed and not compared with anything:
-every mode at phase 2's shapes and the north star's [32, 6, 8192], and the
-split at the streamed witness map's 2^19 forward and 2^18 inverse, eagerly
-(CUDA events around 20 calls) and from a replayed CUDA graph, beside the
-bound (`chip_smoke.ntt_bound`); one JSON line.  It times a build whose
-kernel was cut down on purpose (no butterflies, no barriers, ...) as it
-times the whole kernel.
+`--times PHASE`: one kernel alone, timed and not compared with anything,
+so a build whose kernel was cut down on purpose (no butterflies, no
+gathers, no store, ...) times as the whole kernel does; one JSON line.
+Phase 2, the NTT kernel: every mode at phase 2's shapes and the north
+star's [32, 6, 8192], and the split at the streamed witness map's 2^19
+forward and 2^18 inverse, eagerly (CUDA events around 20 calls) and from a
+replayed CUDA graph, beside the bound (`chip_smoke.ntt_bound`).  Phase 2f,
+`spmv` at `chip_smoke.spmv_cases`' shapes, timed as phase 2f times it
+(eager and as a CUDA graph, each call after an L2 eviction) beside the
+same bound.
+`--peak CELL`: one run of the benchmark's cell (`bench_torch.run.run`, as
+`python3 -m bench_torch.run --cell CELL` runs it) under the allocator's
+history (`torch.cuda.memory._record_memory_history`): `peak_gib` (bytes
+allocated, the blocks the caching allocator handed out) beside the peak of
+the bytes requested, and at the moment the history's live blocks peak,
+those blocks summed by the port's innermost frame that allocated them
+(file:line and function), the largest first; one JSON line.  Two trees'
+lines, diffed, say which allocations a change moved.
 `--setup`: the resident cell's setup (`rq8192_g16_resident_2e14`, as
 `bench_torch.run` times it, each from a freed card) three times in one
 process, the first cold, with the time of every `relations.r1cs.derive_csr`
@@ -61,7 +73,8 @@ are, on the CPU: for the five circuits of `models/` at their published
 shapes (`--small`: test sizes) and the benchmark's squaring chain, each
 matrix's row lengths (nonzeros per constraint) and its transposed ones
 (per variable: the instance map's rows), binned by powers of two, with the
-segment length and the long rows that `derive_csr` cuts.
+long-row length and the rows that `derive_csr` lists as long (each a work
+item of its own in `spmv_kernel`).
 """
 
 from __future__ import annotations
@@ -81,6 +94,7 @@ OUT = Path(__file__).resolve().parent / "chiprun_out" / "profile_witness.json"
 PHASES = {"2d": ("prng", "prng_vs_plain"), "2e": ("mac", "mac_vs_plain"),
           "2f": ("witness", "witness_vs_plain")}
 NTT_PHASES = ("2", "2b", "2c")
+TIMES = ("2", "2f")  # --times: the NTT kernel, spmv
 # the kernels that hash, and the NTT
 SASS = ("lift_kernel", "encrypt_kernel", "mac_drawn_kernel", "ntt_kernel")
 
@@ -156,7 +170,7 @@ def ntt_phases(phases) -> dict:
 
 
 def ntt_times(iters: int = 20) -> list:
-    """The rows of `--ntt-times` (module docstring)."""
+    """The rows of `--times 2` (module docstring)."""
     import chip_smoke
     from ringsnark_tpu_torch.ops import cuda_ntt
     from ringsnark_tpu_torch.ops import ntt as nttm
@@ -200,6 +214,73 @@ def ntt_times(iters: int = 20) -> list:
         del x
     torch.cuda.empty_cache()
     return out
+
+
+def spmv_times() -> list:
+    """The rows of `--times 2f` (module docstring)."""
+    import chip_smoke
+
+    chip_smoke.build_kernels()
+    out = []
+    for label, fn, _, ops, nbytes in chip_smoke.spmv_cases(False):
+        ms, gms = chip_smoke.cold_ms(fn, False), chip_smoke.cold_ms(fn, True)
+        bms, by = chip_smoke.prng_bound(ops, nbytes)
+        out.append(dict(shape=label, ms=ms, graph_ms=gms, bound_ms=bms, bound_by=by,
+                        share_of_bound=bms / ms, graph_share_of_bound=bms / gms))
+        print(f"spmv {label:62s} {ms:.4f} ms (graph {gms:.4f}), bound {bms:.4f} ms by {by}: "
+              f"{100 * bms / ms:.1f} % (graph {100 * bms / gms:.1f} %)", flush=True)
+        del fn
+    return out
+
+
+def _frame(frames) -> str:
+    """The innermost frame of the port (or of the benchmark) in `frames`."""
+    for f in frames:
+        name = f.get("filename", "")
+        if "ringsnark_tpu_torch" in name or "bench_torch" in name:
+            return f"{name.split('ringsnark_tpu_torch/')[-1]}:{f['line']} {f['name']}"
+    return "other"
+
+
+def peak(cell: str, top: int = 40) -> dict:
+    """The row of `--peak CELL` (module docstring)."""
+    from bench_torch import run
+
+    torch.cuda.memory._record_memory_history(max_entries=4_000_000, stacks="python")
+    try:
+        row = run.run(cell)
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    stats = torch.cuda.memory_stats()
+    events = snap["device_traces"][0] if snap["device_traces"] else []
+
+    def replay(stop=None):
+        """(live blocks after event `stop`, the peak of their bytes, its event)."""
+        live, size, best, at = {}, 0, -1, -1
+        for j, e in enumerate(events):
+            if e["action"] == "alloc":
+                live[e["addr"]] = (e["size"], e["frames"])
+                size += e["size"]
+            elif e["action"] == "free_completed" and e["addr"] in live:
+                size -= live.pop(e["addr"])[0]
+            if size > best:
+                best, at = size, j
+            if j == stop:
+                break
+        return live, best, at
+
+    _, best, at = replay()
+    groups = {}
+    for nbytes, frames in replay(at)[0].values():
+        g = groups.setdefault(_frame(frames), [0, 0])
+        g[0] += nbytes
+        g[1] += 1
+    return {"cell": cell, "peak_gib": row["peak_gib"], "correct": row["correct"],
+            "allocated_peak": stats["allocated_bytes.all.peak"],
+            "requested_peak": stats["requested_bytes.all.peak"],
+            "history_events": len(events), "history_peak": best,
+            "at_peak": sorted(([k, *v] for k, v in groups.items()), key=lambda g: -g[1])[:top]}
 
 
 def _setup(name: str):
@@ -351,7 +432,7 @@ def histogram(lengths: torch.Tensor) -> dict:
 
 def row_lengths(name: str, comp) -> dict:
     """The row-length histograms of every matrix of `comp`, both
-    orientations, with what derive_csr cuts."""
+    orientations, with the rows derive_csr lists as long."""
     row = {"system": name, "constraints": comp.num_constraints,
            "variables": comp.num_variables}
     for w, m in enumerate("ABC"):
@@ -361,9 +442,8 @@ def row_lengths(name: str, comp) -> dict:
             lengths = torch.zeros(n_out, dtype=torch.int64)
             lengths[:csr.rows] = 1 if csr.unit else (csr.ptr[1:] - csr.ptr[:-1]).to(torch.int64)
             row[f"{m}{'^T' if transposed else ''}"] = {
-                "nnz": int(csr.idx.numel()), "longest": csr.max_len, "seg_len": csr.seg_len,
-                "long_rows": csr.nlong, "segments": int(csr.seg.shape[0]),
-                "histogram": histogram(lengths)}
+                "nnz": int(csr.idx.numel()), "longest": csr.max_len, "long_len": csr.long_len,
+                "long_rows": csr.nlong, "histogram": histogram(lengths)}
     return row
 
 
@@ -413,12 +493,14 @@ def main(argv=None) -> int:
     mode.add_argument("--kernels", nargs="*", choices=sorted(PHASES) + list(NTT_PHASES),
                       metavar="PHASE", help="chip_smoke's kernel phases alone: 2, 2b, 2c, 2d, "
                       "2e, 2f (all where none)")
-    mode.add_argument("--ntt-times", action="store_true", help="the NTT kernel timed alone")
+    mode.add_argument("--times", choices=TIMES, metavar="PHASE",
+                      help="one kernel timed alone: 2 (the NTT), 2f (spmv)")
+    mode.add_argument("--peak", metavar="CELL", help="a cell's run under the allocator's history")
     mode.add_argument("--setup", action="store_true", help="derive_csr in resident setups")
     mode.add_argument("--row-lengths", action="store_true", help="row-length histograms (CPU)")
     ap.add_argument("--small", action="store_true", help="--row-lengths at test sizes")
     ap.add_argument("--sass", action="store_true", help="--kernels: the hash kernels' SASS")
-    ap.add_argument("--out", help="--kernels, --ntt-times: also write the JSON here")
+    ap.add_argument("--out", help="--kernels, --times, --peak: also write the JSON here")
     args = ap.parse_args(argv)
     if args.row_lengths:
         for row in all_row_lengths(args.small):
@@ -430,9 +512,14 @@ def main(argv=None) -> int:
     import chip_smoke
 
     print(f"gpu: {chip_smoke.gpu_line()}", flush=True)
-    if args.kernels is not None or args.ntt_times:
-        if args.ntt_times:
-            text = json.dumps({"gpu": chip_smoke.gpu_line(), "ntt_times": ntt_times()})
+    if args.kernels is not None or args.times or args.peak:
+        from ringsnark_tpu_torch.ops import cuda_ntt
+
+        head = {"gpu": chip_smoke.gpu_line(), "tree": str(cuda_ntt.__file__)}
+        if args.times:
+            text = json.dumps(dict(head, times=ntt_times() if args.times == "2" else spmv_times()))
+        elif args.peak:
+            text = json.dumps(dict(head, **peak(args.peak)))
         else:
             text = json.dumps(kernels(args.kernels or list(NTT_PHASES) + sorted(PHASES),
                                       args.sass))

@@ -1,7 +1,7 @@
 // The witness map's two kernels for Hopper (sm_90a): the constraint
 // evaluations A.z, B.z, C.z as a sparse matrix-vector product over the slots
-// (spmv_kernel, with spmv_merge_kernel for rows split into segments), and
-// the pointwise product y = a * b (+ c) mod p_l (mulmod_kernel).
+// (spmv_kernel, every matrix of a call in one launch), and the pointwise
+// product y = a * b (+ c) mod p_l (mulmod_kernel).
 //
 // Replaces no TPU kernel: the JAX package computes both with XLA, no
 // pl.pallas_call stands behind them.  spmv_kernel is the counterpart of
@@ -13,24 +13,21 @@
 // spmv, ops/modops.py: mul_mod, add_mod), which stay as their plain versions
 // on the CPU.
 //
-// spmv_kernel: out[r, l, i] = sum over the nonzeros k of row r of coef[k, l,
-// i or 0] * z[idx[k], l, i] mod p_l, for the output rows r < rows (rows past
-// the CSR's are zero).  The CSR (int32 row pointers, the int64 gather
-// indices in row order, each row's first index again by row; none of it
-// where every row is one nonzero, `unit`) is derived once per compiled
+// spmv_kernel: for each of up to kMaxMats matrices m, out_m[r, l, i] = sum
+// over the nonzeros k of row r of coef_m[k, l, i or 0] * z[idx_m[k], l, i]
+// mod p_l, for the output rows r < rows (rows past the CSR's are zero).  The
+// CSR (int32 row pointers, the int64 gather indices in row order, each row's
+// first index again by row, the rows longer than long_len; none of the first
+// three where every row is one nonzero, `unit`) is derived once per compiled
 // system by relations/r1cs.py, which checks every index there; where the
 // system's COO is already in row order (as `compile` and the models emit
 // it) the indices and the coefficients are the COO's own tensors, read in
-// place with their strides, so the CSR costs the card at most three words
-// a row (none in the unit form: without it the Z_q squaring chain's peak
-// memory rises 1.1 %, past its cell's bound).  The assignment z is up to
-// kMaxBlocks row blocks (the constant one, the primary and the auxiliary
-// rows of the prover, or one tensor), each with its own strides, so a slot
-// window of the whole assignment is read in place: no concatenation and no
-// copy of the window.  The output is [rows,
-// L, n] (slot fastest: eval_matrices' layout) or slot-major [n, L, rows]
-// (row fastest: what the interpolating inverse NTT takes, so the
-// transposing copy before it is gone).
+// place with their strides.  The assignment z is up to kMaxBlocks row blocks
+// (the constant one, the primary and the auxiliary rows of the prover, or
+// one tensor), each with its own strides, so a slot window of the whole
+// assignment is read in place.  The output is [rows, L, n] (slot fastest:
+// eval_matrices' layout) or slot-major [n, L, rows] (row fastest: what the
+// interpolating inverse NTT takes).
 //
 // Exactness: every modulus p_l lies in [2, 2^31) (the wrapper refuses any
 // other by name), every coefficient and assignment word is canonical (< p_l:
@@ -38,33 +35,51 @@
 // is residues).  A term takes the coefficient word's Shoup constant made
 // from mu_l = floor(2^64 / p_l)'s halves and mul_mod (modarith.cuh; exact
 // for z < 2^31 and c < p_l, csrc/mac.cu's head proves it): the canonical
-// residue of z * c.  Terms are summed with
-// add_mod, which keeps the sum canonical (two canonical words sum below
-// 2^32), so the result is the canonical residue of the exact sum in any
-// order: bit for bit plain spmv's remainder of the int64 sum of remainders,
-// and the JAX package's Barrett reduction of its u64 segment sum.
+// residue of z * c.  Terms are summed with add_mod, which keeps the sum
+// canonical (two canonical words sum below 2^32), so the result is the
+// canonical residue of the exact sum in any order and under any split of a
+// row's nonzeros: bit for bit plain spmv's remainder of the int64 sum of
+// remainders, and the JAX package's Barrett reduction of its u64 segment sum.
 //
-// Thread mapping: a CTA of kThreads threads takes one tile of kTile outputs,
-// TR rows by TS slots of one limb (TS = the slots' next power of two, at
-// most 32; TR = kTile / TS), over (limb, row tile, slot tile) flattened, so
-// both extremes fill the card's 132 SMs: n = 1024 (the north star's chunk:
-// a warp is 32 slots of one row, the gathers and stores 128-byte lines) and
-// n = 1 (Z_q and the instance map: a warp is 32 rows).  What holds it below
-// its bytes' rate is chains of dependent loads: a thread's four outputs
-// (four rows of one slot, so one slot offset a thread) step through their
-// rows together, every output's bounds and row head
-// (the row's first gather index) loaded before any head's assignment word
-// and coefficient, with no branch between them, so four chains are in
-// flight at once and a row of one nonzero waits on two loads, not three (on
-// an H100 these steps took the north star's chunk from 35 % to 55 % of its
-// bytes bound).  A long row would serialise its warp: rows with more than
-// seg_len nonzeros (seg_len about the square root of the longest row, at
-// least 64) are cut into segments of seg_len, evaluated by a first launch
-// into a scratch buffer of canonical partial sums, and added by
-// spmv_merge_kernel into their output rows, so no thread adds more than
-// about sqrt(longest row) terms in either launch.
-// The slot-major store goes through a shared-memory tile (TS x (TR + 1)
-// words, conflict-free), so its stores stay row-contiguous.
+// Work: a launch's items are, matrix by matrix, first its long rows (one
+// item a (long row, limb, slot tile)), then the tiles of TR rows by TS
+// slots (matrix fastest, then slot tile, then limb, then row tile: the
+// matrices of a call gather a tile's rows while they are in the L2, where A
+// and B share them, and the limbs of a row tile run together).  The C
+// launcher reads the occupancy and starts the resident CTAs; CTA b takes
+// items b, b + grid, ... in that order.  A tile's thread takes VEC adjacent
+// slots (4, as 16-byte words, where the slot stride is 1 and every window
+// is 16-byte aligned; else 1) of 8 rows (4 at VEC 1): G = TS / VEC threads
+// a row, at most a warp, so n >= 128 gives TS = 128 and TR = 64, a
+// gathered row read in runs of 512 bytes (slot-major at n > 1 takes the
+// four-slot tile whatever VEC, at least 32 slots wide).  At n = 1 a tile
+// is 1024 rows of all L limbs (up to kMaxTileLimbs; else one), a row's
+// limbs a thread: its head index is loaded once for them and their words
+// share sectors.
+//
+// Cause and remedy, measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md):
+// the first design of this kernel, one tile a CTA, had its bytes in flight
+// for one of three round trips (row data, gathers, store) in 262,144 short
+// CTAs at the north star's chunk, and its slot-major store waited on a CTA
+// barrier.  Here each CTA keeps the next tile's gathers in flight while it
+// computes and stores the current one: a kStages ring in shared memory,
+// filled by cp.async (16 bytes a thread, or 4 where the block broadcasts
+// one slot or the 16-byte path is off) from the row heads loaded for that
+// tile (two tiles ahead where registers allow).  In a tile of the 16-byte
+// path each thread reads back only the words it copied itself, so a stage
+// needs only cp.async's wait; at n = 1 the heads' coefficients ride in the
+// ring too, else in a register one tile ahead.  Every slot-major tile at n
+// > 1 is a warp tile (warp_tiles, TS >= 32): a warp owns 32 rows by 32
+// slots, copies them swizzled (16 bytes a chunk, or a word a slot below n
+// where the 16-byte path is off), and each lane computes and stores one
+// row, so each store is a slot's 32 rows and no CTA barrier stands between
+// a warp's gathers and its stores (a CTA-wide transposing tile instead
+// took 1.6x the time at the north star's chunk).  A short row's further
+// nonzeros (rows of 2 to long_len) step together across the thread's rows.
+// A row longer than long_len is an item of its own: the CTA's threads
+// share its nonzeros (kLongUnroll a thread in flight, the next round's
+// indices loaded ahead) and add their partial sums with add_mod in the
+// ring's words (no scratch, no second launch); the tiles skip it.
 //
 // mulmod_kernel: y[r, l, k] = a[r, l, k] * b[r, l, k] (+ c[r, l, k]) mod p_l
 // over int32 [R, L, K] with any row and limb strides (the slot axis
@@ -77,15 +92,18 @@
 // where K and every stride are multiples of four, else one.
 //
 // What bounds them on this card: the bytes, at the main path's shapes.
-// spmv at the north star's chunk reads z's window (2^18 rows x 1024 slots,
-// 1 GiB) and writes its output (1 GiB), the CSR a few MiB; a term is five
-// IMAD (two for the constant) and two ALU operations and the sum an add and
-// a min: ~1.3 x 10^9 IMAD, 0.08 ms on the multiplier's 16.75 T/s, against
-// 0.64 ms of bytes.  mulmod over [1024, 1, 2^19] reads two
-// words and writes one (6 GiB, 1.9 ms) for 5 IMAD and 2 ALU operations.
+// spmv of A and B at the north star's chunk reads z's window once for both
+// (2^18 rows x 1024 slots, 1 GiB; A and B gather the same rows) and writes
+// their outputs (2 GiB), the CSRs a few MiB: 0.963 ms at 3.35 TB/s, of
+// which it takes 1.34 ms (72 %; 73 % at the seeded chunk, 43 % at Z_q's
+// and logreg's launch-sized calls; NVIDIA H100 80GB HBM3 at 700 W, PERF.md).
+// A term is five IMAD (two for the constant) and two ALU operations and the
+// sum an add and a min: ~2.7 x 10^9 IMAD for both, 0.16 ms on the
+// multiplier's 16.75 T/s.  mulmod over [1024, 1, 2^19] reads two words and
+// writes one (6 GiB, 1.9 ms) for 5 IMAD and 2 ALU operations.
 //
 // C interface: ringsnark_spmv and ringsnark_mulmod return
-// cudaGetLastError() after the launches (0 on success) or
+// cudaGetLastError() after the launch (0 on success) or
 // cudaErrorInvalidValue for a configuration they refuse; the Python wrapper
 // (ops/cuda_witness.py) raises on anything else.
 
@@ -97,20 +115,33 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPerThread = 4;  // outputs a thread (eight spill)
-constexpr int kLogTile = 10;
-constexpr int kTile = 1 << kLogTile;  // outputs a tile: TR rows x TS slots
-static_assert(kTile == kThreads * kPerThread, "a tile is the CTA's outputs");
-constexpr int kMaxTileSlots = 32;
-static_assert(kThreads % kMaxTileSlots == 0, "a thread's outputs share one slot");
-constexpr int kMaxBlocks = 3;  // row blocks of the assignment
+constexpr int kLogThreads = 8;
+// a thread's rows in a tile: 8 at VEC 4, 4 at VEC 1
+template <int kVec>
+constexpr int kLogRowsPerThread = kVec == 4 ? 3 : 2;
+template <int kVec>
+constexpr int kRowsPerThread = 1 << kLogRowsPerThread<kVec>;
+constexpr int kMaxTileLimbs = 4;  // at n = 1 a tile's limbs: its words and coefficients in the ring
+constexpr int kLogMaxGroup = 5;  // a row takes at most a warp of a tile's threads
+constexpr int kLogLongGroup = 3;  // a long row's slot group: at most 8 threads
+constexpr int kStages = 2;       // the ring's stages: one computed, one in flight
+constexpr int kLongUnroll = 8;   // a long row's nonzeros a thread has in flight (half at VEC 4)
+constexpr int kMaxMats = 3;      // matrices a launch
+constexpr int kMaxBlocks = 3;    // row blocks of the assignment
 constexpr int kMaxLimbs = 32;
+static_assert(kThreads == 1 << kLogThreads, "");
+
+// a ring stage: 32 words a thread, its rows' VEC words (8 x 4), a warp
+// tile's 32 x 32, or at n = 1 its rows' words and coefficients (4 x up to 4
+// limbs x 2); a long row's partial sums (at most 4 a thread) reuse it
+constexpr int kStageWords = kThreads * 32;
+static_assert(kRowsPerThread<4> * 4 <= 32 && 2 * kRowsPerThread<1> * kMaxTileLimbs <= 32, "");
+constexpr int kSmemBytes = kStages * kStageWords * 4;
 
 // Rows [start, next block's start) of the assignment: word (row, l, i) at
 // ptr + (row - start) * row + l * limb + i * slot (ptr at the window's first
 // slot; a stride of 0 broadcasts).  The strides, and a row's offsets l *
-// limb + i * slot, fit 32 bits (the launcher checks), so an address is one
-// 32 x 32 -> 64-bit multiply-add.
+// limb + i * slot, fit 32 bits (the launcher checks).
 struct Block {
   const uint32_t* ptr;
   uint32_t row, limb, slot, start;
@@ -127,29 +158,108 @@ struct Limbs {
   uint32_t mu_lo[kMaxLimbs];
 };
 
-struct SpmvShape {
-  uint32_t L, n;       // limbs; slots of the output
-  uint32_t rows;       // output rows (zero past csr_rows)
-  uint32_t csr_rows;   // rows (or segments) with nonzeros to read
-  uint32_t log_ts;     // TS = 1 << log_ts slots a tile, TR = kTile >> log_ts rows
-  uint32_t slot_tiles, row_tiles;
-  uint32_t seg_len;    // rows longer than this are left to the merge
-  uint32_t unit;       // row r is nonzero r alone (no bounds are read)
+// One matrix of a launch.
+struct Mat {
+  const int* ptr;          // int32 [csr_rows + 1]; null where unit (row r is nonzero r)
+  const long long* idx;    // int64 [nnz]: the gather indices in row order
+  const int* head;         // int32 [csr_rows]: each row's first gather index (unit: unread)
+  const uint32_t* coef;    // at the window's first slot
+  const int* longs;        // int32 [nlong]: the rows of more than long_len nonzeros
+  uint32_t* out;
+  uint32_t csr_rows, nlong, unit, long_len;
   uint32_t coef_k, coef_l, coef_i;  // the coefficients' strides (coef_i 0: one for all slots)
+  uint32_t long_items;              // nlong * L * long_slot_tiles
 };
 
-// The assignment's word (c, l, i): c in the last block that starts at or
-// below it.  Each field is selected on its own (a select of a block's
-// address would read the parameters with an indexed load).
-__device__ __forceinline__ uint32_t z_word(const Assignment& z, uint32_t c, uint32_t l,
-                                           uint32_t i) {
+struct Spmv {
+  Mat m[kMaxMats];
+  uint32_t mats, L, n, rows;
+  uint32_t log_g;              // G = 1 << log_g threads a row in a tile
+  uint32_t lt, limb_tiles;     // limbs a tile (L at n = 1 up to kMaxTileLimbs, else 1); L / lt
+  uint32_t slot_tiles, tiles;  // slot tiles; a matrix's tiles (row, limb and slot tiles)
+  uint32_t log_gl, long_slot_tiles;  // a long row's threads a slot group (<= 8); its groups
+  uint32_t long_items, items;  // every matrix's long items; long items + mats * tiles
+};
+
+// The assignment's word (c, l, i) and its block's slot stride: c in the
+// last block that starts at or below it.  Each field is selected on its own
+// (a select of a block's address would read the parameters with an indexed
+// load).
+struct ZRef {
+  const uint32_t* p;
+  uint32_t slot;
+};
+
+__device__ __forceinline__ ZRef z_ref(const Assignment& z, uint32_t c, uint32_t l, uint32_t i) {
   const bool in2 = z.count > 2 && c >= z.b[2].start;
   const bool in1 = !in2 && z.count > 1 && c >= z.b[1].start;
 #define RINGSNARK_FIELD(f) (in2 ? z.b[2].f : (in1 ? z.b[1].f : z.b[0].f))
+  const uint32_t slot = RINGSNARK_FIELD(slot);
   const uint64_t off = static_cast<uint64_t>(c - RINGSNARK_FIELD(start)) * RINGSNARK_FIELD(row) +
-                       (l * RINGSNARK_FIELD(limb) + i * RINGSNARK_FIELD(slot));
-  return __ldg(RINGSNARK_FIELD(ptr) + off);
+                       (l * RINGSNARK_FIELD(limb) + i * slot);
+  return ZRef{RINGSNARK_FIELD(ptr) + off, slot};
 #undef RINGSNARK_FIELD
+}
+
+// VEC words of the assignment from r: one 16-byte load where the slot
+// stride is 1 (the launcher checks the alignment), else VEC loads (stride
+// 0: one slot broadcast).
+template <int kVec>
+__device__ __forceinline__ void z_load(const ZRef& r, uint32_t (&v)[kVec]) {
+  if constexpr (kVec == 4) {
+    if (r.slot == 1) {
+      const uint4 x = __ldg(reinterpret_cast<const uint4*>(r.p));
+      v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+      return;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kVec; ++u) v[u] = __ldg(r.p + u * r.slot);
+}
+
+// The coefficients of nonzero k at limb l for slots i..i+VEC-1.
+template <int kVec>
+__device__ __forceinline__ void coef_load(const Mat& M, int k, uint32_t l, uint32_t i,
+                                          uint32_t (&w)[kVec]) {
+  const uint32_t* c = M.coef + static_cast<uint64_t>(static_cast<uint32_t>(k)) * M.coef_k +
+                      (l * M.coef_l + i * M.coef_i);
+  if constexpr (kVec == 4) {
+    if (M.coef_i) {
+      const uint4 x = __ldg(reinterpret_cast<const uint4*>(c));
+      w[0] = x.x, w[1] = x.y, w[2] = x.z, w[3] = x.w;
+      return;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kVec; ++u) w[u] = __ldg(c + u * M.coef_i);
+}
+
+// Four adjacent slots from slot i of the assignment (z4) or of nonzero k's
+// coefficients at limb l (coef4): 16-byte words at kVec 4 (n a multiple of
+// four), else a word a slot, those at or past `left` = n - i zero.
+template <int kVec>
+__device__ __forceinline__ void z4(const ZRef& r, uint32_t left, uint32_t (&v)[4]) {
+  if constexpr (kVec == 4) {
+    z_load<4>(r, v);
+  } else {
+#pragma unroll
+    for (uint32_t u = 0; u < 4; ++u) v[u] = u < left ? __ldg(r.p + u * r.slot) : 0u;
+  }
+}
+
+template <int kVec>
+__device__ __forceinline__ void coef4(const Mat& M, int k, uint32_t l, uint32_t i, uint32_t left,
+                                      uint32_t (&w)[4]) {
+  if constexpr (kVec == 4) {
+    coef_load<4>(M, k, l, i, w);
+  } else {
+#pragma unroll
+    for (uint32_t u = 0; u < 4; ++u) {
+      uint32_t x[1] = {0u};
+      if (u < left) coef_load<1>(M, k, l, i + u, x);
+      w[u] = x[0];
+    }
+  }
 }
 
 // The term coef * zw mod p: the coefficient word's Shoup constant made from
@@ -159,154 +269,523 @@ __device__ __forceinline__ uint32_t term(uint32_t zw, uint32_t w, uint32_t p, ui
   return mul_mod(zw, w, shoup_of(w, mu_hi, mu_lo), p);
 }
 
-// kSeg: the rows are segments [seg[v].x, seg[v].y) of long rows, written as
-// canonical partial sums into a [segments, L, n] scratch; else row v is
-// [ptr[v], ptr[v + 1]) (nonzero v alone where `unit`), skipped when longer
-// than seg_len (the merge writes it).  kSlotMajor: the output is [n, L,
-// rows], else [rows, L, n].
-template <bool kSlotMajor, bool kSeg>
-__global__ void __launch_bounds__(kThreads)
-    spmv_kernel(const int* __restrict__ bounds, const long long* __restrict__ idx,
-                const long long* __restrict__ head, const uint32_t* __restrict__ coef,
-                const __grid_constant__ Assignment z, const __grid_constant__ Limbs mod,
-                const SpmvShape s, uint32_t* __restrict__ out) {
-  __shared__ uint32_t tile[kTile + kMaxTileSlots];  // TS x (TR + 1)
-  uint32_t t = blockIdx.x;
-  const uint32_t st = t % s.slot_tiles;
-  t /= s.slot_tiles;
-  const uint32_t rt = t % s.row_tiles;
-  const uint32_t l = t / s.row_tiles;
-  const uint32_t ts_mask = (1u << s.log_ts) - 1, log_tr = kLogTile - s.log_ts;
-  const uint32_t tr = 1u << log_tr;
-  const uint32_t r0 = rt << log_tr, i0 = st << s.log_ts;
+__device__ __forceinline__ void cp_async16(uint32_t* dst, const uint32_t* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kNewer>
+__device__ __forceinline__ void cp_async_wait() {  // all but the kNewer newest groups landed
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kNewer) : "memory");
+}
+
+// Output word (r, l, i) of matrix M.
+template <bool kSlotMajor>
+__device__ __forceinline__ uint32_t* out_at(const Spmv& s, const Mat& M, uint32_t r, uint32_t l,
+                                            uint32_t i) {
+  return M.out + (kSlotMajor ? static_cast<uint64_t>(i * s.L + l) * s.rows + r
+                             : static_cast<uint64_t>(r * s.L + l) * s.n + i);
+}
+
+// A long row's item u (its matrix's long items counted from 0 across the
+// matrices): the CTA's threads, G = 1 << log_gl (at most 8) to a slot
+// group of VEC * G slots and K = 256 / G (32 or more) deep, share the row's
+// nonzeros (thread (q, g): nonzeros k0 + q, q + K, ..., U at once with the
+// next round's indices loaded ahead); their partial sums are added in `tile`
+// (K x VEC * G words) by halves with add_mod; the threads q = 0 store them.
+template <bool kSlotMajor, int kVec>
+__device__ __forceinline__ void long_item(const Spmv& s, const Assignment& z, const Limbs& mod,
+                                          uint32_t u, uint32_t* tile) {
+  uint32_t mi = 0;
+  while (mi + 1 < s.mats && u >= s.m[mi].long_items) u -= s.m[mi].long_items, ++mi;
+  const Mat& M = s.m[mi];
+  const uint32_t st = u % s.long_slot_tiles;
+  u /= s.long_slot_tiles;
+  const uint32_t l = u % s.L, j = u / s.L;
+  const uint32_t g = threadIdx.x & ((1u << s.log_gl) - 1), q = threadIdx.x >> s.log_gl;
+  const uint32_t r = static_cast<uint32_t>(__ldg(M.longs + j));
+  const int k1 = __ldg(M.ptr + r + 1);
+  const uint32_t ts = static_cast<uint32_t>(kVec) << s.log_gl;
+  const uint32_t i = st * ts + g * kVec;
+  const bool live = i < s.n;
   const uint32_t p = mod.p[l], mu_hi = mod.mu_hi[l], mu_lo = mod.mu_lo[l];
-  // The thread's slot, the same for its four outputs (kThreads is a multiple
-  // of TS), slot 0 where it is past n; its coefficients' offset in a row.
-  const uint32_t slot = i0 + (threadIdx.x & ts_mask);
-  const bool slot_live = slot < s.n;
-  const uint32_t iv = slot_live ? slot : 0;
-  const uint32_t ci = l * s.coef_l + iv * s.coef_i;
-
-  // The thread's four outputs step through their rows together, their
-  // loads in flight at once: first every output's bounds and head (its
-  // row's first gather index), then every head's assignment word and
-  // coefficient, so a row of one nonzero waits on two loads and the four
-  // rows' waits overlap.  An output outside the tile's rows or slots reads
-  // row 0 (at slot 0 where its slot is outside) and is dropped (no branch
-  // keeps the loads apart).
-  uint32_t val[kPerThread];
-  int k[kPerThread], k_end[kPerThread];  // nnz < 2^31
-  bool live[kPerThread];
-  int steps = 0;
-  if (s.csr_rows > 0) {
-    uint32_t hz[kPerThread];
+  const int K = kThreads >> s.log_gl;
+  constexpr int U = kVec == 4 ? kLongUnroll / 2 : kLongUnroll;  // words in flight: 16 or 8
+  uint32_t acc[kVec];
 #pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      const uint32_t r = r0 + ((threadIdx.x + j * kThreads) >> s.log_ts);  // slot fastest
-      live[j] = r < s.csr_rows && slot_live;
-      const uint32_t rs = live[j] ? r : 0;
-      if constexpr (kSeg) {
-        const int2 g = __ldg(reinterpret_cast<const int2*>(bounds) + rs);
-        k[j] = g.x, k_end[j] = g.y;
-      } else if (s.unit) {
-        k[j] = static_cast<int>(rs), k_end[j] = static_cast<int>(rs) + 1;
-        hz[j] = static_cast<uint32_t>(__ldg(idx + rs));
-      } else {
-        k[j] = __ldg(bounds + rs), k_end[j] = __ldg(bounds + rs + 1);
-        hz[j] = static_cast<uint32_t>(__ldg(head + rs));
-      }
+  for (int v = 0; v < kVec; ++v) acc[v] = 0;
+  if (live) {
+    int k = __ldg(M.ptr + r) + static_cast<int>(q);
+    uint32_t cn[U];
+#pragma unroll
+    for (int e = 0; e < U; ++e) {
+      const int kk = k + e * K;
+      cn[e] = kk < k1 ? static_cast<uint32_t>(__ldg(M.idx + kk)) : 0u;
     }
-    if constexpr (!kSeg) {
-      // the heads' terms (an empty row's coefficient reads as 0: a zero term)
-      uint32_t zw[kPerThread], w[kPerThread];
+    for (; k < k1; k += U * K) {
+      uint32_t c[U], zv[U][kVec], wv[U][kVec];
 #pragma unroll
-      for (int j = 0; j < kPerThread; ++j) {
-        zw[j] = z_word(z, hz[j], l, iv);
-        w[j] = k[j] < k_end[j]
-                   ? __ldg(coef + (static_cast<uint64_t>(static_cast<uint32_t>(k[j])) * s.coef_k +
-                                   ci))
-                   : 0u;
+      for (int e = 0; e < U; ++e) {
+        c[e] = cn[e];
+        const int kk = k + (U + e) * K;
+        cn[e] = kk < k1 ? static_cast<uint32_t>(__ldg(M.idx + kk)) : 0u;
       }
 #pragma unroll
-      for (int j = 0; j < kPerThread; ++j) {
-        val[j] = term(zw[j], w[j], p, mu_hi, mu_lo);
-        if (k_end[j] - k[j] > s.seg_len) k_end[j] = k[j];  // a long row: the merge writes it
-        ++k[j];  // past the head
+      for (int e = 0; e < U; ++e) {
+        if (k + e * K < k1) {
+          z_load<kVec>(z_ref(z, c[e], l, i), zv[e]);
+          coef_load<kVec>(M, k + e * K, l, i, wv[e]);
+        }
       }
-    } else {
 #pragma unroll
-      for (int j = 0; j < kPerThread; ++j) val[j] = 0;
-    }
+      for (int e = 0; e < U; ++e) {
+        if (k + e * K < k1) {
 #pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      if (!live[j]) k_end[j] = k[j], val[j] = 0;
-      steps = max(steps, k_end[j] - k[j]);
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < kPerThread; ++j) val[j] = 0, k[j] = k_end[j] = 0;
-  }
-  for (int step = 0; step < steps; ++step) {
-#pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      if (k[j] < k_end[j]) {
-        const uint32_t c = static_cast<uint32_t>(__ldg(idx + k[j]));
-        const uint32_t w = __ldg(coef + (static_cast<uint64_t>(static_cast<uint32_t>(k[j])) *
-                                              s.coef_k + ci));
-        val[j] = add_mod(val[j], term(z_word(z, c, l, iv), w, p, mu_hi, mu_lo), p);
-        ++k[j];
+          for (int v = 0; v < kVec; ++v) {
+            acc[v] = add_mod(acc[v], term(zv[e][v], wv[e][v], p, mu_hi, mu_lo), p);
+          }
+        }
       }
     }
   }
-
-  if constexpr (kSlotMajor) {
-    // through shared memory: written slot fastest, stored row fastest
+  const uint32_t a = q * ts + g * kVec;
+  __syncthreads();  // the tile's last readers are done
 #pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      const uint32_t e = threadIdx.x + j * kThreads;
-      tile[(e & ts_mask) * (tr + 1) + (e >> s.log_ts)] = val[j];
+  for (int v = 0; v < kVec; ++v) tile[a + v] = acc[v];
+  __syncthreads();
+  for (uint32_t h = static_cast<uint32_t>(K) >> 1; h > 0; h >>= 1) {
+    if (q < h) {
+#pragma unroll
+      for (int v = 0; v < kVec; ++v) tile[a + v] = add_mod(tile[a + v], tile[a + h * ts + v], p);
     }
     __syncthreads();
+  }
+  if (q == 0 && live) {
 #pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      const uint32_t e = threadIdx.x + j * kThreads;
-      const uint32_t lr = e & (tr - 1), li = e >> log_tr;
-      const uint32_t r = r0 + lr, i = i0 + li;
-      if (r < s.rows && i < s.n) {
-        out[static_cast<uint64_t>(i * s.L + l) * s.rows + r] = tile[li * (tr + 1) + lr];
-      }
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      const uint32_t e = threadIdx.x + j * kThreads;
-      const uint32_t r = r0 + (e >> s.log_ts), i = i0 + (e & ts_mask);
-      if (r < s.rows && i < s.n) out[static_cast<uint64_t>(r * s.L + l) * s.n + i] = val[j];
-    }
+    for (int v = 0; v < kVec; ++v) *out_at<kSlotMajor>(s, M, r, l, i + v) = tile[a + v];
   }
 }
 
-// The long rows' output: long row j (output row rows_of[j]) adds the partial
-// sums of its segments [seg_of[j], seg_of[j + 1]) of the scratch.
-template <bool kSlotMajor>
-__global__ void __launch_bounds__(kThreads)
-    spmv_merge_kernel(const int* __restrict__ seg_of, const int* __restrict__ rows_of,
-                      const uint32_t* __restrict__ scratch, const __grid_constant__ Limbs mod,
-                      const SpmvShape s, uint32_t nlong, uint32_t* __restrict__ out) {
-  const uint64_t total = static_cast<uint64_t>(nlong) * s.L * s.n;
-  for (uint64_t f = blockIdx.x * static_cast<uint64_t>(kThreads) + threadIdx.x; f < total;
-       f += static_cast<uint64_t>(gridDim.x) * kThreads) {
-    const uint32_t i = static_cast<uint32_t>(f % s.n);
-    const uint64_t jl = f / s.n;
-    const uint32_t l = static_cast<uint32_t>(jl % s.L), j = static_cast<uint32_t>(jl / s.L);
-    const uint32_t p = mod.p[l];
-    uint32_t acc = 0;
-    for (int g = __ldg(seg_of + j); g < __ldg(seg_of + j + 1); ++g) {
-      acc = add_mod(acc, __ldg(scratch + (static_cast<long long>(g) * s.L + l) * s.n + i), p);
+// A tile: matrix, limb, first row and first slot.
+struct TileAt {
+  uint32_t m, l, r0, i0;
+};
+
+// Short tile t (its matrix fastest, then slot tile, limb, row tile).
+__device__ __forceinline__ TileAt tile_at(const Spmv& s, uint32_t t, uint32_t log_ts,
+                                          uint32_t log_tr) {
+  TileAt a;
+  a.m = t % s.mats;
+  t /= s.mats;
+  a.i0 = (t % s.slot_tiles) << log_ts;
+  t /= s.slot_tiles;
+  a.l = t % s.limb_tiles;
+  a.r0 = (t / s.limb_tiles) << log_tr;
+  return a;
+}
+
+// A lane's row of a warp tile: its first nonzero, length, head and the
+// head's scalar coefficient.
+struct LaneRow {
+  int k0, len;
+  uint32_t c, w;
+};
+
+// The slot-major tiles at n > 1 (8 warp tiles of 32 rows by 32 slots a
+// tile, TS >= 32): warp w owns one, each lane one of its rows, so no barrier
+// of the CTA stands between a warp's gathers and its stores.  Lane l copies
+// chunk l % 8 (4 slots: one 16-byte copy at kVec 4 where the block's slot
+// stride is 1, else a word a slot below n) of rows l / 8 + 4k into the
+// warp's ring words, chunk c of row rho at rho * 32 + 4 (c ^ rho % 8), and
+// computes its own row from them after the warp's copies landed (a word
+// past n is stale and its sum not stored); each of its stores is a slot's
+// 32 rows, 128 bytes.  Row data two tiles ahead, gathers one.
+template <int kVec>
+__device__ __forceinline__ void warp_tiles(const Spmv& s, const Assignment& z, const Limbs& mod,
+                                           uint32_t t, uint32_t* ring) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const uint32_t lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint32_t log_ts = s.log_g + 2, log_tr = kLogThreads - s.log_g + kLogRowsPerThread<4>;
+  const uint32_t log_rb = log_tr - 5;  // 32-row blocks a tile
+  const uint32_t rb = warp & ((1u << log_rb) - 1), sb = warp >> log_rb;
+  uint32_t* const mine = ring + warp * 1024;
+  const uint32_t step = gridDim.x, short_items = s.items - s.long_items;
+  auto row_of = [&](const TileAt& a, LaneRow& x) {
+    const Mat& M = s.m[a.m];
+    const uint32_t r = a.r0 + (rb << 5) + lane;
+    x.k0 = x.len = 0, x.c = x.w = 0;
+    if (r < M.csr_rows) {
+      if (M.unit) {
+        x.k0 = static_cast<int>(r), x.len = 1;
+        x.c = static_cast<uint32_t>(__ldg(M.idx + r));
+      } else {
+        x.k0 = __ldg(M.ptr + r), x.len = __ldg(M.ptr + r + 1) - x.k0;
+        x.c = static_cast<uint32_t>(__ldg(M.head + r));
+      }
     }
-    const long long r = __ldg(rows_of + j);
-    out[kSlotMajor ? (static_cast<long long>(i) * s.L + l) * s.rows + r
-                   : (r * s.L + l) * s.n + i] = acc;
+  };
+  auto issue = [&](const TileAt& a, uint32_t* stage, LaneRow& x) {
+    const Mat& M = s.m[a.m];
+    const int long_len = static_cast<int>(M.long_len);
+    if (x.len > 0 && x.len <= long_len && !M.coef_i) {
+      x.w = __ldg(M.coef + static_cast<uint64_t>(static_cast<uint32_t>(x.k0)) * M.coef_k +
+                  a.l * M.coef_l);
+    }
+    const uint32_t chunk = lane & 7, i = a.i0 + (sb << 5) + chunk * 4;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const uint32_t rho = (lane >> 3) + 4 * k;
+      const uint32_t c = __shfl_sync(kAll, x.c, rho);
+      const int len = __shfl_sync(kAll, x.len, rho);
+      if (i < s.n && len > 0 && len <= long_len) {
+        const ZRef zr = z_ref(z, c, a.l, i);
+        uint32_t* dst = stage + rho * 32 + ((chunk ^ (rho & 7)) << 2);
+        if (kVec == 4 && zr.slot == 1) {
+          cp_async16(dst, zr.p);
+        } else {
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            if (kVec == 4 || i + v < s.n) cp_async4(dst + v, zr.p + v * zr.slot);
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  auto run = [&](const TileAt& a, const uint32_t* stage, const LaneRow& x) {
+    __syncwarp();  // every lane's copies of the stage have landed (each waited on its own)
+    const Mat& M = s.m[a.m];
+    const uint32_t l = a.l, i0 = a.i0 + (sb << 5);
+    const uint32_t p = mod.p[l], mu_hi = mod.mu_hi[l], mu_lo = mod.mu_lo[l];
+    const bool short_row = x.len > 0 && x.len <= static_cast<int>(M.long_len);
+    uint32_t val[8][4];
+    const uint32_t sh = shoup_of(x.w, mu_hi, mu_lo);
+#pragma unroll
+    for (int c8 = 0; c8 < 8; ++c8) {
+      const uint32_t i = i0 + c8 * 4;
+#pragma unroll
+      for (int v = 0; v < 4; ++v) val[c8][v] = 0;
+      if (short_row && i < s.n) {
+        const uint4 zs = *reinterpret_cast<const uint4*>(stage + lane * 32 +
+                                                         ((c8 ^ (lane & 7)) << 2));
+        const uint32_t zw[4] = {zs.x, zs.y, zs.z, zs.w};
+        if (!M.coef_i) {
+#pragma unroll
+          for (int v = 0; v < 4; ++v) val[c8][v] = mul_mod(zw[v], x.w, sh, p);
+        } else {
+          uint32_t wv[4];
+          coef4<kVec>(M, x.k0, l, i, s.n - i, wv);
+#pragma unroll
+          for (int v = 0; v < 4; ++v) val[c8][v] = term(zw[v], wv[v], p, mu_hi, mu_lo);
+        }
+      }
+    }
+    for (int k = x.k0 + 1; short_row && k < x.k0 + x.len; ++k) {  // the row's further nonzeros
+      const uint32_t c = static_cast<uint32_t>(__ldg(M.idx + k));
+#pragma unroll
+      for (int c8 = 0; c8 < 8; ++c8) {
+        const uint32_t i = i0 + c8 * 4;
+        if (i < s.n) {
+          uint32_t zv[4], wv[4];
+          z4<kVec>(z_ref(z, c, l, i), s.n - i, zv);
+          coef4<kVec>(M, k, l, i, s.n - i, wv);
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            val[c8][v] = add_mod(val[c8][v], term(zv[v], wv[v], p, mu_hi, mu_lo), p);
+          }
+        }
+      }
+    }
+    const uint32_t r = a.r0 + (rb << 5) + lane;
+    if (r < s.rows && x.len <= static_cast<int>(M.long_len)) {
+#pragma unroll
+      for (int c8 = 0; c8 < 8; ++c8) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const uint32_t i = i0 + c8 * 4 + v;
+          if (i < s.n) *out_at<true>(s, M, r, l, i) = val[c8][v];
+        }
+      }
+    }
+  };
+
+  TileAt cur = tile_at(s, t, log_ts, log_tr), nxt = cur;
+  LaneRow x, nx = {};
+  row_of(cur, x);
+  if (t + step < short_items) {
+    nxt = tile_at(s, t + step, log_ts, log_tr);
+    row_of(nxt, nx);
+  }
+  issue(cur, mine, x);
+  uint32_t st = 0;
+  for (;; t += step, st ^= 1) {
+    if (t + step >= short_items) {
+      cp_async_wait<0>();
+      run(cur, mine + st * kStageWords, x);
+      return;
+    }
+    __syncwarp();  // every lane has read the stage the next copies overwrite
+    issue(nxt, mine + (st ^ 1) * kStageWords, nx);
+    TileAt later = nxt;
+    LaneRow lx = nx;
+    if (t + 2 * step < short_items) {
+      later = tile_at(s, t + 2 * step, log_ts, log_tr);
+      row_of(later, lx);
+    }
+    cp_async_wait<1>();
+    run(cur, mine + st * kStageWords, x);
+    cur = nxt, x = nx, nxt = later, nx = lx;
+  }
+}
+
+// kSlotMajor: the outputs are [n, L, rows], else [rows, L, n]; slot-major
+// at n > 1 takes the warp tiles (kWarp), so the other slot-major kernel
+// serves n = 1 alone.  kVec: a thread's adjacent slots (4: 16-byte words).
+template <bool kSlotMajor, int kVec, bool kWarp>
+__global__ void __launch_bounds__(kThreads, kWarp ? 3 : 2)
+    spmv_kernel(const __grid_constant__ Spmv s, const __grid_constant__ Assignment z,
+                const __grid_constant__ Limbs mod) {
+  constexpr int R = kRowsPerThread<kVec>;
+  constexpr uint32_t kLogVec = kVec == 4 ? 2 : 0;
+  constexpr int kAhead = kVec == 4 ? 1 : 2;  // the 16-byte kernels have no registers for two
+  extern __shared__ uint4 smem4[];
+  uint32_t* const ring = reinterpret_cast<uint32_t*>(smem4);
+  const uint32_t tid = threadIdx.x;
+  const uint32_t log_g = s.log_g, log_rp = kLogThreads - log_g;
+  const uint32_t log_ts = log_g + kLogVec, log_tr = log_rp + kLogRowsPerThread<kVec>;
+  const uint32_t g = tid & ((1u << log_g) - 1), q = tid >> log_g;
+
+  uint32_t u = blockIdx.x;
+  for (; u < s.long_items; u += gridDim.x) long_item<kSlotMajor, kVec>(s, z, mod, u, ring);
+  if (u >= s.items) return;
+  if (blockIdx.x < s.long_items) __syncthreads();  // the long rows' sums are read from the ring
+  if constexpr (kWarp) {
+    warp_tiles<kVec>(s, z, mod, u - s.long_items, ring);
+    return;
+  }
+
+  auto at = [&](uint32_t t) { return tile_at(s, t, log_ts, log_tr); };
+  // A tile's rows for this thread (r0 + q + j * 256 / G): their first
+  // nonzero, length and head (first gather index); nothing past the CSR.
+  auto rows_of = [&](const TileAt& a, int (&k0)[R], int (&len)[R], uint32_t (&c)[R]) {
+    const Mat& M = s.m[a.m];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const uint32_t r = a.r0 + q + (static_cast<uint32_t>(j) << log_rp);
+      k0[j] = len[j] = 0, c[j] = 0;
+      if (r < M.csr_rows) {
+        if (M.unit) {
+          k0[j] = static_cast<int>(r), len[j] = 1;
+          c[j] = static_cast<uint32_t>(__ldg(M.idx + r));
+        } else {
+          k0[j] = __ldg(M.ptr + r), len[j] = __ldg(M.ptr + r + 1) - k0[j];
+          c[j] = static_cast<uint32_t>(__ldg(M.head + r));
+        }
+      }
+    }
+  };
+  // The heads' assignment words into a ring stage by cp.async (each thread
+  // its own words), their scalar coefficients into registers; one group.
+  auto issue = [&](const TileAt& a, uint32_t* stage, const int (&k0)[R], const int (&len)[R],
+                   const uint32_t (&c)[R], uint32_t (&w)[R]) {
+    const Mat& M = s.m[a.m];
+    const uint32_t i = a.i0 + g * kVec;
+    if (kSlotMajor || log_ts == 0) {  // n = 1: the tile's limbs, word (j, e) and its coefficient
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        w[j] = 0;
+        if (len[j] > 0 && len[j] <= static_cast<int>(M.long_len)) {
+          const uint32_t* cw = M.coef +
+                               static_cast<uint64_t>(static_cast<uint32_t>(k0[j])) * M.coef_k;
+          for (uint32_t e = 0; e < s.lt; ++e) {
+            const uint32_t at_z = ((j * s.lt + e) << kLogThreads) + tid;
+            cp_async4(stage + at_z, z_ref(z, c[j], a.l + e, 0).p);
+            cp_async4(stage + at_z + ((R * s.lt) << kLogThreads), cw + (a.l + e) * M.coef_l);
+          }
+        }
+      }
+      cp_async_commit();
+      return;
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      w[j] = 0;
+      if (i < s.n && len[j] > 0 && len[j] <= static_cast<int>(M.long_len)) {
+        const ZRef zr = z_ref(z, c[j], a.l, i);
+        uint32_t* dst = stage + ((static_cast<uint32_t>(j) << kLogThreads) + tid) * kVec;
+        if (kVec == 4 && zr.slot == 1) {
+          cp_async16(dst, zr.p);
+        } else {
+#pragma unroll
+          for (int v = 0; v < kVec; ++v) cp_async4(dst + v, zr.p + v * zr.slot);
+        }
+        if (!M.coef_i) {
+          w[j] = __ldg(M.coef + static_cast<uint64_t>(static_cast<uint32_t>(k0[j])) * M.coef_k +
+                       a.l * M.coef_l);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  // A tile's sums from its stage (the heads) and the rows' further
+  // nonzeros, and their store.
+  auto run = [&](const TileAt& a, const uint32_t* stage, const int (&k0)[R], const int (&len)[R],
+                 const uint32_t (&w)[R]) {
+    const Mat& M = s.m[a.m];
+    if (kSlotMajor || log_ts == 0) {  // n = 1: limb by limb, a row a thread, a warp's rows adjacent
+      const int long_len = static_cast<int>(M.long_len);
+      for (uint32_t e = 0; e < s.lt; ++e) {
+        const uint32_t l = a.l + e;
+        const uint32_t p = mod.p[l], mu_hi = mod.mu_hi[l], mu_lo = mod.mu_lo[l];
+        uint32_t val[R];
+        int steps = 0;
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          val[j] = 0;
+          if (len[j] > 0 && len[j] <= long_len) {
+            const uint32_t at_z = ((j * s.lt + e) << kLogThreads) + tid;
+            val[j] = term(stage[at_z], stage[at_z + ((R * s.lt) << kLogThreads)], p, mu_hi, mu_lo);
+            steps = max(steps, len[j] - 1);
+          }
+        }
+        for (int step = 1; step <= steps; ++step) {
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            if (step < len[j] && len[j] <= long_len) {
+              const int k = k0[j] + step;
+              const uint32_t zw = __ldg(z_ref(z, static_cast<uint32_t>(__ldg(M.idx + k)), l, 0).p);
+              const uint32_t wk = __ldg(M.coef + static_cast<uint64_t>(static_cast<uint32_t>(k)) *
+                                                     M.coef_k + l * M.coef_l);
+              val[j] = add_mod(val[j], term(zw, wk, p, mu_hi, mu_lo), p);
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const uint32_t r = a.r0 + q + (static_cast<uint32_t>(j) << log_rp);
+          if (r < s.rows && len[j] <= long_len) *out_at<kSlotMajor>(s, M, r, l, 0) = val[j];
+        }
+      }
+      return;
+    }
+    const uint32_t l = a.l, i = a.i0 + g * kVec;
+    const bool live = i < s.n;
+    const uint32_t p = mod.p[l], mu_hi = mod.mu_hi[l], mu_lo = mod.mu_lo[l];
+    const int long_len = static_cast<int>(M.long_len);
+    uint32_t val[R][kVec];
+    int steps = 0;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+#pragma unroll
+      for (int v = 0; v < kVec; ++v) val[j][v] = 0;
+      if (live && len[j] > 0 && len[j] <= long_len) {
+        const uint32_t* src = stage + ((static_cast<uint32_t>(j) << kLogThreads) + tid) * kVec;
+        uint32_t zs[kVec];
+        if constexpr (kVec == 4) {
+          const uint4 x = *reinterpret_cast<const uint4*>(src);
+          zs[0] = x.x, zs[1] = x.y, zs[2] = x.z, zs[3] = x.w;
+        } else {
+          zs[0] = src[0];
+        }
+        if (!M.coef_i) {
+          const uint32_t sh = shoup_of(w[j], mu_hi, mu_lo);
+#pragma unroll
+          for (int v = 0; v < kVec; ++v) val[j][v] = mul_mod(zs[v], w[j], sh, p);
+        } else {
+          uint32_t wv[kVec];
+          coef_load<kVec>(M, k0[j], l, i, wv);
+#pragma unroll
+          for (int v = 0; v < kVec; ++v) val[j][v] = term(zs[v], wv[v], p, mu_hi, mu_lo);
+        }
+        steps = max(steps, len[j] - 1);
+      }
+    }
+    // the rows' further nonzeros, every row's loads of a step in flight together
+    for (int step = 1; step <= steps; ++step) {
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        if (step < len[j] && len[j] <= long_len) {
+          const int k = k0[j] + step;
+          uint32_t zv[kVec], wv[kVec];
+          z_load<kVec>(z_ref(z, static_cast<uint32_t>(__ldg(M.idx + k)), l, i), zv);
+          coef_load<kVec>(M, k, l, i, wv);
+#pragma unroll
+          for (int v = 0; v < kVec; ++v) {
+            val[j][v] = add_mod(val[j][v], term(zv[v], wv[v], p, mu_hi, mu_lo), p);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const uint32_t r = a.r0 + q + (static_cast<uint32_t>(j) << log_rp);
+      if (r < s.rows && live && len[j] <= long_len) {
+        uint32_t* o = out_at<kSlotMajor>(s, M, r, l, i);
+        if constexpr (kVec == 4) {
+          *reinterpret_cast<uint4*>(o) = make_uint4(val[j][0], val[j][1], val[j][2], val[j][3]);
+        } else {
+          o[0] = val[j][0];
+        }
+      }
+    }
+  };
+
+  // The ring: the next tile's gathers are issued into the other stage
+  // before the current tile's are waited on, computed and stored; the row
+  // data come kAhead tiles ahead (with two, no round trip of a tile's rows
+  // waits in line before its gathers).
+  const uint32_t step = gridDim.x, short_items = s.items - s.long_items;
+  uint32_t t = u - s.long_items;
+  TileAt cur = at(t), nxt = cur;
+  int k0[R], len[R], nk0[R], nlen[R];
+  uint32_t w[R], nw[R], nc[R];
+  {
+    uint32_t c[R];
+    rows_of(cur, k0, len, c);
+    if (kAhead == 2 && t + step < short_items) {
+      nxt = at(t + step);
+      rows_of(nxt, nk0, nlen, nc);
+    }
+    issue(cur, ring, k0, len, c, w);
+  }
+  uint32_t st = 0;
+  for (;; t += step, st ^= 1) {
+    if (t + step >= short_items) {
+      cp_async_wait<0>();
+      run(cur, ring + st * kStageWords, k0, len, w);
+      return;
+    }
+    if (kAhead == 1) {
+      nxt = at(t + step);
+      rows_of(nxt, nk0, nlen, nc);
+    }
+    issue(nxt, ring + (st ^ 1) * kStageWords, nk0, nlen, nc, nw);
+    TileAt later = nxt;
+    int lk0[R], llen[R];
+    uint32_t lc[R];
+    if (kAhead == 2 && t + 2 * step < short_items) {
+      later = at(t + 2 * step);
+      rows_of(later, lk0, llen, lc);
+    }
+    cp_async_wait<1>();
+    run(cur, ring + st * kStageWords, k0, len, w);
+    cur = nxt;
+#pragma unroll
+    for (int j = 0; j < R; ++j) k0[j] = nk0[j], len[j] = nlen[j], w[j] = nw[j];
+    if (kAhead == 2) {
+      nxt = later;
+#pragma unroll
+      for (int j = 0; j < R; ++j) nk0[j] = lk0[j], nlen[j] = llen[j], nc[j] = lc[j];
+    }
   }
 }
 
@@ -391,46 +870,67 @@ unsigned stride_grid(uint64_t units) {
   return static_cast<unsigned>(need < cap ? (need ? need : 1) : cap);
 }
 
+// The CTAs of a spmv launch over `items` items: those the kernel keeps
+// resident (its SMs times the CTAs an SM holds with its shared memory, read
+// from the runtime once a process and kernel), at most one an item; 0 where
+// the runtime cannot say.  The sums are exact, so the grid moves no result.
+template <bool kSlotMajor, int kVec, bool kWarp = false>
+cudaError_t launch_spmv(const Spmv& s, const Assignment& z, const Limbs& mod,
+                        cudaStream_t stream) {
+  const auto kernel = spmv_kernel<kSlotMajor, kVec, kWarp>;
+  constexpr int bytes = kSmemBytes;
+  static int per_sm = 0;
+  if (per_sm == 0 &&
+      (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes) !=
+           cudaSuccess ||
+       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, bytes) !=
+           cudaSuccess)) {
+    per_sm = 0;
+  }
+  int dev = 0, sms = 0;
+  if (per_sm < 1 || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+    return refused(cudaErrorInvalidValue);
+  }
+  const uint64_t resident = static_cast<uint64_t>(sms) * per_sm;
+  const unsigned grid = static_cast<unsigned>(resident < s.items ? resident : s.items);
+  kernel<<<grid, kThreads, bytes, stream>>>(s, z, mod);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// ptr: int32 [csr_rows + 1] (null where `unit`: row r is nonzero r); idx:
-// int64 [nnz] gather indices in row order; head: int64 [csr_rows], each
-// row's first gather index (0 for an empty row; idx itself where unit);
-// coef: uint32 words with strides coef_strides (host int64 [3]: nonzero,
-// limb, slot; the slot's 0 where one coefficient serves every slot), at the
-// window's first slot coef_lo; zptrs: host uint64 [nblocks] (each at its
-// window's first slot); zmeta: host int64 [nblocks, 4] (first row, row,
-// limb and slot strides); primes: host uint32 [L]; mu: host uint64 [L],
-// floor(2^64 / p_l); out: uint32 [rows, L, n] or, where slot_major, [n, L,
-// rows].  Rows longer than seg_len: nseg segments (int32 [nseg, 2] nonzero
-// ranges) of nlong rows (seg_of int32 [nlong + 1], rows_of int32 [nlong]),
-// their partial sums in scratch (uint32 [nseg, L, n]).
-extern "C" int ringsnark_spmv(const void* ptr, const void* idx, const void* head,
-                              const void* coef, const void* coef_strides, long long coef_lo,
-                              const void* zptrs, const void* zmeta, int nblocks,
-                              const void* primes, const void* mu, int L, long long csr_rows,
-                              long long rows, long long n, int slot_major, int unit,
-                              long long seg_len, const void* seg, const void* seg_of,
-                              const void* rows_of, long long nseg, long long nlong,
-                              void* scratch, void* out, void* stream) {
+// mats: host int64 [nmats, 13], a matrix a row: its pointers ptr (int32
+// [csr_rows + 1], null where unit: row r is nonzero r), idx (int64 [nnz],
+// gather indices in row order), head (int32 [csr_rows], each row's first
+// gather index, 0 for an empty row; unread where unit), coef (uint32
+// words at slot 0), longs (int32 [nlong], the rows of more than long_len
+// nonzeros, each its own item), out (uint32 [rows, L, n] or, where
+// slot_major, [n, L, rows]); then csr_rows, nlong, unit, long_len and the
+// coefficients' strides (nonzero, limb, slot: 0 where one coefficient
+// serves every slot).  zptrs: host uint64 [nblocks] (each at its window's
+// first slot lo); zmeta: host int64 [nblocks, 4] (first row, row, limb and
+// slot strides); primes: host uint32 [L]; mu: host uint64 [L], floor(2^64 /
+// p_l).  One launch for all the matrices.
+extern "C" int ringsnark_spmv(const void* mats, int nmats, const void* zptrs, const void* zmeta,
+                              int nblocks, const void* primes, const void* mu, int L,
+                              long long rows, long long n, long long lo, int slot_major,
+                              void* stream) {
   Limbs mod = {};
   Assignment z = {};
+  Spmv s = {};
+  const long long* md = static_cast<const long long*>(mats);
   const long long* meta = static_cast<const long long*>(zmeta);
-  const long long* cs = static_cast<const long long*>(coef_strides);
   const uint64_t* zp = static_cast<const uint64_t*>(zptrs);
   constexpr long long k32 = 1LL << 32;
   if (!make_limbs(static_cast<const uint32_t*>(primes), static_cast<const uint64_t*>(mu), L,
                   mod) ||
-      mu == nullptr || out == nullptr || cs == nullptr || nblocks < 1 || nblocks > kMaxBlocks ||
-      n < 1 || n >= (1LL << 31) || csr_rows < 0 || rows < csr_rows || rows >= (1LL << 31) ||
-      (csr_rows > 0 && (idx == nullptr || coef == nullptr || (!unit && (ptr == nullptr ||
-                                                                       head == nullptr)))) ||
-      cs[0] < 0 || cs[0] >= k32 || cs[1] < 0 || cs[1] >= k32 || cs[2] < 0 || cs[2] > 1 ||
-      coef_lo < 0 || (L - 1) * cs[1] + (coef_lo + n - 1) * cs[2] >= k32 || seg_len < 1 ||
-      nseg < 0 || nlong < 0 || (nlong > 0 && (unit || seg == nullptr || seg_of == nullptr ||
-                                              rows_of == nullptr || scratch == nullptr))) {
+      mu == nullptr || md == nullptr || nmats < 1 || nmats > kMaxMats || nblocks < 1 ||
+      nblocks > kMaxBlocks || n < 1 || n >= (1LL << 31) || rows < 1 || rows >= (1LL << 31) ||
+      lo < 0 || L * n >= k32 || rows * L >= k32) {
     return static_cast<int>(refused(cudaErrorInvalidValue));
   }
+  bool vec = n % 4 == 0;  // 16-byte words: every wide window, stride and output aligned
   z.count = nblocks;
   for (int b = 0; b < nblocks; ++b) {
     const long long* m = meta + 4 * b;  // first row, row, limb and slot strides
@@ -439,70 +939,89 @@ extern "C" int ringsnark_spmv(const void* ptr, const void* idx, const void* head
         m[3] < 0 || m[3] >= k32 || (L - 1) * m[2] + (n - 1) * m[3] >= k32) {
       return static_cast<int>(refused(cudaErrorInvalidValue));
     }
+    if (m[3] != 0) {
+      vec = vec && m[3] == 1 && m[1] % 4 == 0 && m[2] % 4 == 0 && zp[b] % 16 == 0;
+    }
     z.b[b] = Block{reinterpret_cast<const uint32_t*>(zp[b]), static_cast<uint32_t>(m[1]),
                    static_cast<uint32_t>(m[2]), static_cast<uint32_t>(m[3]),
                    static_cast<uint32_t>(m[0])};
   }
-  uint32_t log_ts = 0;
-  while ((1LL << log_ts) < n && (1 << log_ts) < kMaxTileSlots) ++log_ts;
-  SpmvShape s;
-  s.L = static_cast<uint32_t>(L);
-  s.n = static_cast<uint32_t>(n);
-  s.log_ts = log_ts;
-  s.slot_tiles = static_cast<uint32_t>((n + (1LL << log_ts) - 1) >> log_ts);
-  s.seg_len = static_cast<uint32_t>(seg_len < (1LL << 31) ? seg_len : (1LL << 31));
-  s.unit = unit ? 1 : 0;
-  s.coef_k = static_cast<uint32_t>(cs[0]);
-  s.coef_l = static_cast<uint32_t>(cs[1]);
-  s.coef_i = static_cast<uint32_t>(cs[2]);
-  if (L * n >= k32 || rows * L >= k32) {  // 32-bit products
-    return static_cast<int>(refused(cudaErrorInvalidValue));
-  }
-  const uint32_t* cw = static_cast<const uint32_t*>(coef) + coef_lo * cs[2];
-  const long long* ip = static_cast<const long long*>(idx);
-  const long long* hp = static_cast<const long long*>(head);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint32_t log_tr = kLogTile - log_ts;
-  auto grid = [&](long long nrows, SpmvShape& g) {
-    g.row_tiles = static_cast<uint32_t>((nrows + (1LL << log_tr) - 1) >> log_tr);
-    return static_cast<unsigned long long>(g.row_tiles) * g.slot_tiles * L;
-  };
-  if (nlong > 0) {  // the long rows' segments into the scratch
-    SpmvShape g = s;
-    g.rows = g.csr_rows = static_cast<uint32_t>(nseg);
-    const unsigned long long ctas = grid(nseg, g);
-    if (nseg < 1 || nseg >= (1LL << 31) || ctas >= (1ULL << 31)) {
+  for (int k = 0; k < nmats; ++k) {
+    const long long* d = md + 13 * k;
+    const long long csr_rows = d[6], nlong = d[7], unit = d[8], long_len = d[9];
+    const long long ck = d[10], cl = d[11], ci = d[12];
+    if (d[5] == 0 || csr_rows < 0 || csr_rows > rows || nlong < 0 || nlong > csr_rows ||
+        long_len < 1 || long_len >= (1LL << 31) ||
+        (csr_rows > 0 && (d[1] == 0 || d[3] == 0 || (!unit && (d[0] == 0 || d[2] == 0)))) ||
+        (nlong > 0 && (unit || d[4] == 0)) || ck < 0 || ck >= k32 || cl < 0 || cl >= k32 ||
+        ci < 0 || ci > 1 || (L - 1) * cl + (lo + n - 1) * ci >= k32) {
       return static_cast<int>(refused(cudaErrorInvalidValue));
     }
-    spmv_kernel<false, true><<<static_cast<unsigned>(ctas), kThreads, 0, st>>>(
-        static_cast<const int*>(seg), ip, hp, cw, z, mod, g, static_cast<uint32_t*>(scratch));
+    if (ci) vec = vec && ck % 4 == 0 && cl % 4 == 0 && (d[3] + 4 * lo) % 16 == 0;
+    vec = vec && d[5] % 16 == 0;
   }
+  // the tile: G threads a row (at most a warp), VEC slots a thread; the
+  // warp tiles (slot-major at n > 1) take four slots a lane's chunk whatever
+  // VEC, and at least 32 slots
+  const bool warp = slot_major && n > 1;
+  const long long kv = vec ? 4 : 1, tv = warp ? 4 : kv;
+  uint32_t log_g = warp ? 3 : 0;
+  while ((tv << log_g) < n && log_g < kLogMaxGroup) ++log_g;
+  const uint32_t log_ts = log_g + (tv == 4 ? 2 : 0);
+  const uint32_t log_tr =
+      kLogThreads - log_g + (tv == 4 ? kLogRowsPerThread<4> : kLogRowsPerThread<1>);
+  const long long lt = n == 1 && L <= kMaxTileLimbs ? L : 1;
+  const long long slot_tiles = (n + (1LL << log_ts) - 1) >> log_ts;
+  const long long tiles = ((rows + (1LL << log_tr) - 1) >> log_tr) * (L / lt) * slot_tiles;
+  // a long row's slot tiles: at most 8 threads a row, so 32 or more share its nonzeros
+  const uint32_t log_gl = log_g < kLogLongGroup ? log_g : kLogLongGroup;
+  const long long long_slot_tiles = (n + (kv << log_gl) - 1) / (kv << log_gl);
+  long long long_items = 0;
+  s.mats = static_cast<uint32_t>(nmats);
+  for (int k = 0; k < nmats; ++k) {
+    const long long* d = md + 13 * k;
+    Mat& M = s.m[k];
+    M.ptr = reinterpret_cast<const int*>(d[0]);
+    M.idx = reinterpret_cast<const long long*>(d[1]);
+    M.head = reinterpret_cast<const int*>(d[2]);
+    M.coef = reinterpret_cast<const uint32_t*>(d[3]) + lo * d[12];
+    M.longs = reinterpret_cast<const int*>(d[4]);
+    M.out = reinterpret_cast<uint32_t*>(d[5]);
+    M.csr_rows = static_cast<uint32_t>(d[6]);
+    M.nlong = static_cast<uint32_t>(d[7]);
+    M.unit = d[8] ? 1 : 0;
+    M.long_len = static_cast<uint32_t>(d[9]);
+    M.coef_k = static_cast<uint32_t>(d[10]);
+    M.coef_l = static_cast<uint32_t>(d[11]);
+    M.coef_i = static_cast<uint32_t>(d[12]);
+    M.long_items = static_cast<uint32_t>(d[7] * L * long_slot_tiles);
+    long_items += d[7] * L * long_slot_tiles;
+  }
+  const long long items = long_items + nmats * tiles;
+  if (items >= (1LL << 31)) return static_cast<int>(refused(cudaErrorInvalidValue));
+  s.L = static_cast<uint32_t>(L);
+  s.n = static_cast<uint32_t>(n);
   s.rows = static_cast<uint32_t>(rows);
-  s.csr_rows = static_cast<uint32_t>(csr_rows);
-  const unsigned long long ctas = grid(rows, s);
-  if (ctas < 1 || ctas >= (1ULL << 31)) return static_cast<int>(refused(cudaErrorInvalidValue));
-  const int* pp = static_cast<const int*>(ptr);
-  uint32_t* o = static_cast<uint32_t*>(out);
-  if (slot_major) {
-    spmv_kernel<true, false><<<static_cast<unsigned>(ctas), kThreads, 0, st>>>(pp, ip, hp, cw, z,
-                                                                               mod, s, o);
+  s.log_g = log_g;
+  s.lt = static_cast<uint32_t>(lt);
+  s.limb_tiles = static_cast<uint32_t>(L / lt);
+  s.slot_tiles = static_cast<uint32_t>(slot_tiles);
+  s.tiles = static_cast<uint32_t>(tiles);
+  s.log_gl = log_gl;
+  s.long_slot_tiles = static_cast<uint32_t>(long_slot_tiles);
+  s.long_items = static_cast<uint32_t>(long_items);
+  s.items = static_cast<uint32_t>(items);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (warp) {
+    err = vec ? launch_spmv<true, 4, true>(s, z, mod, st)
+              : launch_spmv<true, 1, true>(s, z, mod, st);
+  } else if (slot_major) {  // n = 1
+    err = launch_spmv<true, 1>(s, z, mod, st);
   } else {
-    spmv_kernel<false, false><<<static_cast<unsigned>(ctas), kThreads, 0, st>>>(pp, ip, hp, cw,
-                                                                                z, mod, s, o);
+    err = vec ? launch_spmv<false, 4>(s, z, mod, st) : launch_spmv<false, 1>(s, z, mod, st);
   }
-  if (nlong > 0) {
-    const unsigned mg = stride_grid(static_cast<uint64_t>(nlong) * L * n);
-    const int* so = static_cast<const int*>(seg_of);
-    const int* ro = static_cast<const int*>(rows_of);
-    const uint32_t* sc = static_cast<const uint32_t*>(scratch);
-    const uint32_t nl = static_cast<uint32_t>(nlong);
-    if (slot_major) {
-      spmv_merge_kernel<true><<<mg, kThreads, 0, st>>>(so, ro, sc, mod, s, nl, o);
-    } else {
-      spmv_merge_kernel<false><<<mg, kThreads, 0, st>>>(so, ro, sc, mod, s, nl, o);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 // y, a, c: uint32 [R, L, K] with row and limb strides (the slot axis

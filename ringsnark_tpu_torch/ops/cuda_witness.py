@@ -1,12 +1,13 @@
 """The witness map's kernels on the card (``csrc/witness.cu``): ctypes
 binding, checks, launch.
 
-* ``spmv`` (``spmv_kernel``, with ``spmv_merge_kernel`` where a row is cut
-  into segments): one matrix's constraint evaluations ``out[r, l, i] = sum_k
-  coef[k, l, i or 0] * z[idx[k], l, i] mod p_l`` from a ``relations.r1cs.CSR``
-  and its coefficients, the assignment read in place as up to three
-  row blocks at a slot window, into ``[rows, L, n]`` or slot-major ``[n, L,
-  rows]``;
+* ``spmv`` (``spmv_kernel``): the constraint evaluations of up to three
+  matrices in one launch, ``out_m[r, l, i] = sum_k coef_m[k, l, i or 0] *
+  z[idx_m[k], l, i] mod p_l``, each from a ``relations.r1cs.CSR`` and its
+  coefficients, the assignment read in place as up to three row blocks at
+  a slot window, into ``[rows, L, n]`` or slot-major ``[n, L, rows]``;
+  rows longer than the CSR's ``long_len`` are work items of their own in
+  the same launch;
 * ``mulmod`` (``mulmod_kernel``): ``y = a * b (+ c) mod p_l`` over int32
   ``[R, L, K]``, b full or constant along the slots, in place where ``out``
   is a or c.
@@ -18,9 +19,12 @@ package's XLA code: ``CompiledR1CS.eval_matrices``' gather, Barrett
 r1cs.py:222-241``) and the pointwise product of ``_witness_map_kernel``
 (``ringsnark_tpu/reductions/r1cs_to_qrp.py:444-448``); no Pallas kernel
 stands behind either.  Both are bound by their bytes at the main path's
-shapes; ``csrc/witness.cu``'s head gives the design and the exactness
+shapes; ``csrc/witness.cu``'s head gives the design (persistent CTAs, the
+next tile's gathers in flight in a shared-memory ring, long rows shared by
+a CTA, the slot-major store by warp tiles) and the exactness
 argument (canonical words, moduli in [2, 2^31): ``moduli`` refuses any
-other by name).
+other by name).  ``geometry`` is the launcher's tile, which
+``tests/witness_replay.py`` replays in numpy.
 
 Nothing is built or loaded at import time: the kernels are compiled into
 the library of ``cuda_ntt.build`` at first use.  The wrappers take only CUDA
@@ -29,11 +33,8 @@ nothing falls back.  The dispatch (plain versions on any other device) is
 the callers' (``CompiledR1CS.evaluate``, ``r1cs_to_qrp._mulmod``), by
 `on_card`.
 ``launch_counts`` holds one plain integer per kernel, incremented where a
-wrapper launches it and nowhere else: ``spmv`` once a call (the main pass,
-with the segment pass before it where a row is cut), ``spmv_merge`` once a
-call that cuts a row (``spmv_merge_kernel``; its time is inside ``spmv``'s),
-``mulmod``.  ``tests/witness_replay.py``
-replays both in numpy from this module's geometry.
+wrapper launches it and nowhere else: ``spmv`` once a call (every matrix
+of the call, long rows included), ``mulmod`` once a call.
 """
 
 from __future__ import annotations
@@ -46,15 +47,19 @@ import torch
 
 from . import cuda_ntt
 
-__all__ = ["spmv", "mulmod", "moduli", "tile", "on_card", "launch_counts", "reset_launch_counts",
-           "KERNELS", "MAX_BLOCKS", "MAX_LIMBS", "TILE"]
+__all__ = ["spmv", "mulmod", "moduli", "geometry", "on_card", "launch_counts",
+           "reset_launch_counts", "KERNELS", "MAX_BLOCKS", "MAX_LIMBS", "MAX_MATS"]
 
 KERNELS = ("spmv", "mulmod")
-launch_counts = {k: 0 for k in (*KERNELS, "spmv_merge")}
+launch_counts = {k: 0 for k in KERNELS}
 MAX_BLOCKS = 3  # kMaxBlocks in csrc/witness.cu: row blocks of the assignment
 MAX_LIMBS = 32  # kMaxLimbs
-TILE = 1024  # kTile: outputs a CTA
-MAX_TILE_SLOTS = 32  # kMaxTileSlots
+MAX_MATS = 3  # kMaxMats: matrices a launch
+THREADS = 256  # kThreads
+MAX_TILE_LIMBS = 4  # kMaxTileLimbs: the limbs a tile takes at n = 1
+MAX_GROUP = 32  # 1 << kLogMaxGroup: a row's threads in a tile
+LONG_GROUP = 8  # 1 << kLogLongGroup: a long row's threads a slot group
+STAGES = 2  # kStages: the ring's stages
 _I32 = torch.int32
 
 
@@ -67,9 +72,8 @@ def reset_launch_counts():
 def _lib():
     lib = ctypes.CDLL(str(cuda_ntt.build().path))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ringsnark_spmv.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, ptr, ptr, i32, ptr, ptr, i32,
-                                   i64, i64, i64, i32, i32, i64, ptr, ptr, ptr, i64, i64, ptr,
-                                   ptr, ptr]
+    lib.ringsnark_spmv.argtypes = [ptr, i32, ptr, ptr, i32, ptr, ptr, i32, i64, i64, i64, i32,
+                                   ptr]
     lib.ringsnark_mulmod.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, ptr, ptr, ptr, ptr]
     lib.ringsnark_spmv.restype = lib.ringsnark_mulmod.restype = ctypes.c_int
     return lib
@@ -91,13 +95,23 @@ def moduli(primes: tuple) -> tuple[np.ndarray, np.ndarray]:
             np.ascontiguousarray([(1 << 64) // int(p) for p in primes], dtype=np.uint64))
 
 
-def tile(n: int) -> tuple[int, int]:
-    """(TS, TR): the slots and rows of spmv_kernel's tile for n output slots,
-    TS the next power of two of n up to MAX_TILE_SLOTS, TS * TR = TILE."""
-    ts = 1
-    while ts < n and ts < MAX_TILE_SLOTS:
-        ts *= 2
-    return ts, TILE // ts
+def geometry(n: int, vec: int, L: int = 1,
+             slot_major: bool = False) -> tuple[int, int, int, int]:
+    """(log2 G, log2 TS, log2 TR, limbs) of spmv_kernel's tile for n output
+    slots of L limbs at `vec` adjacent slots a thread (4 or 1): G threads a
+    row (the next power of two of n / vec, at most MAX_GROUP), TS = G * vec
+    slots, TR = THREADS / G rows times a thread's rows (8 at vec 4, 4 at
+    vec 1), and the tile's limbs (all L at n = 1 where L <= MAX_TILE_LIMBS,
+    else 1).  Slot-major at n > 1 takes the warp tiles: the vec-4 tile
+    whatever `vec`, at least 8 threads (32 slots) a row."""
+    warp = slot_major and n > 1
+    tv = 4 if warp else vec
+    log_g = 3 if warp else 0
+    while (tv << log_g) < n and (1 << log_g) < MAX_GROUP:
+        log_g += 1
+    log_ts = log_g + (tv == 4) * 2
+    log_tr = (THREADS.bit_length() - 1) - log_g + (3 if tv == 4 else 2)
+    return log_g, log_ts, log_tr, L if n == 1 and L <= MAX_TILE_LIMBS else 1
 
 
 def on_card(x: torch.Tensor) -> bool:
@@ -160,44 +174,46 @@ def blocks(z, L: int, lo: int, n: int) -> tuple[np.ndarray, np.ndarray, list]:
     return np.array(ptrs, dtype=np.uint64), np.array(meta, dtype=np.int64), keep
 
 
-def spmv(csr, coeffs: torch.Tensor, z, primes: tuple, rows: int, lo: int, n: int,
-         slot_major: bool) -> torch.Tensor:
-    """One matrix's evaluations on the card: `csr` a ``relations.r1cs.CSR``,
-    `coeffs` its coefficients int32 ``[nnz, L, nc]`` in the CSR's order (any
-    strides: ``CompiledR1CS.csr_coeffs``, a limb's view), `z` the
-    assignment's row blocks (at least ``csr.cols`` rows in all), `rows` >=
+def spmv(plans, z, primes: tuple, rows: int, lo: int, n: int,
+         slot_major: bool) -> tuple[torch.Tensor, ...]:
+    """The evaluations of up to MAX_MATS matrices on the card in one launch:
+    `plans` pairs (csr, coeffs) of a ``relations.r1cs.CSR`` and its
+    coefficients int32 ``[nnz, L, nc]`` in the CSR's order (any strides:
+    ``CompiledR1CS.csr_coeffs``, a limb's view), `z` the assignment's row
+    blocks (at least every CSR's ``cols`` rows in all), `rows` >= every
     ``csr.rows`` output rows, the window [lo, lo + n) of the wide blocks and
-    of coefficients with nc > 1.  Returns int32 ``[rows, L, n]``, or ``[n,
-    L, rows]`` where `slot_major`.  Required of the caller and not checked:
-    canonical coefficients and assignment words."""
+    of coefficients with nc > 1.  Returns a tensor a plan, int32 ``[rows, L,
+    n]``, or ``[n, L, rows]`` where `slot_major`.  Required of the caller
+    and not checked: canonical coefficients and assignment words."""
     L = len(primes)
     q, mu = moduli(tuple(primes))
+    if not 1 <= len(plans) <= MAX_MATS:
+        raise ValueError(f"cuda_witness.spmv: {len(plans)} matrices, one launch takes 1 to "
+                         f"{MAX_MATS}")
     total = sum(b.shape[0] for b in z)
-    if total < csr.cols:
-        raise IndexError(f"gather index out of range for {total} rows")
-    if rows < csr.rows:
-        raise IndexError(f"scatter index out of range for {rows} rows")
-    _check(coeffs, "spmv (coefficients)")
-    nc = coeffs.shape[-1]
-    if (coeffs.dim() != 3 or coeffs.shape[:2] != (csr.idx.numel(), L)
-            or (nc > 1 and (coeffs.stride(-1) != 1 or lo + n > nc))):
-        raise ValueError(f"cuda_witness.spmv: coefficients {tuple(coeffs.shape)} for "
-                         f"{csr.idx.numel()} nonzeros, L={L}, slots [{lo}, {lo + n})")
-    cs = np.array([coeffs.stride(0), coeffs.stride(1), 1 if nc > 1 else 0], dtype=np.int64)
     zp, zm, keep = blocks(z, L, lo, n)
-    dev = coeffs.device
-    out = torch.empty((n, L, rows) if slot_major else (rows, L, n), dtype=_I32, device=dev)
-    scratch = (torch.empty((csr.seg.shape[0], L, n), dtype=_I32, device=dev)
-               if csr.nlong else out)
-    _launch("spmv", "ringsnark_spmv", dev, None if csr.unit else csr.ptr.data_ptr(),
-            csr.idx.data_ptr(), csr.head.data_ptr(), coeffs.data_ptr(), _host(cs),
-            lo if nc > 1 else 0, _host(zp), _host(zm), len(keep), _host(q), _host(mu), L,
-            csr.rows, rows, n, int(slot_major), int(csr.unit), csr.seg_len,
-            csr.seg.data_ptr(), csr.seg_of.data_ptr(), csr.rows_of.data_ptr(),
-            csr.seg.shape[0], csr.nlong, scratch.data_ptr(), out.data_ptr())
-    if csr.nlong:
-        launch_counts["spmv_merge"] += 1
-    return out
+    mats, outs = np.zeros((len(plans), 13), dtype=np.int64), []
+    for k, (csr, coeffs) in enumerate(plans):
+        if total < csr.cols:
+            raise IndexError(f"gather index out of range for {total} rows")
+        if rows < csr.rows:
+            raise IndexError(f"scatter index out of range for {rows} rows")
+        _check(coeffs, "spmv (coefficients)")
+        nc = coeffs.shape[-1]
+        if (coeffs.dim() != 3 or coeffs.shape[:2] != (csr.idx.numel(), L)
+                or (nc > 1 and (coeffs.stride(-1) != 1 or lo + n > nc))):
+            raise ValueError(f"cuda_witness.spmv: coefficients {tuple(coeffs.shape)} for "
+                             f"{csr.idx.numel()} nonzeros, L={L}, slots [{lo}, {lo + n})")
+        out = torch.empty((n, L, rows) if slot_major else (rows, L, n), dtype=_I32,
+                          device=coeffs.device)
+        mats[k] = (0 if csr.unit else csr.ptr.data_ptr(), csr.idx.data_ptr(),
+                   csr.head.data_ptr(), coeffs.data_ptr(), csr.longs.data_ptr(),
+                   out.data_ptr(), csr.rows, csr.nlong, int(csr.unit), csr.long_len,
+                   coeffs.stride(0), coeffs.stride(1), 1 if nc > 1 else 0)
+        outs.append(out)
+    _launch("spmv", "ringsnark_spmv", outs[0].device, _host(mats), len(plans), _host(zp),
+            _host(zm), len(keep), _host(q), _host(mu), L, rows, n, lo, int(slot_major))
+    return tuple(outs)
 
 
 def _as3(x: torch.Tensor) -> torch.Tensor:

@@ -9,11 +9,12 @@ round trip in the JAX package's format.
 `compile()` lowers the three sparse matrices to COO index/coefficient
 tensors on the context's device.  ``CompiledR1CS.evaluate`` (and
 ``eval_matrices``, its public form) dispatches on the assignment's device:
-on the card each matrix goes to ``ops/cuda_witness.spmv`` with the matrix's
-CSR (`derive_csr`: the nonzeros stably sorted by the rows they add into,
-row pointers, each row's first gather index, long rows cut into segments;
-the COO's own index and coefficient tensors where it is in row order),
-derived once per compiled system and kept with it; on any other device `spmv`, a gather, a
+on the card the matrices of a call go to ``ops/cuda_witness.spmv`` in one
+launch, each with its CSR (`derive_csr`: the nonzeros stably sorted by the
+rows they add into, row pointers, each row's first gather index, the rows
+longer than LONG_ROW; the COO's own index and coefficient tensors where it
+is in row order), derived once per compiled system and kept with it; on any
+other device `spmv`, a gather, a
 modular multiply and an ``index_add_`` segment sum in int64, runs (the
 kernel's plain version).  JAX clamps out-of-range gathers and drops
 out-of-range segment ids; torch raises or writes out of bounds, so the
@@ -24,7 +25,6 @@ an index outside the system's sizes is refused.
 from __future__ import annotations
 
 import json
-import math
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -37,7 +37,7 @@ from ..rings.elem import RingElem
 from .variable import LinearCombination, LinearTerm
 
 __all__ = ["R1CSConstraint", "R1CSConstraintSystem", "CompiledR1CS", "CSR", "derive_csr",
-           "spmv", "SEG_MIN"]
+           "spmv", "LONG_ROW"]
 
 
 class R1CSConstraint:
@@ -232,7 +232,7 @@ def spmv(vals, coeffs, gather_idx, scatter_idx, num_out: int, p):
     return torch.remainder(acc, p).to(torch.int32)
 
 
-SEG_MIN = 64  # a row of up to this many nonzeros is never cut into segments
+LONG_ROW = 32  # a row of more nonzeros is a work item of its own in spmv_kernel
 
 
 @dataclass(frozen=True)
@@ -247,20 +247,17 @@ class CSR:
     nonzero.  Where every row is one nonzero (`unit`: row r is nonzero r)
     there is no `ptr` and `head` is `idx`.  `rows` and `cols` are one past
     the largest row and gather index (the output rows and assignment rows a
-    call needs).  A row of more than `seg_len` nonzeros is cut into
-    segments of `seg_len`: `seg` their [start, end) ranges,
-    ``seg_of[j]..seg_of[j + 1]`` those of long row `rows_of[j]`."""
+    call needs).  `longs` lists the rows of more than `long_len` nonzeros,
+    in order: the kernel's tiles skip them and a CTA's threads share each."""
 
     ptr: torch.Tensor | None  # int32 [rows + 1]; None where `unit`
     idx: torch.Tensor  # int64 [nnz]
-    head: torch.Tensor  # int64 [rows]
+    head: torch.Tensor  # int32 [rows]; `idx` where `unit`
     perm: torch.Tensor | None  # int64 [nnz]; None where the COO is in row order
     rows: int
     cols: int
-    seg_len: int
-    seg: torch.Tensor  # int32 [segments, 2]
-    seg_of: torch.Tensor  # int32 [long rows + 1]
-    rows_of: torch.Tensor  # int32 [long rows]
+    long_len: int
+    longs: torch.Tensor  # int32 [long rows]
     max_len: int  # the longest row's nonzeros
 
     @property
@@ -269,18 +266,16 @@ class CSR:
 
     @property
     def nlong(self) -> int:
-        return self.rows_of.numel()
+        return self.longs.numel()
 
 
 def derive_csr(scatter: torch.Tensor, gather: torch.Tensor, n_out: int, n_in: int) -> CSR:
     """The CSR of a COO matrix whose nonzero k adds into output row
     scatter[k] from assignment row gather[k].  Every index is checked here,
     once: one outside [0, n_out) or [0, n_in) raises IndexError (JAX would
-    clamp or drop it, a kernel would read or write out of bounds).  Rows
-    longer than `seg_len` (the longest row's square root rounded up to a
-    power of two, at least SEG_MIN) are cut into segments, so no thread of
-    the kernel adds more than about that many terms.  Two reads of the
-    device, three where a row is cut; none on any later call."""
+    clamp or drop it, a kernel would read or write out of bounds).  Rows of
+    more than LONG_ROW nonzeros are listed in `longs`.  Two reads of the
+    device, three where a row is long; none on any later call."""
     dev, nnz = scatter.device, scatter.numel()
     if nnz >= 1 << 31:
         raise ValueError(f"derive_csr: {nnz} nonzeros, the kernel takes fewer than 2^31")
@@ -300,29 +295,17 @@ def derive_csr(scatter: torch.Tensor, gather: torch.Tensor, n_out: int, n_in: in
     idx = gather if perm is None else gather[perm]
     counts = torch.bincount(scatter, minlength=rows)
     max_len = int(counts.max()) if rows else 0
-    root = math.isqrt(max_len - 1) + 1 if max_len else 0  # ceil(sqrt(max_len))
-    seg_len = max(SEG_MIN, 1 << max(root - 1, 0).bit_length())
     i32 = torch.int32
-    seg = torch.zeros((0, 2), dtype=i32, device=dev)
-    seg_of = torch.zeros(1, dtype=i32, device=dev)
-    rows_of = torch.zeros(0, dtype=i32, device=dev)
+    longs = (torch.nonzero(counts > LONG_ROW).flatten().to(i32) if max_len > LONG_ROW
+             else torch.zeros(0, dtype=i32, device=dev))
     if rows == nnz and max_len == 1:  # row r is nonzero r
-        return CSR(None, idx, idx, perm, rows, cols, seg_len, seg, seg_of, rows_of, max_len)
-    ptr = torch.zeros(rows + 1, dtype=torch.int64, device=dev)
+        return CSR(None, idx, idx, perm, rows, cols, LONG_ROW, longs, max_len)
+    ptr = torch.zeros(rows + 1, dtype=i32, device=dev)
     ptr[1:] = counts.cumsum(0)
-    if max_len > seg_len:
-        rows_of = torch.nonzero(counts > seg_len).flatten()
-        nseg = (counts[rows_of] + seg_len - 1) // seg_len
-        seg_of = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), nseg.cumsum(0)])
-        j = torch.repeat_interleave(torch.arange(rows_of.numel(), device=dev), nseg)
-        start = ptr[rows_of][j] + (torch.arange(j.numel(), device=dev) - seg_of[j]) * seg_len
-        end = torch.minimum(start + seg_len, ptr[rows_of + 1][j])
-        seg = torch.stack([start, end], dim=1).to(i32)
-        seg_of, rows_of = seg_of.to(i32), rows_of.to(i32)
-    head = (torch.where(counts > 0, idx[ptr[:-1].clamp(max=nnz - 1)], 0) if nnz
-            else torch.zeros(rows, dtype=torch.int64, device=dev))
-    return CSR(ptr.to(i32), idx, head, perm, rows, cols, seg_len, seg, seg_of, rows_of,
-               max_len)
+    first = idx[ptr[:-1].clamp(max=nnz - 1).long()] if nnz else None
+    head = (torch.where(counts > 0, first, 0).to(i32) if nnz
+            else torch.zeros(rows, dtype=i32, device=dev))
+    return CSR(ptr, idx, head, perm, rows, cols, LONG_ROW, longs, max_len)
 
 
 def _window(x: torch.Tensor, lo: int, width: int | None) -> torch.Tensor:
@@ -406,20 +389,18 @@ class CompiledR1CS:
         transposed: z holds one row per constraint and the result one per
         variable (the instance map's At·u).  Each result is int32
         [num_rows, L, n'], or [n', L, num_rows] where `slot_major`; n' the
-        window's slots (1 where nothing is wider).  On the card each
-        matrix is one ``cuda_witness.spmv``; elsewhere `spmv`."""
+        window's slots (1 where nothing is wider).  On the card the
+        matrices are one ``cuda_witness.spmv``, one launch; elsewhere
+        `spmv`, one a matrix."""
         blocks = (z,) if isinstance(z, torch.Tensor) else tuple(z)
         if not cuda_witness.on_card(blocks[0]):
             return tuple(self._evaluate_plain(blocks, num_rows, w, lo, width, slot_major,
                                               transposed) for w in which)
         widths = [b.shape[-1] for b in blocks] + [self.coeffs[w].shape[-1] for w in which]
         n = max(widths) if width is None else (width if max(widths) > 1 else 1)
-        outs = []
-        for w in which:
-            csr = self.csr(w, transposed)
-            outs.append(cuda_witness.spmv(csr, self.csr_coeffs(w, csr), blocks, self.ctx.primes,
-                                          num_rows, lo, n, slot_major))
-        return tuple(outs)
+        plans = [(csr, self.csr_coeffs(w, csr)) for w, csr in
+                 ((w, self.csr(w, transposed)) for w in which)]
+        return cuda_witness.spmv(plans, blocks, self.ctx.primes, num_rows, lo, n, slot_major)
 
     def _evaluate_plain(self, blocks, num_rows, which, lo, width, slot_major, transposed):
         blocks = [_window(b, lo, width) for b in blocks]

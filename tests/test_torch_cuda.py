@@ -832,45 +832,66 @@ def _chain(N: int, L: int, M: int, device: str, seed: int = 0):
                                                 .default_rng(seed)))
 
 
+# (ring slots N, limbs L, the window's first slot and width)
+SPMV_CASES = {"n1_L3": (1, 3, 0, None), "window_1024": (2048, 1, 1024, 1024),
+              "unaligned_1000": (1024, 2, 1, 1000), "narrow_16": (16, 2, 0, None),
+              "narrow_unaligned_6": (8, 1, 1, 6)}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("slot_major", [False, True], ids=["rows", "slot_major"])
-@pytest.mark.parametrize("n,L", [(1, 3), (1024, 1)])
-def test_spmv_kernel_equals_plain(cuda, n, L, slot_major):
-    """A, B, C of the squaring chain (M = 2048) on the card == the plain
-    int64 spmv on the same tensors, the assignment read in place as three
-    row blocks over a slot window, in both layouts; and a system with
-    rows long enough to be cut into segments (the transposed instance map
-    too)."""
+@pytest.mark.parametrize("case", SPMV_CASES)
+def test_spmv_kernel_equals_plain(cuda, case, slot_major):
+    """A, B, C of the squaring chain (M = 2048) on the card, one launch, ==
+    the plain int64 spmv on the same tensors, the assignment read in place
+    as three row blocks over a slot window (Z_q's L = 3 at n = 1; 1024 of
+    2048 slots; the unaligned window [1, 1001): 4-byte words; 16 slots and
+    the window [1, 7): warp tiles narrower than their 32 slots, 16-byte and
+    4-byte words), in both layouts; and, again one launch, a system with a long row of 3000
+    nonzeros gathering from all three blocks, a row of exactly LONG_ROW
+    nonzeros and one of LONG_ROW + 1, and the constant column in every
+    constraint (a long row of the transposed instance map)."""
     from ringsnark_tpu_torch.ops import cuda_witness
-    from ringsnark_tpu_torch.relations.r1cs import CompiledR1CS
+    from ringsnark_tpu_torch.relations.r1cs import LONG_ROW, CompiledR1CS
 
-    ring, comp, primary, aux = _chain(n, L, 2048, "cuda")
+    N, L, lo, width = SPMV_CASES[case]
+    ring, comp, primary, aux = _chain(N, L, 2048, "cuda")
     one = torch.ones((1, L, 1), dtype=torch.int32, device="cuda")
     blocks = (one, primary.res, aux.res)
-    lo, width = (256, 512) if n > 1 else (0, None)
     before = cuda_witness.launch_counts["spmv"]
     got = comp.evaluate(blocks, 2048 + 64, (0, 1, 2), lo, width, slot_major)
     torch.cuda.synchronize()
-    assert cuda_witness.launch_counts["spmv"] == before + 3
+    assert cuda_witness.launch_counts["spmv"] == before + 1
     for w, g in enumerate(got):
         assert torch.equal(g, comp._evaluate_plain(blocks, 2048 + 64, w, lo, width, slot_major,
                                                    False))
-    # a long row (3000 nonzeros) and the constant column in every constraint
-    rows = torch.cat([comp.rows[0], torch.full((3000,), 7, device="cuda"),
-                      torch.arange(2048, device="cuda")])
-    cols = torch.cat([comp.cols[0], torch.randint(0, 2049, (3000,), device="cuda"),
-                      torch.zeros(2048, dtype=torch.int64, device="cuda")])
+    dev = "cuda"
+    base = (torch.bincount(comp.rows[0], minlength=2048) + 1).tolist()  # with the constant's
+    n11, n13 = LONG_ROW - base[11], LONG_ROW + 1 - base[13]
+    rows = torch.cat([comp.rows[0], torch.full((3000,), 7, device=dev),
+                      torch.full((n11,), 11, device=dev), torch.full((n13,), 13, device=dev),
+                      torch.arange(2048, device=dev)])
+    cols = torch.cat([comp.cols[0], torch.arange(3000, device=dev) % 2049,
+                      torch.randint(0, 2049, (n11 + n13,), device=dev),
+                      torch.zeros(2048, dtype=torch.int64, device=dev)])
     coeffs = _residues(ring.primes, 1, rows.numel(), cuda, seed=5)
     wide = CompiledR1CS(ctx=ring, num_constraints=2048, num_variables=comp.num_variables,
                         primary_input_size=1, rows=(rows,) * 3, cols=(cols,) * 3,
                         coeffs=(coeffs,) * 3)
-    assert wide.csr(0).nlong == 1 and wide.csr(0, transposed=True).nlong >= 1
-    got = wide.evaluate(blocks, 2048, (0,), lo, width, slot_major)[0]
-    assert torch.equal(got, wide._evaluate_plain(blocks, 2048, 0, lo, width, slot_major, False))
+    assert wide.csr(0).longs.tolist() == [7, 13] and wide.csr(0, transposed=True).nlong >= 1
+    before = cuda_witness.launch_counts["spmv"]
+    got = wide.evaluate(blocks, 2048, (0, 1, 2), lo, width, slot_major)
+    torch.cuda.synchronize()
+    assert cuda_witness.launch_counts["spmv"] == before + 1
+    want = wide._evaluate_plain(blocks, 2048, 0, lo, width, slot_major, False)
+    assert all(torch.equal(g, want) for g in got)
     u = _residues(ring.primes, 1, 2048, cuda, seed=6)
     got = wide.evaluate(u, comp.num_variables + 1, (0,), transposed=True)[0]
     assert torch.equal(got, wide._evaluate_plain((u,), comp.num_variables + 1, 0, 0, None,
                                                  False, True))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_witness.spmv([(comp.csr(0), comp.coeffs[0].cpu())], blocks, ring.primes, 2048, lo,
+                          width or 1, slot_major)
 
 
 @pytest.mark.gpu

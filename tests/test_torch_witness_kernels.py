@@ -1,16 +1,19 @@
 """The witness map's kernels (``csrc/witness.cu``) on the CPU: the CSR that
 ``relations/r1cs.py`` derives, the kernels replayed in numpy from the
-wrapper's own geometry (``tests/witness_replay.py``: the tile walk, the
-Shoup terms and their sums, the tiled slot-major store, the long rows'
-segments and merge; ``mulmod``'s words) and the plain `spmv`, all held to
-the JAX package's ``CompiledR1CS.eval_matrices`` and
-``eval_instance_arrays`` bit for bit:
+wrapper's own geometry (``tests/witness_replay.py``: one launch for every
+matrix of a call, the persistent walk at 1, 3 and 1000 CTAs, the stage
+ring, the 16-byte and 4-byte paths, the long rows shared by a CTA and their
+partial sums, the Shoup terms, the slot-major warp tiles; ``mulmod``'s
+words) and the plain `spmv`, all held to the JAX package's
+``CompiledR1CS.eval_matrices`` and ``eval_instance_arrays`` bit for bit:
 
 * systems with duplicate (row, column) entries, empty rows and more output
   rows than constraints; dense coefficients read at a slot offset; the
-  transposed orientation (the instance map); rows long enough to be cut
-  into segments; residues p - 1 at the smallest and largest primes the
-  contexts make;
+  transposed orientation (the instance map); long rows (at a 1024-slot
+  window, at n = 1, gathering from all three row blocks), a row of exactly
+  LONG_ROW nonzeros and one past it; a window at an unaligned offset and
+  an odd width; L = 3 at n = 1; residues p - 1 at the smallest and largest
+  primes the contexts make;
 * an index outside the system refused when the CSR is derived, a modulus
   at or above 2^31 refused by name;
 * ``mulmod`` (full and slot-constant b, with and without the added c, in
@@ -42,7 +45,7 @@ from ringsnark_tpu_torch.encoding.context import _HE_STD_128, default_inner_prim
 from ringsnark_tpu_torch.ops import cuda_witness
 from ringsnark_tpu_torch.ops.modops import add_mod, mul_mod
 from ringsnark_tpu_torch.reductions import r1cs_to_qrp as tred
-from ringsnark_tpu_torch.relations.r1cs import SEG_MIN, CompiledR1CS, derive_csr
+from ringsnark_tpu_torch.relations.r1cs import LONG_ROW, CompiledR1CS, derive_csr
 from ringsnark_tpu_torch.rings.context import RingContext
 from ringsnark_tpu_torch.rings.elem import RingElem
 from ringsnark_tpu_torch.utils import interop
@@ -71,10 +74,10 @@ def _context_primes() -> tuple:
 def replayed(monkeypatch):
     """The witness map's wrappers take CPU tensors for the card's: the
     checks, the CSR, the launch arguments run; the library is the numpy
-    replay."""
-    fake = witness_replay.lib()
+    replay (`spmv` walking `ctas` CTAs)."""
 
-    def install():
+    def install(ctas: int = 5):
+        fake = witness_replay.lib(ctas)
         monkeypatch.setattr(cuda_witness, "_lib", lambda: fake)
         monkeypatch.setattr(cuda_witness, "_check_device", lambda x, name: None)
         monkeypatch.setattr(cuda_witness, "on_card", lambda x: True)
@@ -99,10 +102,29 @@ CASES = {
     # dense coefficients (nc = N), the window [2, 6) of 8 slots
     "dense_slot_window": dict(L=2, N=8, m=12, nv=10, nnz=40, num_rows=16, dense=True, lo=2,
                               width=4),
-    # one row of 300 nonzeros (cut into segments of 64) and the constant
-    # column in 150 constraints (a long row of the transposed CSR)
+    # one row of 300 nonzeros and the constant column in 150 constraints (a
+    # long row of the transposed CSR)
     "long_rows": dict(L=1, N=4, m=200, nv=30, nnz=500, num_rows=256, long_row=300,
                       const_col=150),
+    # a long row at a 1024-slot window (every slot tile shares it) and at n = 1
+    "long_row_1024_slots": dict(L=1, N=1024, m=40, nv=20, nnz=60, num_rows=64, long_row=100,
+                                const_col=40),
+    "long_row_n1": dict(L=2, N=1, m=60, nv=25, nnz=90, num_rows=64, long_row=300,
+                        const_col=50),
+    # a row of exactly LONG_ROW nonzeros (a tile's) and one of LONG_ROW + 1 (its own item)
+    "threshold_rows": dict(L=2, N=8, m=30, nv=40, nnz=50, num_rows=32,
+                           exact={7: LONG_ROW, 9: LONG_ROW + 1}),
+    # the window [1, 1001) of 1024 slots: 4-byte words (dense coefficients too)
+    "unaligned_window": dict(L=1, N=1024, m=20, nv=15, nnz=40, num_rows=32, dense=True, lo=1,
+                             width=1000),
+    # the window [4, 1004): 16-byte words, the last slot tile part full
+    "odd_width_aligned": dict(L=2, N=1024, m=20, nv=15, nnz=40, num_rows=32, dense=True, lo=4,
+                              width=1000),
+    # a long row gathering from every row of all three blocks
+    "long_row_three_blocks": dict(L=2, N=16, m=20, nv=30, nnz=40, num_rows=32, long_row=80,
+                                  const_col=0, spread=True),
+    # Z_q with three limbs: a thread's row, the limbs' tiles adjacent
+    "zq_L3_n1": dict(L=3, N=1, m=40, nv=30, nnz=90, num_rows=64),
     # a COO already in row order (as compile emits it): its own index and
     # coefficient tensors read in place, rows of one to six nonzeros
     "in_row_order": dict(L=2, N=4, m=20, nv=15, nnz=60, num_rows=32, in_order=True),
@@ -128,14 +150,19 @@ def _system(name):
     coo = []
     for _ in range(3):
         rows = rng.integers(0, m, cfg["nnz"])
-        rows = np.where(np.isin(rows, cfg.get("empty", ())), 0, rows)
+        rows = np.where(np.isin(rows, cfg.get("empty", ()) + tuple(cfg.get("exact", {}))), 0,
+                        rows)
         cols = rng.integers(0, nv + 1, cfg["nnz"])
+        for r, count in cfg.get("exact", {}).items():  # rows of exactly `count` nonzeros
+            rows = np.concatenate([rows, np.full(count, r)])
+            cols = np.concatenate([cols, rng.integers(0, nv + 1, count)])
         if cfg.get("dup"):  # repeat some (row, col) pairs
             k = rng.integers(0, cfg["nnz"], cfg["dup"])
             rows, cols = np.concatenate([rows, rows[k]]), np.concatenate([cols, cols[k]])
         if cfg.get("long_row"):
             rows = np.concatenate([rows, np.full(cfg["long_row"], 5)])
-            cols = np.concatenate([cols, rng.integers(0, nv + 1, cfg["long_row"])])
+            cols = np.concatenate([cols, np.arange(cfg["long_row"]) % (nv + 1) if cfg.get("spread")
+                                   else rng.integers(0, nv + 1, cfg["long_row"])])
             rows = np.concatenate([rows, rng.integers(0, m, cfg["const_col"])])
             cols = np.concatenate([cols, np.zeros(cfg["const_col"], np.int64)])
         if cfg.get("in_order"):
@@ -165,14 +192,23 @@ def _system(name):
 @pytest.mark.parametrize("case", CASES)
 def test_spmv_replay_and_plain_equal_jax(replayed, case):
     """A.z, B.z, C.z: JAX's eval_matrices == the plain spmv == the replayed
-    kernel over the CSR, in both layouts, over all slots and over a slot
-    window (the wide operands read at the window's offset in place); the
-    CSR's rows hold each row's nonzeros once, in the COO's order."""
+    kernel over the CSRs, one launch a call, in both layouts, at 1, 3 and
+    1000 CTAs, over all slots and over a slot window (the wide operands read
+    at the window's offset in place), the assignment as one tensor (each
+    slot its own row 0) and as three row blocks (the constant row a
+    one-slot block, so z's row 0 the same in every slot there, with JAX's
+    result on that z); the CSR's rows hold each row's nonzeros once, in the
+    COO's order; its long-row list is the rows of more than LONG_ROW
+    nonzeros."""
     cfg = CASES[case]
     jring, jcomp, tring, tcomp, z, coo = _system(case)
     num_rows = cfg["num_rows"]
-    want = [np.asarray(w) for w in jcomp.eval_matrices(jnp.asarray(z), num_rows=num_rows)]
-    zt = torch.from_numpy(z.view(np.int32))
+    zc = z.copy()
+    zc[0] = zc[0, :, :1]  # the provers' constant row, the same in every slot
+    want, want_c = ([np.asarray(w) for w in jcomp.eval_matrices(jnp.asarray(x),
+                                                                num_rows=num_rows)]
+                    for x in (z, zc))
+    zt, ztc = (torch.from_numpy(x.view(np.int32)) for x in (z, zc))
     plain = tcomp.eval_matrices(zt, num_rows)
     for w, g in zip(want, plain):
         assert np.array_equal(_u(g), w)
@@ -186,23 +222,34 @@ def test_spmv_replay_and_plain_equal_jax(replayed, case):
             np.diff(ptr) > 0])
         for r in range(csr.rows):  # a stable sort: the COO's order within a row
             assert (np.diff(order[ptr[r]:ptr[r + 1]]) > 0).all()
+        assert csr.long_len == LONG_ROW
+        assert np.array_equal(csr.longs.numpy(), np.flatnonzero(np.diff(ptr) > LONG_ROW))
     if cfg.get("long_row"):
-        assert tcomp.csr(0).nlong and tcomp.csr(0, transposed=True).nlong
-        assert tcomp.csr(0).seg_len == SEG_MIN
+        assert 5 in tcomp.csr(0).longs.tolist()
+        assert (tcomp.csr(0, transposed=True).nlong > 0) == (cfg["const_col"] > LONG_ROW)
+    if cfg.get("exact"):
+        assert tcomp.csr(0).longs.tolist() == [9]  # 7 has exactly LONG_ROW nonzeros
     if cfg.get("in_order"):  # no copy of the COO's indices or coefficients
         assert tcomp.csr(0).perm is None and tcomp.csr(0).idx is tcomp.cols[0]
         assert tcomp.csr_coeffs(0, tcomp.csr(0)) is tcomp.coeffs[0]
-    fake = replayed()
     lo, width = cfg.get("lo", 0), cfg.get("width")
     sl = slice(lo, lo + width) if width else slice(None)
-    halves = (zt[:4], zt[4:])  # two row blocks, read in place
-    for slot_major in (False, True):
-        got = tcomp.evaluate(halves, num_rows, lo=lo, width=width, slot_major=slot_major)
-        for w, g in zip(want, got):
+    three = (ztc[:1, :, :1], ztc[1:4], ztc[4:])  # three row blocks, read in place
+    calls = [(three, want_c, slot_major, ctas) for slot_major in (False, True)
+             for ctas in (1, 3, 1000)]
+    calls.append(((zt,), want, True, 5))
+    n = width or z.shape[-1]
+    vec = 1 if n % 4 or lo % 4 else 4
+    for blocks, expect, slot_major, ctas in calls:
+        fake = replayed(ctas)
+        got = tcomp.evaluate(blocks, num_rows, lo=lo, width=width, slot_major=slot_major)
+        for w, g in zip(expect, got):
             g = g.permute(2, 1, 0) if slot_major else g
             assert np.array_equal(_u(g.contiguous()), w[..., sl])
-    assert cuda_witness.launch_counts["spmv"] == 6 == len(fake.calls)
-    assert cuda_witness.launch_counts["spmv_merge"] == sum(1 for c in fake.calls if c[5])
+        assert cuda_witness.launch_counts["spmv"] == 1 == len(fake.calls)
+        (_, mats, _, n_, _, v, nlong, grid), = fake.calls
+        assert mats == 3 and n_ == n and v == vec and 1 <= grid <= ctas
+        assert nlong == sum(tcomp.csr(k).nlong for k in range(3))
 
 
 @pytest.mark.parametrize("case", [c for c in CASES if not CASES[c].get("dense")])
@@ -217,11 +264,11 @@ def test_instance_map_replay_and_plain_equal_jax(replayed, case):
     tt = tdom.random_exceptional(np.random.default_rng(5))
     want = jred.eval_instance_arrays(jcomp, jt.res, jdom)
     plain = tred.eval_instance_arrays(tcomp, tt.res, tdom)
-    replayed()
+    replayed(3)
     got = tred.eval_instance_arrays(tcomp, tt.res, tdom)
     for w, p, g in zip(want, plain, got):
         assert np.array_equal(_u(p), np.asarray(w)) and np.array_equal(_u(g), np.asarray(w))
-    assert cuda_witness.launch_counts["spmv"] == 3
+    assert cuda_witness.launch_counts["spmv"] == 1
 
 
 def test_derivation_refuses_out_of_range_and_wide_moduli():
